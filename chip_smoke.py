@@ -1,36 +1,58 @@
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU and check
+them.
 
     python3 chip_smoke.py
 
-The main path is ``dtcwt_tpu_torch.Transform2d()`` with the default filters
-(near_sym_a / qshift_a), ``forward(x, nlevels=3)`` then ``inverse``, on a
-4096 x 4096 image, in three layouts: interleaved complex float32, float32
-planes and bfloat16 planes.  Phases, each printing its own lines:
+Two main paths, each through the entry points a user calls, with the
+default filters (near_sym_a / qshift_a), in three layouts (interleaved
+complex float32, float32 planes, bfloat16 planes):
+
+* 2-D: ``dtcwt_tpu_torch.Transform2d()``, ``forward(x, nlevels=3)`` then
+  ``inverse``, on a 4096 x 4096 image (four level kernels);
+* 1-D: ``dtcwt_tpu_torch.Transform1d()``, ``forward(x, nlevels=8)`` then
+  ``inverse``, on a ``[131072, 128]`` multichannel signal (2**24 samples;
+  the four dual-stream kernels), and the single 4 194 304-sample vector at
+  8 levels.
+
+Phases, each printing its own lines:
 
 1. device: the card, and its name and power limit from nvidia-smi;
-2. build: the four CUDA kernels from ``dtcwt_tpu_torch/csrc``, timed;
+2. build: every CUDA kernel from ``dtcwt_tpu_torch/csrc``, timed;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes (float32 interleaved, float32 planes, bfloat16
-   planes) and at small odd shapes in float64 for every non-bandpass
-   family, including signals shorter than the filter;
-4. main path: the round trip in all three layouts with the plain versions
-   patched to raise, the launch counts (1/2/2/1 per round trip), the
-   reconstruction error, agreement with the plain path on the card, and a
-   4 x 1000 x 1500 batch (pad and crop) against the plain path;
-5. timing: CUDA events, median of repeated runs after warm-up: each kernel
-   and the round trip against their plain versions.
+   the main paths' shapes (float32, and bfloat16) and at small odd shapes
+   in float64 for every non-bandpass family, including signals shorter than
+   the filter; the dual-stream kernels also on axes -1, -2 and -3, on one
+   signal (``inner = 1``) and in their from-extension mode;
+4. main paths: each round trip in all three layouts with the plain versions
+   patched to raise, the launch counts (2-D 1/2/2/1, 1-D 1/7/7/1 per round
+   trip), the reconstruction error and agreement with the plain path on the
+   card; a 4 x 1000 x 1500 batch (pad and crop) against the plain path; the
+   4M-sample vector; a small float64 1-D case against the CPU;
+5. timing: CUDA events, median of 10 runs after 2 warm-up runs (for a round
+   trip the time its caller waits; for a kernel, its plain version and a
+   library call the device's time alone, the stream held while the host
+   enqueues them): each kernel at its main-path shapes against its plain
+   version and, where one PyTorch call computes the same function
+   (``F.conv2d`` for ``filter2`` and ``filter2_sum``, TF32 off), that
+   call; the bound of each kernel (its bytes at 3.35 TB/s or its float32
+   operations at 67 TFLOP/s, whichever is longer); each round trip against
+   the plain path; for the f32 interleaved round trips, a
+   ``torch.profiler`` trace: device time by kernel, the device's idle
+   share and the host's time to enqueue.
 
 Tolerances, relative to the largest reference value: float32 1e-5 (sums in
 another order), bfloat16 1e-2 (one bfloat16 step of the stored outputs),
 float64 1e-12.  Reconstruction: float32 1e-4, bfloat16 0.04 (storage grade).
 
-The second-to-last line is the JSON list of kernels; the last line is
-``{"ok": true, "device": {...}}``, printed only when every phase passed.
-Without a GPU, or outside the repository, the script fails before it.
+The last three lines are the nvidia-smi line, the JSON list of kernels and
+``{"ok": true, "device": {...}}``; they are printed only when every phase
+passed.  Without a GPU, or outside the repository, the script fails before
+them.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import statistics
@@ -40,9 +62,12 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 N = 4096
 NLEVELS = 3
+N1, C1, NLEVELS1 = 131072, 128, 8      # the 1-D main path
+NVEC = 4194304                         # the single long vector
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float64: 1e-12}
 REC_TOL = {torch.float32: 1e-4, torch.bfloat16: 0.04}
 LAYOUTS = (("f32 interleaved", torch.float32, "interleaved"),
@@ -51,6 +76,9 @@ LAYOUTS = (("f32 interleaved", torch.float32, "interleaved"),
 BIORTS = ("antonini", "legall", "near_sym_a", "near_sym_b")
 QSHIFTS = ("qshift_06", "qshift_a", "qshift_b", "qshift_c", "qshift_d",
            "qshift_32")
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+F32_FLOP_PER_S = 67e12         # float32 outside the tensor cores
+_DUAL_SRC = "dtcwt_tpu_torch/csrc/dual.cu"
 KERNELS = {   # name -> (CUDA source, the TPU kernel it replaces)
     "level1": ("dtcwt_tpu_torch/csrc/level1.cu",
                "dtcwt_tpu/ops/pallas_level1.py:374"),
@@ -60,7 +88,13 @@ KERNELS = {   # name -> (CUDA source, the TPU kernel it replaces)
                 "dtcwt_tpu/ops/pallas_ilevel2.py:455"),
     "ilevel1": ("dtcwt_tpu_torch/csrc/ilevel1.cu",
                 "dtcwt_tpu/ops/pallas_ilevel1.py:434"),
+    "filter2": (_DUAL_SRC, "dtcwt_tpu/ops/pallas_dual.py:173"),
+    "dfilt2": (_DUAL_SRC, "dtcwt_tpu/ops/pallas_dual.py:294"),
+    "ifilt2_sum": (_DUAL_SRC, "dtcwt_tpu/ops/pallas_dual.py:533"),
+    "filter2_sum": (_DUAL_SRC, "dtcwt_tpu/ops/pallas_dual.py:409"),
 }
+LAUNCHES_2D = {"level1": 1, "level2": 2, "ilevel2": 2, "ilevel1": 1}
+LAUNCHES_1D = {"filter2": 1, "dfilt2": 7, "ifilt2_sum": 7, "filter2_sum": 1}
 
 failures = []
 
@@ -88,22 +122,114 @@ def abs_err(got, want) -> float:
     return float((g.double() - w.double()).abs().max())
 
 
-def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+def tensors(obj):
+    """Every tensor in a nest of tuples, lists and dicts."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, dict):
+        obj = list(obj.values())
+    return [t for o in obj for t in tensors(o)]
+
+
+def nbytes(obj) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors(obj))
+
+
+def bound(nbytes_: int, macs: int):
+    """(ms, "bytes" or "operations"): the least time for *nbytes_* of
+    device memory traffic and *macs* float32 multiply-adds."""
+    t_bytes = nbytes_ / HBM_BYTES_PER_S
+    t_ops = 2 * macs / F32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def cuda_ms(fn, reps: int = 10, warmup: int = 2, hold: bool = False
+            ) -> float:
     """Median milliseconds of *fn* over *reps* runs, each between two CUDA
-    events, after *warmup* runs."""
+    events, after *warmup* runs.  Without *hold* that is the time a caller
+    waits, host work included.  With *hold* a spin kernel holds the stream
+    while the host enqueues *fn*, so the events time only the device's work
+    (a kernel's time, whatever its launch costs the host)."""
+    host = 0.0
     for _ in range(warmup):
+        t0 = time.perf_counter()
         fn()
+        host = max(host, time.perf_counter() - t0)
     torch.cuda.synchronize()
+    cycles = int((3 * host * 1e3 + 1.0) * _sleep_cycles_per_ms()) if hold \
+        else 0
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if hold:
+            torch.cuda._sleep(cycles)
         start.record()
         fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+_SLEEP_RATE = []
+
+
+def _sleep_cycles_per_ms() -> float:
+    """Cycles of ``torch.cuda._sleep`` per millisecond, measured once."""
+    if not _SLEEP_RATE:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1000)
+        start.record()
+        torch.cuda._sleep(10 ** 7)
+        end.record()
+        end.synchronize()
+        _SLEEP_RATE.append(1e7 / start.elapsed_time(end))
+    return _SLEEP_RATE[0]
+
+
+def trace(fn, reps: int = 10):
+    """Per call of *fn*: wall milliseconds, host milliseconds to enqueue it,
+    and device milliseconds by kernel name from ``torch.profiler`` (empty
+    where the profiler sees no device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    enqueue = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / reps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    device = collections.Counter()
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            device[e.key] += e.self_device_time_total / 1e3 / reps
+    return wall, enqueue, device
+
+
+def print_trace(what, fn) -> None:
+    wall, enqueue, device = trace(fn)
+    busy = sum(device.values())
+    if not busy:
+        print("trace %s: wall %.3f ms, host enqueue %.3f ms per round trip; "
+              "device time not measured (the profiler saw no device "
+              "activity)" % (what, wall, enqueue), flush=True)
+        return
+    top = ", ".join("%s %.4f ms" % (k.split("(")[0][:60], v)
+                    for k, v in device.most_common(6))
+    print("trace %s: wall %.3f ms, device %.3f ms (idle %.1f%%), host "
+          "enqueue %.3f ms per round trip; device time by kernel: %s" % (
+              what, wall, busy, 100 * (1 - busy / wall), enqueue, top),
+          flush=True)
 
 
 def rand(shape, seed, device, dtype):
@@ -138,13 +264,18 @@ def patched(pairs):
             setattr(m, n, v)
 
 
+def refuse(*_a, **_k):
+    raise RuntimeError("a plain version ran on the CUDA path")
+
+
 def main() -> int:
     # --- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
                          " is false)")
     import dtcwt_tpu_torch as dt
-    from dtcwt_tpu_torch.ops import _build, ilevel1, ilevel2, level1, level2
+    from dtcwt_tpu_torch.ops import (
+        _build, dual, fb, ilevel1, ilevel2, level1, level2)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -190,6 +321,14 @@ def main() -> int:
             (lambda: ilevel1.inv_level1_reference(zb[0], g0o=bb[1],
                                                   g1o=bb[3], **zb[1]))),
     }
+    # multiply-adds of one call of each 2-D level kernel: x [.., R, C]
+    # (forward) or the lowpass z [.., H, W] (inverse)
+    macs_2d = {
+        "level1": lambda x: 3 * x.numel() * (b[0].size + b[2].size),
+        "level2": lambda x: 2 * x.numel() * q[0].size,
+        "ilevel2": lambda zb: 8 * zb[0].numel() * q[2].size,
+        "ilevel1": lambda zb: 3 * zb[0].numel() * (b[1].size + b[3].size),
+    }
 
     def inputs(name, shape, dtype, planes, seed=0):
         if name in ("level1", "level2"):
@@ -199,11 +338,47 @@ def main() -> int:
                                                    shape[-1] // 2),
                               seed + 1, dev, dtype, planes))
 
+    # the 1-D main path's filters, in the transform's call order
+    t1 = dt.Transform1d()
+    h0o, g0o, h1o, g1o = t1.biort
+    h0a, h0b, g0a, g0b, h1a, h1b, g1a, g1b = t1.qshift
+    dual_filters = {"filter2": (h0o, h1o), "dfilt2": ((h0b, h0a), (h1b, h1a)),
+                    "ifilt2_sum": ((g0b, g0a), (g1b, g1a)),
+                    "filter2_sum": (g0o, g1o)}
+    n_inputs = {"filter2": 1, "dfilt2": 1, "ifilt2_sum": 2, "filter2_sum": 2}
+
+    def dual_call(name, ins, f=None, side=None, axis=0):
+        """(kernel wrapper, plain version) of dual kernel *name* on *ins*
+        with filters *f* (default: the main path's), in the axis mode or,
+        with *side*, the from-extension mode."""
+        f = dual_filters[name] if f is None else f
+        if side is None:
+            k = getattr(dual, name + "_axis")
+            p = getattr(dual, name + "_axis_reference")
+            return (lambda: k(*ins, *f, axis)), (lambda: p(*ins, *f, axis))
+        k = getattr(dual, name + "_fromext_axis")
+        p = getattr(dual, name + "_fromext_axis_reference")
+        return ((lambda: k(*ins, side, *f, axis)),
+                (lambda: p(*ins, side, *f, axis)))
+
+    def macs_dual(name, outs, f=None):
+        f = dual_filters[name] if f is None else f
+        m = [np.asarray(h[0] if isinstance(h, tuple) else h).size for h in f]
+        if name in ("filter2", "dfilt2"):
+            return outs[0].numel() * m[0] + outs[1].numel() * m[1]
+        per = (m[0] + m[1]) // (2 if name == "ifilt2_sum" else 1)
+        return outs.numel() * per
+
+    def dual_inputs(name, rows, dtype, seed=0, cols=C1):
+        return [rand((rows, cols), seed + i, dev, dtype)
+                for i in range(n_inputs[name])]
+
     # --- 3. kernels against their plain versions ---------------------------
     main_shapes = {"level1": [(N, N)], "level2": [(N, N), (N // 2, N // 2)],
                    "ilevel2": [(N // 4, N // 4), (N // 2, N // 2)],
                    "ilevel1": [(N, N)]}
-    report = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    report = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                  "bound_ms": 0.0, "bound_by": "bytes", "library_ms": None}
               for k in KERNELS}
     for name, shapes in main_shapes.items():
         for shape in shapes:
@@ -243,12 +418,68 @@ def main() -> int:
               "worst rel err %.3g (tol %g)" % (name, ",".join(fams), small[
                   name], worst, TOL[torch.float64]))
 
-    # --- 4. main path ------------------------------------------------------
+    # the dual-stream kernels: rows along axis 0 of [rows, 128] at every
+    # call of the 1-D main path, float32 and bfloat16
+    main_rows = {"filter2": [N1],
+                 "dfilt2": [N1 >> k for k in range(NLEVELS1 - 1)],
+                 "ifilt2_sum": [(N1 >> (NLEVELS1 - 1)) << k
+                                for k in range(NLEVELS1 - 1)],
+                 "filter2_sum": [N1]}
+    vec_rows = {name: [r * (NVEC // N1) for r in rows]
+                for name, rows in main_rows.items()}
+    for name, rows_list in main_rows.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            worst = 0.0
+            for rows in rows_list:
+                kern, plain = dual_call(name, dual_inputs(name, rows, dtype))
+                got = kern()
+                torch.cuda.synchronize()
+                want = plain()
+                worst = max(worst, rel_err(got, want))
+                if dtype == torch.float32:
+                    report[name]["max_abs_err"] = max(
+                        report[name]["max_abs_err"], abs_err(got, want))
+                del got, want
+            check(worst <= TOL[dtype], "kernel %s [rows, %d] rows %s %s: "
+                  "worst rel err %.3g (tol %g)" % (
+                      name, C1, rows_list, dtype, worst, TOL[dtype]))
+    # float64 at small shapes: every non-bandpass family, axes -1/-2/-3,
+    # signals shorter than the filter, one signal (inner = 1), both modes
+    dual_small = [((8, 20, 36), (-1, -2, -3)), ((4, 8, 4), (-1, -2, -3)),
+                  ((1028, 1), (0,)), ((12, 130), (0,))]
+    side = 32       # covers qshift_32's 32-tap decimator
+    for name in main_rows:
+        fams = BIORTS if name in ("filter2", "filter2_sum") else QSHIFTS
+        worst = 0.0
+        for fam in fams:
+            if fam in BIORTS:
+                bb = dt.biort(fam)
+                f = (bb[0], bb[2]) if name == "filter2" else (bb[1], bb[3])
+            else:
+                qq = dt.qshift(fam)
+                f = (((qq[1], qq[0]), (qq[5], qq[4])) if name == "dfilt2"
+                     else ((qq[3], qq[2]), (qq[7], qq[6])))
+            for seed, (shape, axes) in enumerate(dual_small):
+                xs = [rand(shape, seed + i, dev, torch.float64)
+                      for i in range(n_inputs[name])]
+                for axis in axes:
+                    for s in (None, side):
+                        ins = xs if s is None else [
+                            fb.symmetric_extend(x, s, axis).contiguous()
+                            for x in xs]
+                        kern, plain = dual_call(name, ins, f, s, axis)
+                        got = kern()
+                        torch.cuda.synchronize()
+                        worst = max(worst, rel_err(got, plain()))
+        check(worst <= TOL[torch.float64],
+              "kernel %s float64, families %s, shapes %s on every axis, "
+              "axis and from-extension modes: worst rel err %.3g (tol %g)"
+              % (name, ",".join(fams), [s for s, _ in dual_small], worst,
+                 TOL[torch.float64]))
+
+    # --- 4. main paths -------------------------------------------------------
     x32 = torch.from_numpy(np.random.RandomState(0).rand(N, N).astype(
         np.float32)).to(dev)
-
-    def refuse(*_a, **_k):
-        raise RuntimeError("a plain version ran on the CUDA path")
 
     no_plain = [(mods[k], f, refuse) for k, f in (
         ("level1", "fwd_level1_reference"), ("level2", "fwd_level2_reference"),
@@ -269,9 +500,8 @@ def main() -> int:
         counts = dict(_build.launches)
         if not launches:
             launches = counts
-        check(counts == {"level1": 1, "level2": 2, "ilevel2": 2,
-                         "ilevel1": 1},
-              "main path %s: launches %s" % (label, counts))
+        check(counts == LAUNCHES_2D,
+              "main path 2-D %s: launches %s" % (label, counts))
         hp = pyr.highpasses if layout == "interleaved" else pyr.highpasses_re
         shapes_ok = (tuple(rec.shape) == (N, N) and rec.dtype == dtype
                      and tuple(pyr.lowpass.shape) == (N // 4, N // 4)
@@ -281,15 +511,15 @@ def main() -> int:
                                 else h.float()).all()) for h in hp)
         err = float((rec.float() - x.float()).abs().max())
         check(shapes_ok and finite and err <= REC_TOL[dtype],
-              "main path %s: 4096x4096 %d-level round trip, reconstruction "
-              "max abs err %.3g (tol %g), shapes %s, finite %s" % (
-                  label, NLEVELS, err, REC_TOL[dtype], shapes_ok, finite))
+              "main path 2-D %s: 4096x4096 %d-level round trip, "
+              "reconstruction max abs err %.3g (tol %g), shapes %s, finite %s"
+              % (label, NLEVELS, err, REC_TOL[dtype], shapes_ok, finite))
         with patched(plain_path):
             rec_plain = t.inverse(t.forward(x, nlevels=NLEVELS,
                                             layout=layout))
         e = rel_err(rec, rec_plain)
-        check(e <= TOL[dtype] * 10, "main path %s: kernel vs plain path on "
-              "the card, reconstruction rel err %.3g (tol %g)" % (
+        check(e <= TOL[dtype] * 10, "main path 2-D %s: kernel vs plain path "
+              "on the card, reconstruction rel err %.3g (tol %g)" % (
                   label, e, TOL[dtype] * 10))
         del pyr, rec, rec_plain
 
@@ -305,46 +535,194 @@ def main() -> int:
     check(e <= TOL[torch.float32] and rec_e <= REC_TOL[torch.float32],
           "batch 4x1000x1500 (pad + crop): kernel vs plain rel err %.3g, "
           "reconstruction max abs err %.3g" % (e, rec_e))
-    del xb, pk, rk, pp, rp
+    del xb, pk, rk, pp, rp, x32
+
+    dual_names = ("filter2", "dfilt2", "ifilt2_sum", "filter2_sum")
+    no_plain_1d = [(dual, n + "_axis_reference", refuse) for n in dual_names]
+    plain_path_1d = [(dual, n + "_axis", getattr(dual, n + "_axis_reference"))
+                     for n in dual_names]
+    x1 = torch.from_numpy(np.random.RandomState(1).rand(N1, C1).astype(
+        np.float32)).to(dev)
+    xv = torch.from_numpy(np.random.RandomState(2).rand(NVEC).astype(
+        np.float32)).to(dev)
+    launches_1d = {}
+    runs_1d = [(label, x1.to(dtype), layout) for label, dtype, layout in
+               LAYOUTS] + [("f32 interleaved, one %d-sample vector" % NVEC,
+                            xv, "interleaved")]
+    for label, x, layout in runs_1d:
+        dtype = x.dtype
+        _build.reset_launches()
+        with patched(no_plain_1d):
+            pyr = t1.forward(x, nlevels=NLEVELS1, layout=layout)
+            rec = t1.inverse(pyr)
+            torch.cuda.synchronize()
+        counts = dict(_build.launches)
+        if not launches_1d:
+            launches_1d = counts
+        check(counts == LAUNCHES_1D,
+              "main path 1-D %s: launches %s" % (label, counts))
+        hp = pyr.highpasses if layout == "interleaved" else pyr.highpasses_re
+        rows = x.shape[0] >> (NLEVELS1 - 1)
+        shapes_ok = (rec.shape == x.shape and rec.dtype == dtype
+                     and pyr.lowpass.shape[0] == rows
+                     and len(hp) == NLEVELS1)
+        finite = bool(torch.isfinite(rec.float()).all()) and all(
+            bool(torch.isfinite(torch.view_as_real(h) if h.is_complex()
+                                else h.float()).all()) for h in hp)
+        err = float((rec.float() - x.float()).abs().max())
+        check(shapes_ok and finite and err <= REC_TOL[dtype],
+              "main path 1-D %s: %s %d-level round trip, reconstruction max "
+              "abs err %.3g (tol %g), shapes %s, finite %s" % (
+                  label, "x".join(map(str, x.shape)), NLEVELS1, err,
+                  REC_TOL[dtype], shapes_ok, finite))
+        with patched(plain_path_1d):
+            rec_plain = t1.inverse(t1.forward(x, nlevels=NLEVELS1,
+                                              layout=layout))
+        e = rel_err(rec, rec_plain)
+        check(e <= TOL[dtype] * 10, "main path 1-D %s: kernel vs plain path "
+              "on the card, reconstruction rel err %.3g (tol %g)" % (
+                  label, e, TOL[dtype] * 10))
+        del pyr, rec, rec_plain
+
+    xs = np.random.RandomState(4).rand(202, 19)
+    tc = dt.Transform1d("near_sym_b", "qshift_d", device="cpu")
+    tg = dt.Transform1d("near_sym_b", "qshift_d")
+    pg = tg.forward(xs, 4, include_scale=True)
+    pc = tc.forward(xs, 4, include_scale=True)
+    e = max([rel_err(pg.lowpass.cpu(), pc.lowpass),
+             rel_err(tg.inverse(pg).cpu(), tc.inverse(pc))]
+            + [rel_err(a.cpu(), c) for a, c in zip(pg.highpasses + pg.scales,
+                                                   pc.highpasses + pc.scales)])
+    check(e <= TOL[torch.float64], "1-D float64 202x19, near_sym_b/qshift_d, "
+          "4 levels (pads and crops): card vs CPU, every leaf, rel err %.3g "
+          "(tol %g)" % (e, TOL[torch.float64]))
 
     # --- 5. timing -----------------------------------------------------------
     print("timing on %s: CUDA events, median of 10 runs after 2 warm-up runs"
           % smi, flush=True)
+    x = torch.from_numpy(np.random.RandomState(0).rand(N, N).astype(
+        np.float32)).to(dev)
     for label, dtype, layout in LAYOUTS:
-        x = x32.to(dtype)
-        ms = cuda_ms(lambda: t.inverse(t.forward(x, NLEVELS, layout=layout)))
+        xd = x.to(dtype)
+        ms = cuda_ms(lambda: t.inverse(t.forward(xd, NLEVELS, layout=layout)))
         with patched(plain_path):
-            pms = cuda_ms(lambda: t.inverse(t.forward(x, NLEVELS,
+            pms = cuda_ms(lambda: t.inverse(t.forward(xd, NLEVELS,
                                                       layout=layout)))
-        print("time round trip 4096x4096 %d levels %s: kernels %.3f ms, "
+        print("time round trip 2-D 4096x4096 %d levels %s: kernels %.3f ms, "
               "plain %.3f ms" % (NLEVELS, label, ms, pms), flush=True)
+        if layout == "interleaved":
+            print_trace("round trip 2-D %s" % label, lambda: t.inverse(
+                t.forward(xd, NLEVELS)))
+    del x, xd
     for name, shapes in main_shapes.items():
         for shape in shapes:
             for label, dtype, layout in LAYOUTS:
                 pl = layout == "planes"
-                kern, plain = calls[name](inputs(name, shape, dtype, pl), pl)
-                ms, pms = cuda_ms(kern), cuda_ms(plain)
+                inp = inputs(name, shape, dtype, pl)
+                kern, plain = calls[name](inp, pl)
+                ms = cuda_ms(kern, hold=True)
+                pms = cuda_ms(plain, hold=True)
                 if dtype == torch.float32 and not pl:
+                    bms, by = bound(nbytes(inp) + nbytes(kern()),
+                                    macs_2d[name](inp))
                     report[name]["ms"] += ms
                     report[name]["plain_ms"] += pms
+                    report[name]["bound_ms"] += bms
+                    if by != "bytes":
+                        report[name]["bound_by"] = by
                 print("time %s %s %s: kernel %.4f ms, plain %.4f ms" % (
                     name, "x".join(map(str, shape)), label, ms, pms),
                     flush=True)
+                del inp, kern, plain
 
+    for label, x, layout in runs_1d:
+        ms = cuda_ms(lambda: t1.inverse(t1.forward(x, NLEVELS1,
+                                                   layout=layout)))
+        with patched(plain_path_1d):
+            pms = cuda_ms(lambda: t1.inverse(t1.forward(x, NLEVELS1,
+                                                        layout=layout)))
+        print("time round trip 1-D %s %d levels %s: kernels %.3f ms, plain "
+              "%.3f ms" % ("x".join(map(str, x.shape)), NLEVELS1, label, ms,
+                           pms), flush=True)
+        if layout == "interleaved":
+            print_trace("round trip 1-D %s" % label, lambda: t1.inverse(
+                t1.forward(x, NLEVELS1)))
+    del x1, xv, runs_1d
+    for shapes, cols, what in ((main_rows, C1, "main"),
+                               (vec_rows, 1, "one signal, inner = 1")):
+        for name, rows_list in shapes.items():
+            tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                   "bound_by": "bytes"}
+            for rows in rows_list:
+                ins = dual_inputs(name, rows, torch.float32, cols=cols)
+                kern, plain = dual_call(name, ins)
+                outs = kern()
+                bms, by = bound(nbytes(ins) + nbytes(outs),
+                                macs_dual(name, outs))
+                ms = cuda_ms(kern, hold=True)
+                pms = cuda_ms(plain, hold=True)
+                for k, v in (("ms", ms), ("plain_ms", pms),
+                             ("bound_ms", bms)):
+                    tot[k] += v
+                if by != "bytes":
+                    tot["bound_by"] = by
+                print("time %s [%d, %d] f32: kernel %.4f ms, plain %.4f ms, "
+                      "bound %.4f ms (%s)" % (name, rows, cols, ms, pms, bms,
+                                              by), flush=True)
+                del ins, outs, kern, plain
+            print("time %s, %s, its %d launch(es) of one round trip: kernel "
+                  "%.4f ms, plain %.4f ms, bound %.4f ms" % (
+                      name, what, len(rows_list), tot["ms"], tot["plain_ms"],
+                      tot["bound_ms"]), flush=True)
+            if what == "main":
+                report[name].update(tot)
+
+    # one PyTorch call computing filter2 / filter2_sum: a convolution over
+    # the pre-extended input viewed as [1, channels, rows + 2p, 128]
+    for name in ("filter2", "filter2_sum"):
+        f = dual_filters[name]
+        p = max(np.asarray(h).size for h in f) // 2
+        w = torch.zeros((2, 2 * p + 1), dtype=torch.float64)
+        for c, h in enumerate(f):
+            h = np.asarray(h, np.float64)
+            off = p - h.size // 2
+            w[c, off:off + h.size] = torch.from_numpy(h[::-1].copy())
+        ins = dual_inputs(name, N1, torch.float32)
+        ext = torch.stack([fb.symmetric_extend(x, p, 0) for x in ins])[None]
+        if name == "filter2":
+            weight = w[:, None, :, None].to(dev, torch.float32)
+            lib = lambda: F.conv2d(ext, weight)
+            got = lib()[0]
+            got = (got[0], got[1])
+        else:
+            weight = w[None, :, :, None].to(dev, torch.float32)
+            lib = lambda: F.conv2d(ext, weight)
+            got = lib()[0, 0]
+        want = dual_call(name, ins)[0]()
+        lms = cuda_ms(lib, hold=True)
+        report[name]["library_ms"] = lms
+        print("time %s library call F.conv2d [1, %d, %d, %d] (TF32 off): "
+              "%.4f ms; rel err against the kernel %.3g" % (
+                  name, ext.shape[1], ext.shape[2], ext.shape[3], lms,
+                  rel_err(got, want)), flush=True)
+        del ins, ext, got, want
+
+    counts = dict(launches, **launches_1d)
     kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": rep, "launches": launches.get(name, 0),
-                "max_abs_err": report[name]["max_abs_err"],
-                "ms": report[name]["ms"], "plain_ms": report[name]["plain_ms"]}
+                "replaces": rep, "launches": counts.get(name, 0),
+                **report[name]}
                for name, (src, rep) in KERNELS.items()]
-    print("ms / plain_ms: the kernel's main-path calls in one f32 interleaved"
-          " round trip; max_abs_err: f32 interleaved at main-path shapes")
+    print("ms / plain_ms / bound_ms: the kernel's calls in one f32 round "
+          "trip of its main path (2-D interleaved, 1-D [131072, 128]); "
+          "max_abs_err: f32 at the main-path shapes; library_ms: one "
+          "F.conv2d at the main-path shape, where one call computes it")
     if failures:
         print("FAILED %d check(s):" % len(failures))
         for f in failures:
             print("  " + f)
         return 1
-    print(json.dumps({"kernels": kernels}))
     print(smi)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

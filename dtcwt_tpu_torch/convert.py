@@ -41,14 +41,17 @@ def _map(p, fn):
     if hasattr(p, "highpasses_re"):
         return PlanePyramid(fn(p.lowpass),
                             tuple(fn(r) for r in p.highpasses_re),
-                            tuple(fn(i) for i in p.highpasses_im), scales)
+                            tuple(fn(i) for i in p.highpasses_im), scales,
+                            kind=getattr(p, "kind", "2d"))
     return Pyramid(fn(p.lowpass), tuple(fn(h) for h in p.highpasses), scales)
 
 
-def pyramid_from_numpy(p, device="cpu"):
+def pyramid_from_numpy(p, device="cuda"):
     """A :class:`Pyramid` or :class:`PlanePyramid` of tensors on *device*
-    from any object with the container's attributes whose leaves convert to
-    numpy arrays (``highpasses_re`` present means a plane pyramid)."""
+    (the card unless the caller asks for ``"cpu"``) from any object with
+    the container's attributes whose leaves convert to numpy arrays
+    (``highpasses_re`` present means a plane pyramid, whose ``kind``, 1-D or
+    2-D, is kept)."""
     return _map(p, lambda a: _to_tensor(a, device))
 
 

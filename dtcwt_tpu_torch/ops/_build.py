@@ -50,6 +50,12 @@ _SIGNATURES = {
     "dtcwt_ilevel1": (_P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _I, _I, _I,
                       _P),
 }
+# the dual-stream kernels of csrc/dual.cu share one interface: in0, in1,
+# out0, out1, outer, n_in, inner, g0, g1, refl, taps, lens, offs, dtype,
+# stream
+for _name in ("filter2", "dfilt2", "filter2_sum", "ifilt2_sum"):
+    _SIGNATURES["dtcwt_" + _name] = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                     _P, _P, _P, _I, _P)
 
 #: Kernel launches per wrapper, counted where each wrapper launches.
 launches = collections.Counter()

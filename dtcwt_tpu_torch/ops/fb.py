@@ -34,6 +34,8 @@ __all__ = [
     "symmetric_extend", "filter_from_ext", "dfilt_from_ext", "ifilt_from_ext",
     "filter_axis", "dfilt_axis", "ifilt_axis",
     "filter2_axis", "dfilt2_axis", "filter2_sum_axis", "ifilt2_sum_axis",
+    "trim_ext", "filter2_from_wide_ext", "dfilt2_from_wide_ext",
+    "filter2_sum_from_wide_ext", "ifilt2_sum_from_wide_ext",
     "colfilter", "rowfilter", "coldfilt", "rowdfilt", "colifilt", "rowifilt",
 ]
 
@@ -226,6 +228,57 @@ def filter2_sum_axis(a, b, h0, h1, axis: int):
 
 def ifilt2_sum_axis(a, b, pair0, pair1, axis: int):
     return ifilt_axis(a, *pair0, axis) + ifilt_axis(b, *pair1, axis)
+
+
+# ---------------------------------------------------------------------------
+# the dual forms on a wide extension: a buffer the caller has already
+# extended by *side* samples each side of *axis* (side >= what each filter
+# needs), trimmed to each filter's own width
+# ---------------------------------------------------------------------------
+
+def trim_ext(ext: torch.Tensor, side: int, need: int, axis: int):
+    """Trim a wide extension (width *side* per side) to width *need*."""
+    if side == need:
+        return ext
+    axis = _norm_axis(axis, ext.ndim)
+    return ext.narrow(axis, side - need, ext.shape[axis] - 2 * (side - need))
+
+
+def filter2_from_wide_ext(ext, side: int, h0, h1, axis: int):
+    """``(filter(ext|h0), filter(ext|h1))`` on one wide extension."""
+    h0, h1 = _as_taps(h0), _as_taps(h1)
+    return (filter_from_ext(trim_ext(ext, side, h0.size // 2, axis), h0,
+                            axis),
+            filter_from_ext(trim_ext(ext, side, h1.size // 2, axis), h1,
+                            axis))
+
+
+def dfilt2_from_wide_ext(ext, side: int, pair0, pair1, axis: int):
+    """Both decimating branch pairs on one wide extension."""
+    ha0, hb0 = (_as_taps(h) for h in pair0)
+    ha1, hb1 = (_as_taps(h) for h in pair1)
+    return (dfilt_from_ext(trim_ext(ext, side, ha0.size, axis), ha0, hb0,
+                           axis),
+            dfilt_from_ext(trim_ext(ext, side, ha1.size, axis), ha1, hb1,
+                           axis))
+
+
+def filter2_sum_from_wide_ext(a, b, side: int, h0, h1, axis: int):
+    """``filter(a|h0) + filter(b|h1)`` on two wide extensions."""
+    h0, h1 = _as_taps(h0), _as_taps(h1)
+    return (filter_from_ext(trim_ext(a, side, h0.size // 2, axis), h0, axis)
+            + filter_from_ext(trim_ext(b, side, h1.size // 2, axis), h1,
+                              axis))
+
+
+def ifilt2_sum_from_wide_ext(a, b, side: int, pair0, pair1, axis: int):
+    """``ifilt(a|pair0) + ifilt(b|pair1)`` on two wide extensions."""
+    ha0, hb0 = (_as_taps(h) for h in pair0)
+    ha1, hb1 = (_as_taps(h) for h in pair1)
+    return (ifilt_from_ext(trim_ext(a, side, ha0.size // 2, axis), ha0, hb0,
+                           axis)
+            + ifilt_from_ext(trim_ext(b, side, ha1.size // 2, axis), ha1,
+                             hb1, axis))
 
 
 # ---------------------------------------------------------------------------

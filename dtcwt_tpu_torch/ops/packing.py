@@ -1,5 +1,6 @@
-"""Quad <-> complex subband packing of the 2-D DTCWT (the 2-D part of
-``dtcwt_tpu.ops.packing``), for batched ``[..., H, W]`` tensors.
+"""Quad <-> complex subband packing of the 2-D DTCWT, for batched
+``[..., H, W]`` tensors, and the even/odd <-> complex packing of the 1-D
+DTCWT along one axis (the 1-D and 2-D parts of ``dtcwt_tpu.ops.packing``).
 
 The four corners of each 2x2 quad ``(a b / c d)`` combine as
 ``p = (a + jb)/sqrt(2)``, ``q = (d - jc)/sqrt(2)``; the two oriented
@@ -13,7 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["q2c", "c2q", "q2c_planes", "c2q_planes", "interleave_axis"]
+__all__ = ["q2c", "c2q", "q2c_planes", "c2q_planes", "interleave_axis",
+           "q2c1d", "c2q1d", "q2c1d_planes", "c2q1d_planes"]
 
 _SQRT_HALF = float(np.sqrt(0.5))
 
@@ -64,3 +66,33 @@ def c2q(w0: torch.Tensor, w1: torch.Tensor, g0=1.0, g1=1.0) -> torch.Tensor:
     """Inverse of :func:`q2c`: scale the two complex subbands by (g0, g1)
     and reassemble the real quad image of twice the height and width."""
     return c2q_planes((w0.real, w0.imag), (w1.real, w1.imag), g0, g1)
+
+
+def q2c1d_planes(y: torch.Tensor, axis: int = 0):
+    """The 1-D pack without the complex dtype: the ``(re, im)`` pair is the
+    even/odd deinterleave of *y* along *axis* (any real dtype, bfloat16
+    included), each contiguous."""
+    axis = axis if axis >= 0 else axis + y.ndim
+    idx = [slice(None)] * y.ndim
+    idx[axis] = slice(0, None, 2)
+    re = y[tuple(idx)]
+    idx[axis] = slice(1, None, 2)
+    return re.contiguous(), y[tuple(idx)].contiguous()
+
+
+def q2c1d(y: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """Pack alternating samples along *axis* into complex values:
+    ``z[i] = y[2i] + j*y[2i+1]``."""
+    return torch.complex(*q2c1d_planes(y, axis))
+
+
+def c2q1d_planes(re: torch.Tensor, im: torch.Tensor,
+                 axis: int = 0) -> torch.Tensor:
+    """Inverse of :func:`q2c1d_planes`: interleave the plane pair."""
+    return interleave_axis((re, im), axis)
+
+
+def c2q1d(z: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """Inverse of :func:`q2c1d`: interleave the real and imaginary parts
+    along *axis*."""
+    return interleave_axis((z.real, z.imag), axis)

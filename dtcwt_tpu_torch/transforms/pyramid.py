@@ -1,4 +1,4 @@
-"""The transform-domain containers of the 2-D transform
+"""The transform-domain containers of the 1-D and 2-D transforms
 (``dtcwt_tpu.transforms.pyramid``): plain classes holding tensors."""
 
 from __future__ import annotations
@@ -49,22 +49,26 @@ class Pyramid:
 
 
 class PlanePyramid:
-    """A 2-D DTCWT pyramid in the **band-plane layout**: each level holds
-    two real band-major tensors ``[..., 6, H_l, W_l]`` (``highpasses_re`` /
-    ``highpasses_im``) in :data:`PLANE_BAND_ORDER`.  This is the layout the
-    level kernels write and read directly, and the only one that stores
-    bfloat16.  Convert with :meth:`interleaved` / :meth:`from_interleaved`.
+    """A DTCWT pyramid in the **band-plane layout**: each level holds two
+    real tensors, ``highpasses_re`` / ``highpasses_im``.  For the 2-D
+    transform (``kind='2d'``) they are band-major ``[..., 6, H_l, W_l]`` in
+    :data:`PLANE_BAND_ORDER`, the layout the level kernels write and read
+    directly; for the 1-D transform (``kind='1d'``) they are the real and
+    imaginary parts of the ``[..., N_l, C]`` subbands, with no band axis.
+    This is the only layout that stores bfloat16.  Convert with
+    :meth:`interleaved` / :meth:`from_interleaved`.
     """
 
-    __slots__ = ("lowpass", "highpasses_re", "highpasses_im", "scales")
-    kind = "2d"     # the JAX package's container also carries 1-D and 3-D
+    __slots__ = ("lowpass", "highpasses_re", "highpasses_im", "scales",
+                 "kind")
 
     def __init__(self, lowpass, highpasses_re: Tuple, highpasses_im: Tuple,
-                 scales: Optional[Tuple] = None):
+                 scales: Optional[Tuple] = None, kind: str = "2d"):
         self.lowpass = lowpass
         self.highpasses_re = tuple(highpasses_re)
         self.highpasses_im = tuple(highpasses_im)
         self.scales = None if scales is None else tuple(scales)
+        self.kind = kind
 
     def interleaved(self) -> Pyramid:
         """The interleaved :class:`Pyramid` (complex band-minor subbands).
@@ -73,6 +77,8 @@ class PlanePyramid:
 
         def pack(re, im):
             z = torch.complex(up(re), up(im))
+            if self.kind == "1d":
+                return z        # no band axis to reorder
             return torch.stack([z[..., p, :, :] for p in _PLANE_POS], dim=-1)
 
         return Pyramid(up(self.lowpass),
@@ -82,12 +88,17 @@ class PlanePyramid:
                        else tuple(up(s) for s in self.scales))
 
     @classmethod
-    def from_interleaved(cls, p: Pyramid) -> "PlanePyramid":
-        """Split an interleaved pyramid into band planes."""
-        planes = [torch.stack([h[..., d] for d in PLANE_BAND_ORDER], dim=-3)
-                  for h in p.highpasses]
+    def from_interleaved(cls, p: Pyramid, kind: str = "2d") -> "PlanePyramid":
+        """Split an interleaved pyramid of the 2-D (``kind='2d'``) or 1-D
+        (``kind='1d'``) transform into planes."""
+        if kind == "1d":
+            planes = list(p.highpasses)
+        else:
+            planes = [torch.stack([h[..., d] for d in PLANE_BAND_ORDER],
+                                  dim=-3) for h in p.highpasses]
         return cls(p.lowpass, tuple(z.real.contiguous() for z in planes),
-                   tuple(z.imag.contiguous() for z in planes), p.scales)
+                   tuple(z.imag.contiguous() for z in planes), p.scales,
+                   kind=kind)
 
     @property
     def nlevels(self) -> int:

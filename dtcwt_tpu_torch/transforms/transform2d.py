@@ -6,7 +6,9 @@ Each level is one call of a level module (``ops/level1``, ``ops/level2``,
 tensor and its plain PyTorch version on a CPU tensor.  What stays here is
 glue in PyTorch: odd-size edge duplication, the per-level multiple-of-4
 padding, the inverse's crop, the gain-mask pre-scaling and the bfloat16
-rules.  Levels hand each other plain lowpass images.
+rules.  Levels hand each other plain lowpass images.  The transform runs on its
+``device`` ("cuda" unless the caller asks for "cpu") and moves its inputs
+there.
 """
 
 from __future__ import annotations
@@ -85,12 +87,19 @@ class Transform2d(nn.Module):
     """An n-level 2-D DTCWT parameterised by *biort* (level-1) and *qshift*
     (level>=2) wavelets: named families or explicit coefficient tuples of
     numpy arrays.  The transform has no learned weights; the filters are
-    host-side float64 taps."""
+    host-side float64 taps.
 
-    def __init__(self, biort=DEFAULT_BIORT, qshift=DEFAULT_QSHIFT):
+    *device* is where the transform runs: every input (numpy array, list or
+    tensor on another device) and every pyramid leaf is moved there.  The
+    default, ``"cuda"``, runs the CUDA kernels (and raises where there is no
+    card); ``device="cpu"`` runs the plain PyTorch versions."""
+
+    def __init__(self, biort=DEFAULT_BIORT, qshift=DEFAULT_QSHIFT,
+                 device="cuda"):
         super().__init__()
         self.biort = normalize_biort(biort)
         self.qshift = normalize_qshift(qshift)
+        self.device = torch.device(device)
 
     def forward(self, X, nlevels: int = 3, include_scale: bool = False,
                 layout: str = "interleaved"):
@@ -99,7 +108,7 @@ class Transform2d(nn.Module):
         ``layout='planes'``, a :class:`PlanePyramid`.  Odd sizes have their
         last row/column duplicated first.  bfloat16 input is stored as
         bfloat16 only in the plane layout (and computed at float32)."""
-        X = torch.as_tensor(X)
+        X = torch.as_tensor(X, device=self.device)
         if X.ndim < 2:
             raise ValueError("Transform2d.forward needs at least a 2-D input")
         if layout not in ("interleaved", "planes"):
@@ -164,16 +173,16 @@ class Transform2d(nn.Module):
         g2a, g2b = (q[10], q[11]) if len(q) == 12 else (None, None)
 
         plane_pyr = isinstance(pyramid, PlanePyramid)
-        Z = torch.as_tensor(pyramid.lowpass)
+        Z = torch.as_tensor(pyramid.lowpass, device=self.device)
         sdt = Z.dtype
         if plane_pyr:
-            Yb = [(torch.as_tensor(r, device=Z.device).contiguous(),
-                   torch.as_tensor(i, device=Z.device).contiguous())
+            Yb = [(torch.as_tensor(r, device=self.device).contiguous(),
+                   torch.as_tensor(i, device=self.device).contiguous())
                   for r, i in zip(pyramid.highpasses_re,
                                   pyramid.highpasses_im)]
             hw = [tuple(r.shape[-2:]) for r, _ in Yb]
         else:
-            Yh = [torch.as_tensor(h, device=Z.device).contiguous()
+            Yh = [torch.as_tensor(h, device=self.device).contiguous()
                   for h in pyramid.highpasses]
             hw = [tuple(h.shape[-3:-1]) for h in Yh]
             if Yh:

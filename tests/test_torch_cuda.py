@@ -18,7 +18,8 @@ import torch
 
 import dtcwt_tpu_torch as dt
 from dtcwt_tpu_torch.coeffs import biort, qshift
-from dtcwt_tpu_torch.ops import _build, ilevel1, ilevel2, level1, level2
+from dtcwt_tpu_torch.ops import (
+    _build, dual, fb, ilevel1, ilevel2, level1, level2)
 from dtcwt_tpu_torch.transforms.pyramid import PLANE_BAND_ORDER
 
 _KTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float64: 1e-12}
@@ -134,13 +135,14 @@ def test_cuda_transform_matches_plain_path(cuda, layout):
     t = dt.Transform2d("near_sym_b", "qshift_b")
     x = np.random.RandomState(2).rand(3, 75, 98)
     _build.reset_launches()
-    pg = t.forward(torch.from_numpy(x).to(cuda), 3, layout=layout)
+    pg = t.forward(x, 3, layout=layout)
     rg = t.inverse(pg)
     torch.cuda.synchronize()
     assert dict(_build.launches) == {"level1": 1, "level2": 2, "ilevel2": 2,
                                      "ilevel1": 1}
-    pc = t.forward(torch.from_numpy(x), 3, layout=layout)
-    rc = t.inverse(pc)
+    tc = dt.Transform2d("near_sym_b", "qshift_b", device="cpu")
+    pc = tc.forward(torch.from_numpy(x), 3, layout=layout)
+    rc = tc.inverse(pc)
     assert _kerr(rg.cpu(), rc) < 1e-12
     assert _kerr(pg.lowpass.cpu(), pc.lowpass) < 1e-12
     hg = pg.highpasses if layout == "interleaved" else pg.highpasses_re
@@ -154,3 +156,126 @@ def test_cuda_bandpass_families_raise(cuda):
     t = dt.Transform2d("near_sym_b_bp", "qshift_b_bp")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t.forward(torch.zeros(16, 16, device=cuda), 2)
+
+
+# --- the dual-stream kernels of the 1-D transform (csrc/dual.cu) -----------
+
+_EVEN = (np.array([1.0, 3.0, 3.0, 1.0]) / 8,
+         np.array([-0.25, -1.0, 2.0, 1.0, -0.5, 0.125]))
+
+
+def _dual_calls(kind, fam):
+    """(kernel wrapper, plain version) of one dual kernel on one filter
+    case, both taking ``(inputs, axis, side)``; side None is the axis form.
+    "even" is an explicit pair of 4 and 6 taps; "mixed" takes branch 0 from
+    qshift_a (10 taps) and branch 1 from qshift_d (14 taps)."""
+    if kind in ("filter2", "filter2_sum"):
+        if fam == "even":
+            h0, h1 = _EVEN
+        else:
+            b = biort(fam)
+            h0, h1 = (b[0], b[2]) if kind == "filter2" else (b[1], b[3])
+        if kind == "filter2":
+            return (lambda x, ax, s: dual.filter2_axis(x[0], h0, h1, ax)
+                    if s is None else
+                    dual.filter2_fromext_axis(x[0], s, h0, h1, ax),
+                    lambda x, ax, s: dual.filter2_axis_reference(
+                        x[0], h0, h1, ax) if s is None else
+                    dual.filter2_fromext_axis_reference(x[0], s, h0, h1, ax))
+        return (lambda x, ax, s: dual.filter2_sum_axis(*x, h0, h1, ax)
+                if s is None else
+                dual.filter2_sum_fromext_axis(*x, s, h0, h1, ax),
+                lambda x, ax, s: dual.filter2_sum_axis_reference(
+                    *x, h0, h1, ax) if s is None else
+                dual.filter2_sum_fromext_axis_reference(*x, s, h0, h1, ax))
+    q0 = qshift("qshift_a" if fam == "mixed" else fam)
+    q1 = qshift("qshift_d" if fam == "mixed" else fam)
+    if kind == "dfilt2":
+        p0, p1 = (q0[1], q0[0]), (q1[5], q1[4])
+        return (lambda x, ax, s: dual.dfilt2_axis(x[0], p0, p1, ax)
+                if s is None else
+                dual.dfilt2_fromext_axis(x[0], s, p0, p1, ax),
+                lambda x, ax, s: dual.dfilt2_axis_reference(x[0], p0, p1, ax)
+                if s is None else
+                dual.dfilt2_fromext_axis_reference(x[0], s, p0, p1, ax))
+    p0, p1 = (q0[3], q0[2]), (q1[7], q1[6])
+    return (lambda x, ax, s: dual.ifilt2_sum_axis(*x, p0, p1, ax)
+            if s is None else
+            dual.ifilt2_sum_fromext_axis(*x, s, p0, p1, ax),
+            lambda x, ax, s: dual.ifilt2_sum_axis_reference(*x, p0, p1, ax)
+            if s is None else
+            dual.ifilt2_sum_fromext_axis_reference(*x, s, p0, p1, ax))
+
+
+_DUAL_FAMS = {"filter2": ("near_sym_a", "near_sym_b", "legall", "even"),
+              "filter2_sum": ("near_sym_a", "near_sym_b", "antonini",
+                              "even"),
+              "dfilt2": ("qshift_a", "qshift_d", "qshift_32", "mixed"),
+              "ifilt2_sum": ("qshift_a", "qshift_06", "qshift_32", "mixed")}
+# (8, 20, 36): every axis a multiple of 4, inner 720 / 36 / 1; (4, 8, 4):
+# axes shorter than the filters; (1028, 1): one signal, inner 1; (12, 130):
+# inner 130, more than one column tile
+_DUAL_SHAPES = [((8, 20, 36), (-1, -2, -3)), ((4, 8, 4), (-1, -2, -3)),
+                ((1028, 1), (0,)), ((12, 130), (0,))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("kind", ["filter2", "dfilt2", "filter2_sum",
+                                  "ifilt2_sum"])
+def test_cuda_dual_matches_plain(cuda, kind, dtype):
+    """Every dual kernel in its axis and from-extension modes, for every
+    filter case, on axes -1, -2 and -3, inner 1 and signals shorter than the
+    filter."""
+    n_in = 2 if kind.endswith("_sum") else 1
+    side = 32       # covers qshift_32's 32-tap decimator
+    for fam in _DUAL_FAMS[kind]:
+        kern, plain = _dual_calls(kind, fam)
+        for seed, (shape, axes) in enumerate(_DUAL_SHAPES):
+            xs = [_rand(shape, seed + i, cuda, dtype) for i in range(n_in)]
+            for axis in axes:
+                for s in (None, side):
+                    ins = xs if s is None else [
+                        fb.symmetric_extend(x, s, axis).contiguous()
+                        for x in xs]
+                    got = kern(ins, axis, s)
+                    torch.cuda.synchronize()
+                    assert _kerr(got, plain(ins, axis, s)) < _KTOL[dtype], \
+                        (fam, shape, axis, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["interleaved", "planes"])
+def test_cuda_transform1d_matches_plain_path(cuda, layout):
+    """The 1-D transform on the card against the CPU at float64: pad and
+    crop, a single signal and a batch through the channel methods, and the
+    launch counts of a 4-level round trip."""
+    t = dt.Transform1d("near_sym_b", "qshift_d")
+    tc = dt.Transform1d("near_sym_b", "qshift_d", device="cpu")
+    for x in (np.random.RandomState(3).rand(202, 19),
+              np.random.RandomState(4).rand(1000)):
+        _build.reset_launches()
+        pg = t.forward(x, 4, layout=layout)
+        rg = t.inverse(pg)
+        torch.cuda.synchronize()
+        assert dict(_build.launches) == {"filter2": 1, "dfilt2": 3,
+                                         "ifilt2_sum": 3, "filter2_sum": 1}
+        pc = tc.forward(x, 4, layout=layout)
+        assert _kerr(rg.cpu(), tc.inverse(pc)) < 1e-12
+        assert _kerr(pg.lowpass.cpu(), pc.lowpass) < 1e-12
+        hg = pg.highpasses if layout == "interleaved" else pg.highpasses_re
+        hc = pc.highpasses if layout == "interleaved" else pc.highpasses_re
+        for a, b in zip(hg, hc):
+            assert _kerr(a.cpu(), b) < 1e-12
+    xb = np.random.RandomState(5).rand(2, 64, 3)
+    rg = t.inverse_channels(t.forward_channels(xb, 3))
+    assert float((rg.cpu() - torch.from_numpy(xb)).abs().max()) < 1e-12
+
+
+@pytest.mark.cuda
+def test_cuda_dual_refuses_non_contiguous_input(cuda):
+    b = biort("near_sym_a")
+    x = torch.zeros(16, 8, device=cuda).t()
+    with pytest.raises(ValueError, match="contiguous"):
+        dual.filter2_axis(x, b[0], b[2], 0)

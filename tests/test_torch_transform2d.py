@@ -54,10 +54,10 @@ def _check_pyramid(got, want, tol=TOL):
 @pytest.mark.parametrize("nlevels", [1, 2, 3, 4])
 def test_matches_jax_odd_size(nlevels):
     x = _rand((37, 50))
-    got = tdt.Transform2d().forward(torch.from_numpy(x), nlevels)
+    got = tdt.Transform2d(device="cpu").forward(torch.from_numpy(x), nlevels)
     want = jdt.Transform2d().forward(x, nlevels)
     _check_pyramid(got, want)
-    assert _err(tdt.Transform2d().inverse(got),
+    assert _err(tdt.Transform2d(device="cpu").inverse(got),
                 jdt.Transform2d().inverse(want)) < TOL
 
 
@@ -66,7 +66,7 @@ def test_matches_jax_batched_pad_and_crop(layout):
     """Two leading batch axes; 50 x 70 pads before levels 2, 3 and 4 and
     crops after their inverses."""
     x = _rand((2, 3, 50, 70), 1)
-    t, j = tdt.Transform2d("near_sym_b", "qshift_b"), \
+    t, j = tdt.Transform2d("near_sym_b", "qshift_b", device="cpu"), \
         jdt.Transform2d("near_sym_b", "qshift_b")
     got = t.forward(torch.from_numpy(x), 4, layout=layout)
     want = j.forward(x, 4, layout=layout)
@@ -76,7 +76,7 @@ def test_matches_jax_batched_pad_and_crop(layout):
 
 def test_include_scale_matches_jax():
     x = _rand((2, 36, 44), 2)
-    got = tdt.Transform2d().forward(torch.from_numpy(x), 3,
+    got = tdt.Transform2d(device="cpu").forward(torch.from_numpy(x), 3,
                                     include_scale=True)
     want = jdt.Transform2d().forward(x, 3, include_scale=True)
     assert len(got.scales) == 3
@@ -87,7 +87,7 @@ def test_include_scale_matches_jax():
 def test_gain_mask_matches_jax(layout):
     x = _rand((40, 48), 3)
     gm = np.linspace(0.1, 1.5, 18).reshape(6, 3)
-    t, j = tdt.Transform2d(), jdt.Transform2d()
+    t, j = tdt.Transform2d(device="cpu"), jdt.Transform2d()
     got = t.inverse(t.forward(torch.from_numpy(x), 3, layout=layout), gm)
     want = j.inverse(j.forward(x, 3, layout=layout), gm)
     assert _err(got, want) < TOL
@@ -95,7 +95,8 @@ def test_gain_mask_matches_jax(layout):
 
 def test_bandpass_family_matches_jax():
     x = _rand((40, 60), 4)
-    t = tdt.Transform2d("near_sym_b_bp", "qshift_b_bp")
+    t = tdt.Transform2d("near_sym_b_bp", "qshift_b_bp",
+                          device="cpu")
     j = jdt.Transform2d("near_sym_b_bp", "qshift_b_bp")
     for layout in ("interleaved", "planes"):
         got = t.forward(torch.from_numpy(x), 3, layout=layout)
@@ -107,10 +108,10 @@ def test_bandpass_family_matches_jax():
 def test_explicit_coefficient_tuples():
     """Filters given as tuples of numpy arrays act as the named family."""
     x = torch.from_numpy(_rand((32, 32), 5))
-    named = tdt.Transform2d("near_sym_b", "qshift_c")
+    named = tdt.Transform2d("near_sym_b", "qshift_c", device="cpu")
     explicit = tdt.Transform2d(
         tuple(np.array(h) for h in jdt.biort("near_sym_b")),
-        tuple(np.array(h) for h in jdt.qshift("qshift_c")))
+        tuple(np.array(h) for h in jdt.qshift("qshift_c")), device="cpu")
     got, want = explicit.forward(x, 3), named.forward(x, 3)
     assert torch.equal(got.lowpass, want.lowpass)
     assert all(torch.equal(a, b)
@@ -122,7 +123,7 @@ def test_explicit_coefficient_tuples():
 def test_bf16_planes_match_jax_at_storage_grade():
     x = _rand((2, 64, 96), 6).astype(np.float32)
     xt = torch.from_numpy(x).to(torch.bfloat16)
-    got = tdt.Transform2d().forward(xt, 3, layout="planes")
+    got = tdt.Transform2d(device="cpu").forward(xt, 3, layout="planes")
     import jax.numpy as jnp
     want = jdt.Transform2d().forward(jnp.asarray(x, jnp.bfloat16), 3,
                                      layout="planes")
@@ -135,7 +136,7 @@ def test_bf16_planes_match_jax_at_storage_grade():
                     + want.highpasses_im):
         scale = max(float(np.abs(f32(b)).max()), 1.0)
         assert np.abs(f32(a) - f32(b)).max() < 1e-2 * scale
-    rec = tdt.Transform2d().inverse(got)
+    rec = tdt.Transform2d(device="cpu").inverse(got)
     assert rec.dtype == torch.bfloat16
     assert float((rec.float() - xt.float()).abs().max()) < BF16_TOL_2D
 
@@ -146,29 +147,50 @@ def test_bf16_planes_match_jax_at_storage_grade():
 @pytest.mark.parametrize("layout", ["interleaved", "planes"])
 def test_perfect_reconstruction(biort, qshift, layout):
     x = torch.from_numpy(_rand((2, 64, 80), 7))
-    t = tdt.Transform2d(biort, qshift)
+    t = tdt.Transform2d(biort, qshift, device="cpu")
     assert float((t.inverse(t.forward(x, 3, layout=layout)) - x).abs()
                  .max()) < TOL
 
 
 def test_plane_pyramid_conversions_round_trip():
     x = torch.from_numpy(_rand((24, 32), 8))
-    p = tdt.Transform2d().forward(x, 2)
+    p = tdt.Transform2d(device="cpu").forward(x, 2)
     pp = tdt.PlanePyramid.from_interleaved(p)
     back = pp.interleaved()
     for a, b in zip(back.highpasses, p.highpasses):
         assert torch.equal(a, b)
-    want = tdt.Transform2d().forward(x, 2, layout="planes")
+    want = tdt.Transform2d(device="cpu").forward(x, 2, layout="planes")
     for a, b in zip(pp.highpasses_re, want.highpasses_re):
         assert torch.equal(a, b)
 
 
 def test_zero_levels_and_input_errors():
     x = torch.from_numpy(_rand((9, 12), 9))
-    p = tdt.Transform2d().forward(x, 0)
+    p = tdt.Transform2d(device="cpu").forward(x, 0)
     assert p.highpasses == () and p.lowpass.shape == (10, 12)
-    assert torch.equal(tdt.Transform2d().inverse(p), p.lowpass)
+    assert torch.equal(tdt.Transform2d(device="cpu").inverse(p), p.lowpass)
     with pytest.raises(ValueError):
-        tdt.Transform2d().forward(torch.zeros(8), 1)
+        tdt.Transform2d(device="cpu").forward(torch.zeros(8), 1)
     with pytest.raises(ValueError):
-        tdt.Transform2d().forward(x, 1, layout="bands")
+        tdt.Transform2d(device="cpu").forward(x, 1, layout="bands")
+
+
+def test_runs_on_the_card_unless_asked_for_the_cpu():
+    """The default device is CUDA: a numpy image goes to the card, and where
+    there is none the call raises instead of running on the CPU.  With
+    ``device="cpu"`` every input and pyramid leaf lands on the CPU."""
+    x = _rand((16, 24), 10)
+    t = tdt.Transform2d()
+    assert t.device.type == "cuda"
+    if torch.cuda.is_available():
+        assert t.forward(x, 2).lowpass.device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            t.forward(x, 2)
+    c = tdt.Transform2d(device="cpu")
+    p = c.forward(x, 2, layout="planes")
+    assert p.lowpass.device.type == "cpu"
+    pn = tdt.PlanePyramid(p.lowpass.numpy(), [r.numpy() for r in
+                                              p.highpasses_re],
+                          [i.numpy() for i in p.highpasses_im])
+    assert torch.equal(c.inverse(pn), c.inverse(p))
