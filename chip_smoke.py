@@ -3,7 +3,7 @@ them.
 
     python3 chip_smoke.py
 
-Two main paths, each through the entry points a user calls, with the
+Three main paths, each through the entry points a user calls, with the
 default filters (near_sym_a / qshift_a), in three layouts (interleaved
 complex float32, float32 planes, bfloat16 planes):
 
@@ -12,7 +12,10 @@ complex float32, float32 planes, bfloat16 planes):
 * 1-D: ``dtcwt_tpu_torch.Transform1d()``, ``forward(x, nlevels=8)`` then
   ``inverse``, on a ``[131072, 128]`` multichannel signal (2**24 samples;
   the four dual-stream kernels), and the single 4 194 304-sample vector at
-  8 levels.
+  8 levels;
+* 3-D: ``dtcwt_tpu_torch.Transform3d()``, ``forward(v, nlevels=3)`` then
+  ``inverse``, on a 256 x 256 x 256 volume (the four level kernels of
+  ``csrc/pack3d.cu``, each level's depth stage on the dual-stream kernels).
 
 Phases, each printing its own lines:
 
@@ -22,12 +25,18 @@ Phases, each printing its own lines:
    the main paths' shapes (float32, and bfloat16) and at small odd shapes
    in float64 for every non-bandpass family, including signals shorter than
    the filter; the dual-stream kernels also on axes -1, -2 and -3, on one
-   signal (``inner = 1``) and in their from-extension mode;
+   signal (``inner = 1``) and in their from-extension mode; each 3-D level
+   kernel as its entry (depth stage included) and alone, and at float64 in
+   shapes the JAX package's kernels refuse (H or W not a multiple of 32,
+   above 512, shorter than the filter);
 4. main paths: each round trip in all three layouts with the plain versions
-   patched to raise, the launch counts (2-D 1/2/2/1, 1-D 1/7/7/1 per round
-   trip), the reconstruction error and agreement with the plain path on the
-   card; a 4 x 1000 x 1500 batch (pad and crop) against the plain path; the
-   4M-sample vector; a small float64 1-D case against the CPU;
+   patched to raise, the launch counts (2-D 1/2/2/1, 1-D 1/7/7/1, 3-D
+   ``filter2`` 1, ``fwd_level1_pack`` 1, ``dfilt2`` 2, ``fwd_level2_pack``
+   2, ``inv_level2_pack`` 2, ``ifilt2_sum`` 2, ``inv_level1_pack`` 1,
+   ``filter2_sum`` 1 per round trip), the reconstruction error and agreement
+   with the plain path on the card; a 4 x 1000 x 1500 batch (pad and crop)
+   against the plain path; the 4M-sample vector; a small float64 1-D case
+   against the CPU; 3-D pads and crops in both ``ext_mode`` values;
 5. timing: CUDA events, median of 10 runs after 2 warm-up runs (for a round
    trip the time its caller waits; for a kernel, its plain version and a
    library call the device's time alone, the stream held while the host
@@ -36,13 +45,16 @@ Phases, each printing its own lines:
    (``F.conv2d`` for ``filter2`` and ``filter2_sum``, TF32 off), that
    call; the bound of each kernel (its bytes at 3.35 TB/s or its float32
    operations at 67 TFLOP/s, whichever is longer); each round trip against
-   the plain path; for the f32 interleaved round trips, a
-   ``torch.profiler`` trace: device time by kernel, the device's idle
-   share and the host's time to enqueue.
+   the plain path; for the f32 interleaved round trips (3-D: both f32
+   layouts), a ``torch.profiler`` trace: device time by kernel, the
+   device's idle share and the host's time to enqueue.  A 3-D level kernel
+   is timed alone, on its depth stage's outputs, against the plain version
+   of that stage.
 
 Tolerances, relative to the largest reference value: float32 1e-5 (sums in
 another order), bfloat16 1e-2 (one bfloat16 step of the stored outputs),
-float64 1e-12.  Reconstruction: float32 1e-4, bfloat16 0.04 (storage grade).
+float64 1e-12.  Reconstruction: float32 1e-4, bfloat16 0.04 (2-D, 1-D) and
+0.08 (3-D; tests/test_bf16.py's storage grades).
 
 The last three lines are the nvidia-smi line, the JSON list of kernels and
 ``{"ok": true, "device": {...}}``; they are printed only when every phase
@@ -79,6 +91,7 @@ QSHIFTS = ("qshift_06", "qshift_a", "qshift_b", "qshift_c", "qshift_d",
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12         # float32 outside the tensor cores
 _DUAL_SRC = "dtcwt_tpu_torch/csrc/dual.cu"
+_PACK_SRC = "dtcwt_tpu_torch/csrc/pack3d.cu"
 KERNELS = {   # name -> (CUDA source, the TPU kernel it replaces)
     "level1": ("dtcwt_tpu_torch/csrc/level1.cu",
                "dtcwt_tpu/ops/pallas_level1.py:374"),
@@ -92,6 +105,10 @@ KERNELS = {   # name -> (CUDA source, the TPU kernel it replaces)
     "dfilt2": (_DUAL_SRC, "dtcwt_tpu/ops/pallas_dual.py:294"),
     "ifilt2_sum": (_DUAL_SRC, "dtcwt_tpu/ops/pallas_dual.py:533"),
     "filter2_sum": (_DUAL_SRC, "dtcwt_tpu/ops/pallas_dual.py:409"),
+    "fwd_level1_pack": (_PACK_SRC, "dtcwt_tpu/ops/pallas_pack3d.py:607"),
+    "inv_level1_pack": (_PACK_SRC, "dtcwt_tpu/ops/pallas_pack3d.py:647"),
+    "fwd_level2_pack": (_PACK_SRC, "dtcwt_tpu/ops/pallas_pack3d.py:503"),
+    "inv_level2_pack": (_PACK_SRC, "dtcwt_tpu/ops/pallas_pack3d.py:549"),
 }
 LAUNCHES_2D = {"level1": 1, "level2": 2, "ilevel2": 2, "ilevel1": 1}
 LAUNCHES_1D = {"filter2": 1, "dfilt2": 7, "ifilt2_sum": 7, "filter2_sum": 1}
@@ -268,6 +285,313 @@ def refuse(*_a, **_k):
     raise RuntimeError("a plain version ran on the CUDA path")
 
 
+# --- the 3-D main path ------------------------------------------------------
+
+PACK_NAMES = ("fwd_level1_pack", "fwd_level2_pack", "inv_level2_pack",
+              "inv_level1_pack")
+
+
+def pack_case(name, vol, dtype, planes, dev, seed=0):
+    """Inputs of one 3-D level entry whose level reads a [1, *vol] volume
+    (forward) or produces one (inverse): the entry's arguments, and the
+    kernel stage's own inputs (the depth stage already run) with its
+    launch and its plain version.  Returns (entry, entry_plain, stage,
+    stage_plain, stage_inputs)."""
+    import dtcwt_tpu_torch as dt
+    from dtcwt_tpu_torch.ops import dual, fb, pack3d
+    from dtcwt_tpu_torch.ops.ilevel2 import ifilt_streams
+    from dtcwt_tpu_torch.ops.level2 import dfilt_streams
+    b, q = dt.biort("near_sym_a"), dt.qshift("qshift_a")
+    level1 = "level1" in name
+    if name.startswith("fwd"):
+        x = rand((1,) + tuple(vol), seed, dev, dtype)
+        if level1:
+            f = (b[0], b[2])
+            split = lambda v, ax: fb.filter2_axis(v, *f, ax)
+            depth = lambda v: dual.filter2_axis(v, *f, -3)
+            plans = pack3d._filter_plans(*f)
+            Ho, Wo = vol[1], vol[2]
+        else:
+            f = ((q[1], q[0]), (q[5], q[4]))
+            split = lambda v, ax: fb.dfilt2_axis(v, *f, ax)
+            depth = lambda v: dual.dfilt2_axis(v, *f, -3)
+            plans = [dfilt_streams(*p) for p in f]
+            Ho, Wo = vol[1] // 2, vol[2] // 2
+        entry = getattr(pack3d, name)
+        plain = getattr(pack3d, name + "_reference")
+        lo, hi = depth(x.float() if dtype == torch.bfloat16 else x)
+
+        def stage_plain():
+            octs = {}
+            for i, v in enumerate((lo, hi)):
+                for k, vk in enumerate(split(v, -1)):
+                    for j, vj in enumerate(split(vk, -2)):
+                        octs[(i, j, k)] = vj
+            return (octs[(0, 0, 0)].to(dtype),
+                    pack3d.pack_octants(octs, planes, dtype))
+
+        def flat(out):
+            lll, bands = out
+            return (lll,) + (tuple(bands) if planes else (bands,))
+
+        return ((lambda: flat(entry(x, *f, planes=planes))),
+                (lambda: flat(plain(x, *f, planes=planes))),
+                (lambda: pack3d._launch(name, (lo, hi), (), plans, dtype,
+                                        planes, Ho, Wo, True)[:3 if planes
+                                                              else 2]),
+                (lambda: flat(stage_plain())), (lo, hi))
+    # inverse: the level's lowpass and subbands
+    D, H, W = vol if level1 else tuple(s // 2 for s in vol)
+    lll = rand((1, D, H, W), seed, dev, dtype)
+    bshape = (1, 28, D // 2, H // 2, W // 2)
+    re = rand(bshape, seed + 1, dev, dtype)
+    im = rand(bshape, seed + 2, dev, dtype)
+    bands = (re, im) if planes else (
+        torch.complex(re, im).movedim(-4, -1).contiguous(), None)
+    if level1:
+        f = (b[1], b[3])
+        merge = lambda a, c, ax: fb.filter2_sum_axis(a, c, *f, ax)
+        plans = pack3d._filter_plans(*f)
+        Ho, Wo = H, W
+    else:
+        f = ((q[3], q[2]), (q[7], q[6]))
+        merge = lambda a, c, ax: fb.ifilt2_sum_axis(a, c, *f, ax)
+        plans = [ifilt_streams(*p) for p in f]
+        Ho, Wo = 2 * H, 2 * W
+    entry = getattr(pack3d, name)
+    plain = getattr(pack3d, name + "_reference")
+
+    def stage_plain():
+        octs = pack3d.unpack_octants(bands if planes else bands[0])
+        octs[(0, 0, 0)] = lll.float() if dtype == torch.bfloat16 else lll
+        return tuple(merge(merge(octs[(i, 0, 0)], octs[(i, 0, 1)], -1),
+                           merge(octs[(i, 1, 0)], octs[(i, 1, 1)], -1), -2)
+                     for i in range(2))
+
+    return ((lambda: entry(lll, *bands, *f)), (lambda: plain(lll, *bands, *f)),
+            (lambda: tuple(pack3d._launch(name, (lll,), bands, plans, None,
+                                          planes, Ho, Wo, False)[:2])),
+            stage_plain, (lll,) + tuple(a for a in bands if a is not None))
+
+
+def pack_macs(name, ins, outs) -> int:
+    """Multiply-adds of one kernel stage (default filters): the W and H
+    stages of both branches over the slices it reads (analysis) or writes
+    (synthesis)."""
+    import dtcwt_tpu_torch as dt
+    b, q = dt.biort("near_sym_a"), dt.qshift("qshift_a")
+    taps = {"fwd_level1_pack": b[0].size + b[2].size,
+            "inv_level1_pack": b[1].size + b[3].size,
+            "fwd_level2_pack": q[0].size, "inv_level2_pack": q[2].size}[name]
+    n = sum(t.numel() for t in (ins if name.startswith("fwd") else outs))
+    return 3 * n * taps
+
+
+# per 3-level 256^3 round trip: the volume each call of a level entry reads
+# (forward) or writes (inverse)
+VOL = 256
+PACK_VOLS = {"fwd_level1_pack": [(VOL,) * 3],
+             "fwd_level2_pack": [(VOL,) * 3, (VOL // 2,) * 3],
+             "inv_level2_pack": [(VOL // 2,) * 3, (VOL,) * 3],
+             "inv_level1_pack": [(VOL,) * 3]}
+LAUNCHES_3D = {"filter2": 1, "fwd_level1_pack": 1, "dfilt2": 2,
+               "fwd_level2_pack": 2, "inv_level2_pack": 2, "ifilt2_sum": 2,
+               "inv_level1_pack": 1, "filter2_sum": 1}
+REC_TOL_3D = {torch.float32: 1e-4, torch.bfloat16: 0.08}
+
+
+def check_3d(dev, report) -> dict:
+    """Phase 3 and 4 for the 3-D path: each level kernel against its plain
+    version, then the 256^3 round trip in three layouts with the launch
+    counts.  Returns the counts of the f32 interleaved round trip."""
+    import dtcwt_tpu_torch as dt
+    from dtcwt_tpu_torch.ops import dual, pack3d
+    for name in PACK_NAMES:
+        for label, dtype, layout in LAYOUTS:
+            pl = layout == "planes"
+            worst = 0.0
+            for vol in PACK_VOLS[name]:
+                entry, plain, stage, stage_plain, _ = pack_case(
+                    name, vol, dtype, pl, dev)
+                for k, p in ((entry, plain), (stage, stage_plain)):
+                    got = k()
+                    torch.cuda.synchronize()
+                    want = p()
+                    worst = max(worst, rel_err(got, want))
+                    if dtype == torch.float32 and not pl:
+                        report[name]["max_abs_err"] = max(
+                            report[name]["max_abs_err"], abs_err(got, want))
+                    del got, want
+            check(worst <= TOL[dtype], "kernel %s volumes %s %s (entry and "
+                  "kernel stage): worst rel err %.3g (tol %g)" % (
+                      name, PACK_VOLS[name], label, worst, TOL[dtype]))
+    # float64 at small shapes the JAX envelope refuses: H or W not a
+    # multiple of 32, above 512, or shorter than the filter; every family
+    small = {1: [(4, 6, 10), (6, 36, 44), (2, 520, 6)],
+             2: [(8, 8, 12), (8, 36, 20), (4, 516, 8)]}
+    for name in PACK_NAMES:
+        level = 1 if "level1" in name else 2
+        fams = BIORTS if level == 1 else QSHIFTS
+        worst = 0.0
+        for fam in fams:
+            taps = dt.biort(fam) if level == 1 else dt.qshift(fam)
+            if level == 1:
+                f = (taps[0], taps[2]) if name.startswith("fwd") else \
+                    (taps[1], taps[3])
+                if f[0].size % 2 == 0:
+                    continue
+            else:
+                f = (((taps[1], taps[0]), (taps[5], taps[4]))
+                     if name.startswith("fwd")
+                     else ((taps[3], taps[2]), (taps[7], taps[6])))
+            for seed, vol in enumerate(small[level]):
+                for pl in (False, True):
+                    fn = getattr(pack3d, name)
+                    ref = getattr(pack3d, name + "_reference")
+                    if name.startswith("fwd"):
+                        x = rand((2,) + vol, seed, dev, torch.float64)
+                        got = fn(x, *f, planes=pl)
+                        torch.cuda.synchronize()
+                        want = ref(x, *f, planes=pl)
+                        got = (got[0],) + (tuple(got[1]) if pl
+                                           else (got[1],))
+                        want = (want[0],) + (tuple(want[1]) if pl
+                                             else (want[1],))
+                    else:
+                        D, H, W = vol if level == 1 else tuple(
+                            s // 2 for s in vol)
+                        lll = rand((2, D, H, W), seed, dev, torch.float64)
+                        bs = (2, 28, D // 2, H // 2, W // 2)
+                        re = rand(bs, seed + 1, dev, torch.float64)
+                        im = rand(bs, seed + 2, dev, torch.float64)
+                        bands = (re, im) if pl else (torch.complex(
+                            re, im).movedim(-4, -1).contiguous(), None)
+                        got = fn(lll, *bands, *f)
+                        torch.cuda.synchronize()
+                        want = ref(lll, *bands, *f)
+                    worst = max(worst, rel_err(got, want))
+        check(worst <= TOL[torch.float64],
+              "kernel %s float64, families %s, [2, *%s], both layouts: "
+              "worst rel err %.3g (tol %g)" % (
+                  name, ",".join(fams), small[level], worst,
+                  TOL[torch.float64]))
+
+    t3 = dt.Transform3d()
+    x32 = rand((VOL,) * 3, 11, dev, torch.float32)
+    no_plain = ([(pack3d, n + "_reference", refuse) for n in PACK_NAMES]
+                + [(dual, n + "_axis_reference", refuse) for n in
+                   ("filter2", "dfilt2", "ifilt2_sum", "filter2_sum")])
+    plain_path = [(pack3d, n, getattr(pack3d, n + "_reference"))
+                  for n in PACK_NAMES]
+    from dtcwt_tpu_torch.ops import _build
+    launches = {}
+    for label, dtype, layout in LAYOUTS:
+        x = x32.to(dtype)
+        _build.reset_launches()
+        with patched(no_plain):
+            pyr = t3.forward(x, nlevels=NLEVELS, layout=layout)
+            rec = t3.inverse(pyr)
+            torch.cuda.synchronize()
+        counts = dict(_build.launches)
+        if not launches:
+            launches = counts
+        check(counts == LAUNCHES_3D,
+              "main path 3-D %s: launches %s" % (label, counts))
+        hp = pyr.highpasses if layout == "interleaved" else pyr.highpasses_re
+        shapes_ok = (tuple(rec.shape) == (VOL,) * 3 and rec.dtype == dtype
+                     and tuple(pyr.lowpass.shape) == (VOL // 4,) * 3
+                     and len(hp) == NLEVELS)
+        finite = bool(torch.isfinite(rec.float()).all()) and all(
+            bool(torch.isfinite(torch.view_as_real(h) if h.is_complex()
+                                else h.float()).all()) for h in hp)
+        err = float((rec.float() - x.float()).abs().max())
+        check(shapes_ok and finite and err <= REC_TOL_3D[dtype],
+              "main path 3-D %s: %d^3 %d-level round trip, reconstruction "
+              "max abs err %.3g (tol %g), shapes %s, finite %s" % (
+                  label, VOL, NLEVELS, err, REC_TOL_3D[dtype], shapes_ok,
+                  finite))
+        with patched(plain_path):
+            rec_plain = t3.inverse(t3.forward(x, nlevels=NLEVELS,
+                                              layout=layout))
+        e = rel_err(rec, rec_plain)
+        check(e <= TOL[dtype] * 10, "main path 3-D %s: kernel vs plain path "
+              "on the card, reconstruction rel err %.3g (tol %g)" % (
+                  label, e, TOL[dtype] * 10))
+        del pyr, rec, rec_plain
+    # pads and crops at levels 2 and 3 in both ext_modes, a batch, every
+    # leaf against the plain path, float32
+    for em, shape in ((4, (2, 50, 70, 90)), (8, (40, 56, 72))):
+        tm = dt.Transform3d(ext_mode=em)
+        xb = rand(shape, 12, dev, torch.float32)
+        pk = tm.forward(xb, NLEVELS, include_scale=True)
+        rk = tm.inverse(pk)
+        with patched(plain_path):
+            pp = tm.forward(xb, NLEVELS, include_scale=True)
+            rp = tm.inverse(pp)
+        e = max([rel_err(pk.lowpass, pp.lowpass), rel_err(rk, rp)]
+                + [rel_err(a, c) for a, c in zip(pk.highpasses + pk.scales,
+                                                 pp.highpasses + pp.scales)])
+        rec_e = float((rk - xb).abs().max())
+        check(e <= TOL[torch.float32] and rec_e <= REC_TOL_3D[torch.float32],
+              "3-D ext_mode %d %s (pad + crop): kernel vs plain rel err %.3g,"
+              " reconstruction max abs err %.3g" % (em, "x".join(map(
+                  str, shape)), e, rec_e))
+    return launches
+
+
+def time_3d(dev, report) -> None:
+    """Phase 5 for the 3-D path: the round trip against the plain path in
+    three layouts, a profiler trace, and each level kernel alone (device
+    time, stream held) against its plain version and its bound."""
+    import dtcwt_tpu_torch as dt
+    from dtcwt_tpu_torch.ops import pack3d
+    t3 = dt.Transform3d()
+    x = rand((VOL,) * 3, 11, dev, torch.float32)
+    plain_path = [(pack3d, n, getattr(pack3d, n + "_reference"))
+                  for n in PACK_NAMES]
+    for label, dtype, layout in LAYOUTS:
+        xd = x.to(dtype)
+        run = lambda: t3.inverse(t3.forward(xd, NLEVELS, layout=layout))
+        ms = cuda_ms(run)
+        with patched(plain_path):
+            pms = cuda_ms(run, reps=3, warmup=1)
+        print("time round trip 3-D %d^3 %d levels %s: kernels %.3f ms, "
+              "plain %.3f ms" % (VOL, NLEVELS, label, ms, pms), flush=True)
+        if dtype == torch.float32:
+            print_trace("round trip 3-D %s" % label, run)
+    del x
+    for name in PACK_NAMES:
+        for label, dtype, layout in LAYOUTS:
+            pl = layout == "planes"
+            tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                   "bound_by": "bytes"}
+            for vol in PACK_VOLS[name]:
+                entry, _, stage, stage_plain, ins = pack_case(
+                    name, vol, dtype, pl, dev)
+                outs = stage()
+                bms, by = bound(nbytes(ins) + nbytes(outs),
+                                pack_macs(name, ins, outs))
+                ms = cuda_ms(stage, hold=True)
+                pms = cuda_ms(stage_plain, hold=True, reps=3, warmup=1)
+                ems = cuda_ms(entry, hold=True)
+                for k, v in (("ms", ms), ("plain_ms", pms),
+                             ("bound_ms", bms)):
+                    tot[k] += v
+                if by != "bytes":
+                    tot["bound_by"] = by
+                print("time %s %s %s: kernel %.4f ms, plain %.4f ms, bound "
+                      "%.4f ms (%s); the entry with its depth stage %.4f ms"
+                      % (name, "x".join(map(str, vol)), label, ms, pms, bms,
+                         by, ems), flush=True)
+                del entry, stage, stage_plain, ins, outs
+            print("time %s %s, its %d launch(es) of one round trip: kernel "
+                  "%.4f ms, plain %.4f ms, bound %.4f ms" % (
+                      name, label, len(PACK_VOLS[name]), tot["ms"],
+                      tot["plain_ms"], tot["bound_ms"]), flush=True)
+            if dtype == torch.float32 and not pl:
+                report[name].update(tot)
+
+
 def main() -> int:
     # --- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -292,7 +616,8 @@ def main() -> int:
     # --- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     _build.library()
-    print("build: %.1f s (nvcc over dtcwt_tpu_torch/csrc/*.cu, sm_90a)"
+    print("build: %.1f s (one nvcc per dtcwt_tpu_torch/csrc/*.cu, in "
+          "parallel, then a link; sm_90a)"
           % (time.perf_counter() - t0), flush=True)
 
     t = dt.Transform2d()
@@ -597,6 +922,8 @@ def main() -> int:
           "4 levels (pads and crops): card vs CPU, every leaf, rel err %.3g "
           "(tol %g)" % (e, TOL[torch.float64]))
 
+    launches_3d = check_3d(dev, report)
+
     # --- 5. timing -----------------------------------------------------------
     print("timing on %s: CUDA events, median of 10 runs after 2 warm-up runs"
           % smi, flush=True)
@@ -707,15 +1034,20 @@ def main() -> int:
                   rel_err(got, want)), flush=True)
         del ins, ext, got, want
 
-    counts = dict(launches, **launches_1d)
+    time_3d(dev, report)
+
+    # the dual kernels report the 1-D path's launches, the level kernels
+    # their own path's
+    counts = dict(launches_3d, **launches, **launches_1d)
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": counts.get(name, 0),
                 **report[name]}
                for name, (src, rep) in KERNELS.items()]
     print("ms / plain_ms / bound_ms: the kernel's calls in one f32 round "
-          "trip of its main path (2-D interleaved, 1-D [131072, 128]); "
-          "max_abs_err: f32 at the main-path shapes; library_ms: one "
-          "F.conv2d at the main-path shape, where one call computes it")
+          "trip of its main path (2-D interleaved, 1-D [131072, 128], 3-D "
+          "256^3 interleaved; a 3-D level kernel alone, after its depth "
+          "stage); max_abs_err: f32 at the main-path shapes; library_ms: "
+          "one F.conv2d at the main-path shape, where one call computes it")
     if failures:
         print("FAILED %d check(s):" % len(failures))
         for f in failures:

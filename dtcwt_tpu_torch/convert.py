@@ -37,21 +37,24 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def _map(p, fn):
-    scales = None if p.scales is None else tuple(fn(s) for s in p.scales)
+    """*p*'s container with *fn* applied to every leaf; ``None`` leaves (the
+    first level of a ``discard_level_1`` pyramid) stay ``None``."""
+    f = lambda a: None if a is None else fn(a)
+    scales = None if p.scales is None else tuple(f(s) for s in p.scales)
     if hasattr(p, "highpasses_re"):
-        return PlanePyramid(fn(p.lowpass),
-                            tuple(fn(r) for r in p.highpasses_re),
-                            tuple(fn(i) for i in p.highpasses_im), scales,
+        return PlanePyramid(f(p.lowpass),
+                            tuple(f(r) for r in p.highpasses_re),
+                            tuple(f(i) for i in p.highpasses_im), scales,
                             kind=getattr(p, "kind", "2d"))
-    return Pyramid(fn(p.lowpass), tuple(fn(h) for h in p.highpasses), scales)
+    return Pyramid(f(p.lowpass), tuple(f(h) for h in p.highpasses), scales)
 
 
 def pyramid_from_numpy(p, device="cuda"):
     """A :class:`Pyramid` or :class:`PlanePyramid` of tensors on *device*
     (the card unless the caller asks for ``"cpu"``) from any object with
     the container's attributes whose leaves convert to numpy arrays
-    (``highpasses_re`` present means a plane pyramid, whose ``kind``, 1-D or
-    2-D, is kept)."""
+    (``highpasses_re`` present means a plane pyramid, whose ``kind``, 1-D,
+    2-D or 3-D, is kept)."""
     return _map(p, lambda a: _to_tensor(a, device))
 
 

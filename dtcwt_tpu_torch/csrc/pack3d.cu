@@ -1,0 +1,530 @@
+// The four (H, W) level kernels of the 3-D DTCWT, one per depth-slice pair
+// (CUDA C++, sm_90a):
+//
+//   fwd_level1_pack  level-1 analysis: both biort filters along W and H of
+//                    the four depth-filtered slices + the cube2c pack
+//   inv_level1_pack  level-1 synthesis: c2cube unpack + both biort
+//                    synthesis filters along W and H, summed per branch
+//   fwd_level2_pack  the same as fwd_level1_pack with the decimating
+//                    qshift pair (dfilt) along W and H
+//   inv_level2_pack  the same as inv_level1_pack with the interpolating
+//                    qshift pair (ifilt) along W and H
+//
+// Replace the Pallas kernels of dtcwt_tpu/ops/pallas_pack3d.py
+// (_build_pack_pairs, _build_unpack_pairs, _build_pack_pairs2,
+// _build_unpack_pairs2; entries fwd_level1_pack, inv_level1_pack,
+// fwd_level2_pack, inv_level2_pack).  The depth stage of each level runs
+// before (analysis) or after (synthesis) these kernels on the dual-stream
+// kernels of dual.cu along axis -3.
+//
+// What they compute.  The depth stage turns a level's input into two branch
+// volumes lo, hi [B, Dn, H, W].  For the depth-slice pair u the analysis
+// kernel reads the slices lo[2u], lo[2u+1], hi[2u], hi[2u+1] (slice
+// sl = 2 i + c: depth branch i, depth parity c), filters each along W with
+// both branch filters k and then along H with both branch filters j: 16
+// images.  The octant (i, j, k) of the separable tree, at depth parity c
+// and (H, W) parities (hp, wp) of its output grid, is one corner of a
+// 2 x 2 x 2 octet; the kernel writes the LLL octant (0, 0, 0) at full
+// output resolution and the other 7 octants as the 28 re/im subbands of
+// eqs. (6)-(9) (packing._cube_corner_combos), in the octant order of
+// transforms/transform3d._OCTANTS.  The synthesis kernel reads the 28
+// subbands and the LLL slice pair, forms the 7 octants' corners with
+// c2cube while staging them, and writes, per depth branch i and parity c,
+// U_i[2u + c] = sum_{j,k} F_H(g_j) F_W(g_k) octant(i, j, k)[2u + c].
+//
+// Every filter is a set of P output streams (host plans, ops/pack3d.py),
+//
+//   Y[P g + s] = sum_{k < len[b][s]} t[b][s][k] x[D g + c[b][s] + S k]
+//
+//   level-1 filter (P, D, S) = (1, 1, 1), c = -(m/2), t = reversed taps
+//   level-2 dfilt            = (2, 4, 2), level2.dfilt_streams
+//   level-2 ifilt            = (4, 2, 2), ilevel2.ifilt_streams
+//
+// applied along W and along H, so the kernels hold no parity logic.  x is
+// read at symmetric reflection (reflect() of common.cuh, folded as often as
+// needed, so H or W shorter than the filter works).
+//
+// Layouts: the subbands are band-major planes [B, 28, Dn/2, Hb, Wb] of the
+// storage type (float, bfloat16 or double), or interleaved complex
+// band-minor [B, Dn/2, Hb, Wb, 28] (float or double pairs), written and
+// read directly, so that layout costs no extra pass.  The branch volumes lo,
+// hi (analysis input) and U_0, U_1 (synthesis output) are in the compute
+// type (float for float and bfloat16 storage, double for double): the
+// depth stage runs at that precision and the transform rounds to storage
+// once per level.  All offsets into device memory are 64-bit.
+//
+// Bound on the H100: device memory bytes.  An output costs ~4 m
+// multiply-adds (m taps) against ~12 bytes moved per input sample, well
+// below the card's ~20 float32 operations per byte.  The design: one block
+// per (batch, depth pair, OH x OW output tile) stages each input slice (or
+// each octant's c2cube corners) with a reflected halo in dynamic shared
+// memory, one slice at a time, runs the W stage into shared memory and the
+// H stage plus the (un)pack in registers, and writes every output once.
+// The tile shrinks on the host until the shared memory fits (long filters,
+// float64).  Tuning (coalesced interleaved stores, fewer shared-memory
+// passes) is later work; the times are in PERF.md.
+#include <climits>
+
+#include "common.cuh"
+
+namespace dtcwt {
+
+constexpr int PACK_THREADS = 256;
+constexpr int PACK_TILE = 32;                   // largest output tile side
+constexpr size_t PACK_SMEM_MAX = 220 * 1024;    // dynamic shared memory cap
+
+// The two branch filters of one axis stage as P streams each.
+template <typename A, int P> struct PackPlan {
+  int len[2][P];
+  int off[2][P];  // first input sample of stream s, relative to cmin
+  A t[2][P][MAX_TAPS];
+};
+
+// octants (depth branch i, H branch j, W branch k) in band order
+__device__ __forceinline__ int oct_i(int n) { return (0x66 >> n) & 1; }
+__device__ __forceinline__ int oct_j(int n) { return (0x55 >> n) & 1; }
+__device__ __forceinline__ int oct_k(int n) { return n >= 3; }
+
+template <typename A, int P>
+__device__ __forceinline__ void stage_plan(const PackPlan<A, P>& plan,
+                                           PackPlan<A, P>* sp) {
+  const int tid = threadIdx.x;
+  const int n_t = 2 * P * MAX_TAPS;
+  for (int i = tid; i < n_t; i += PACK_THREADS)
+    (&sp->t[0][0][0])[i] = (&plan.t[0][0][0])[i];
+  if (tid < 2 * P) {
+    (&sp->len[0][0])[tid] = (&plan.len[0][0])[tid];
+    (&sp->off[0][0])[tid] = (&plan.off[0][0])[tid];
+  }
+}
+
+// Stream sum at output o (local) of filter b over a shared image whose rows
+// (or columns) are `step` apart: sum_k t[b][s][k] img[(D g + off + S k) step].
+template <typename A, int P, int D, int S>
+__device__ __forceinline__ A fir(const PackPlan<A, P>& p, int b, int o,
+                                    const A* img, int step) {
+  const int g = o / P, s = o - g * P;
+  const A* x = img + static_cast<int64_t>(D * g + p.off[b][s]) * step;
+  const A* t = p.t[b][s];
+  const int len = p.len[b][s];
+  A acc = 0;
+  for (int k = 0; k < len; ++k) acc += t[k] * x[S * k * step];
+  return acc;
+}
+
+// ---------------------------------------------------------------------------
+// analysis: lo, hi [B, Dn, H, W] (compute type) -> lll [B, Dn, Ho, Wo] and
+// the 28 subbands [.., Dn/2, Ho/2, Wo/2]
+// ---------------------------------------------------------------------------
+
+template <typename T, bool PLANES, int P, int D, int S>
+__global__ void __launch_bounds__(PACK_THREADS)
+    fwd_pack_kernel(const typename AccOf<T>::type* __restrict__ lo,
+                    const typename AccOf<T>::type* __restrict__ hi,
+                    T* __restrict__ lll, void* band_a, void* band_b, int Dn,
+                    int H, int W, int Ho, int Wo, int OH, int OW, int XR,
+                    int XC, int cmin, int n_th, int n_tw,
+                    PackPlan<typename AccOf<T>::type, P> plan) {
+  using A = typename AccOf<T>::type;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ PackPlan<A, P> sp;
+  A* xs = reinterpret_cast<A*>(smem_raw);  // [XR][XC] one input slice
+  A* wi = xs + XR * XC;                    // [4 slices][2 k][XR][OW]
+
+  const int tid = threadIdx.x;
+  int64_t blk = blockIdx.x;
+  const int tw = static_cast<int>(blk % n_tw);
+  blk /= n_tw;
+  const int th = static_cast<int>(blk % n_th);
+  blk /= n_th;
+  const int Dh = Dn / 2;
+  const int u = static_cast<int>(blk % Dh);
+  const int64_t b = blk / Dh;
+  const int o0r = th * OH, o0c = tw * OW;
+  const int rstart = D * (o0r / P) + cmin, cstart = D * (o0c / P) + cmin;
+
+  stage_plan(plan, &sp);
+  for (int sl = 0; sl < 4; ++sl) {
+    const A* src = (sl < 2 ? lo : hi) +
+                   (b * Dn + 2 * u + (sl & 1)) * static_cast<int64_t>(H) * W;
+    __syncthreads();  // the plan is staged / the last W stage read xs
+    for (int idx = tid; idx < XR * XC; idx += PACK_THREADS) {
+      const int r = idx / XC, col = idx - r * XC;
+      const int gr = reflect(rstart + r, H), gc = reflect(cstart + col, W);
+      xs[idx] = src[static_cast<int64_t>(gr) * W + gc];
+    }
+    __syncthreads();
+    for (int idx = tid; idx < 2 * XR * OW; idx += PACK_THREADS) {
+      const int k = idx / (XR * OW), rem = idx - k * XR * OW;
+      const int r = rem / OW, ow = rem - r * OW;
+      wi[(sl * 2 + k) * XR * OW + rem] =
+          fir<A, P, D, S>(sp, k, ow, xs + r * XC, 1);
+    }
+  }
+  __syncthreads();
+
+  const int Hb = Ho / 2, Wb = Wo / 2;
+  const int BY = OH / 2, BX = OW / 2;
+  for (int idx = tid; idx < BY * BX; idx += PACK_THREADS) {
+    const int py = idx / BX, qx = idx - py * BX;
+    const int p = o0r / 2 + py, q = o0c / 2 + qx;
+    if (p >= Hb || q >= Wb) continue;
+    // octant image of slice sl, H branch j, W branch k at (hp, wp)
+    auto corner = [&](int sl, int j, int k, int hp, int wp) -> A {
+      return fir<A, P, D, S>(sp, j, 2 * py + hp,
+                                wi + (sl * 2 + k) * XR * OW + 2 * qx + wp,
+                                OW);
+    };
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      T* lp = lll + ((b * Dn + 2 * u + c) * Ho + 2 * p) *
+                        static_cast<int64_t>(Wo) + 2 * q;
+#pragma unroll
+      for (int hp = 0; hp < 2; ++hp)
+#pragma unroll
+        for (int wp = 0; wp < 2; ++wp)
+          store(lp + hp * static_cast<int64_t>(Wo) + wp,
+                corner(c, 0, 0, hp, wp));
+    }
+#pragma unroll 1
+    for (int n = 0; n < 7; ++n) {
+      const int s0 = 2 * oct_i(n), j = oct_j(n), k = oct_k(n);
+      const A cA = corner(s0, j, k, 0, 0), cB = corner(s0, j, k, 1, 0);
+      const A cC = corner(s0 + 1, j, k, 0, 0), cD = corner(s0 + 1, j, k, 1, 0);
+      const A cE = corner(s0, j, k, 0, 1), cF = corner(s0, j, k, 1, 1);
+      const A cG = corner(s0 + 1, j, k, 0, 1), cH = corner(s0 + 1, j, k, 1, 1);
+      const A h = static_cast<A>(0.5);
+      const A re[4] = {(cA - cG - cD - cF) * h, (cA - cG + cD + cF) * h,
+                       (cA + cG + cD - cF) * h, (cA + cG - cD + cF) * h};
+      const A im[4] = {(cB - cH + cC + cE) * h, (-cB + cH + cC + cE) * h,
+                       (cB + cH - cC + cE) * h, (-cB - cH - cC + cE) * h};
+      if constexpr (PLANES) {
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int64_t off =
+              (((b * 28 + 4 * n + m) * Dh + u) * Hb + p) *
+                  static_cast<int64_t>(Wb) + q;
+          store(static_cast<T*>(band_a) + off, re[m]);
+          store(static_cast<T*>(band_b) + off, im[m]);
+        }
+      } else {
+        A* z = static_cast<A*>(band_a) +
+               (((b * Dh + u) * Hb + p) * static_cast<int64_t>(Wb) + q) * 56 +
+               8 * n;
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          z[2 * m] = re[m];
+          z[2 * m + 1] = im[m];
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// synthesis: lll [B, Dn, H, W] and the 28 subbands [.., Dn/2, H/2, W/2] ->
+// U_0, U_1 [B, Dn, Ho, Wo] (compute type)
+// ---------------------------------------------------------------------------
+
+// The corners (c = 0, 1) at octet parities (hp, wp) of octant n at band
+// sample (b, u, y, x): c2cube of the subbands 4n .. 4n + 3.
+template <typename T, bool PLANES, typename A>
+__device__ __forceinline__ void unpack_corners(const void* band_a,
+                                               const void* band_b, int64_t b,
+                                               int u, int Dh, int y, int x,
+                                               int Hb, int Wb, int n, int hp,
+                                               int wp, A& c0, A& c1) {
+  A pr, qr, rr, sr, pi, qi, ri, si;
+  if constexpr (PLANES) {
+    const int64_t hw = static_cast<int64_t>(Hb) * Wb;
+    const int64_t plane = Dh * hw;  // one subband
+    const int64_t off = ((b * 28 + 4 * n) * Dh + u) * hw +
+                        static_cast<int64_t>(y) * Wb + x;
+    const T* ra = static_cast<const T*>(band_a) + off;
+    const T* ia = static_cast<const T*>(band_b) + off;
+    pr = load(ra);
+    qr = load(ra + plane);
+    rr = load(ra + 2 * plane);
+    sr = load(ra + 3 * plane);
+    pi = load(ia);
+    qi = load(ia + plane);
+    ri = load(ia + 2 * plane);
+    si = load(ia + 3 * plane);
+  } else {
+    const A* z = static_cast<const A*>(band_a) +
+                 (((b * Dh + u) * Hb + y) * static_cast<int64_t>(Wb) + x) *
+                     56 +
+                 8 * n;
+    pr = z[0];
+    pi = z[1];
+    qr = z[2];
+    qi = z[3];
+    rr = z[4];
+    ri = z[5];
+    sr = z[6];
+    si = z[7];
+  }
+  const A h = static_cast<A>(0.5);
+  if (hp == 0 && wp == 0) {
+    c0 = (pr + qr + rr + sr) * h;      // c000
+    c1 = (pi + qi - ri - si) * h;      // c100
+  } else if (hp == 0) {
+    c0 = (pi + qi + ri + si) * h;      // c001
+    c1 = (-pr - qr + rr + sr) * h;     // c101
+  } else if (wp == 0) {
+    c0 = (pi - qi + ri - si) * h;      // c010
+    c1 = (-pr + qr + rr - sr) * h;     // c110
+  } else {
+    c0 = (-pr + qr - rr + sr) * h;     // c011
+    c1 = (-pi + qi + ri - si) * h;     // c111
+  }
+}
+
+template <typename T, bool PLANES, int P, int D, int S>
+__global__ void __launch_bounds__(PACK_THREADS)
+    inv_pack_kernel(const T* __restrict__ lll, const void* band_a,
+                    const void* band_b, typename AccOf<T>::type* __restrict__ ulo,
+                    typename AccOf<T>::type* __restrict__ uhi, int Dn, int H,
+                    int W, int Ho, int Wo, int OH, int OW, int XR, int XC,
+                    int cmin, int n_th, int n_tw,
+                    PackPlan<typename AccOf<T>::type, P> plan) {
+  using A = typename AccOf<T>::type;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ PackPlan<A, P> sp;
+  A* xs = reinterpret_cast<A*>(smem_raw);  // [2 c][XR][XC] one octant
+  A* v = xs + 2 * XR * XC;                 // [2 i][2 j][2 c][XR][OW]
+
+  const int tid = threadIdx.x;
+  int64_t blk = blockIdx.x;
+  const int tw = static_cast<int>(blk % n_tw);
+  blk /= n_tw;
+  const int th = static_cast<int>(blk % n_th);
+  blk /= n_th;
+  const int Dh = Dn / 2;
+  const int u = static_cast<int>(blk % Dh);
+  const int64_t b = blk / Dh;
+  const int o0r = th * OH, o0c = tw * OW;
+  const int rstart = D * (o0r / P) + cmin, cstart = D * (o0c / P) + cmin;
+  const int Hb = H / 2, Wb = W / 2;
+  const int XN = XR * XC, VN = XR * OW;
+
+  stage_plan(plan, &sp);
+#pragma unroll 1
+  for (int ij = 0; ij < 4; ++ij) {
+    const int i = ij >> 1, j = ij & 1;
+#pragma unroll 1
+    for (int k = 0; k < 2; ++k) {
+      __syncthreads();  // the plan is staged / the last W stage read xs
+      const int n = k ? 3 + 2 * i + j : 2 * i + j - 1;  // -1: the LLL
+      for (int idx = tid; idx < XN; idx += PACK_THREADS) {
+        const int r = idx / XC, col = idx - r * XC;
+        const int gr = reflect(rstart + r, H), gc = reflect(cstart + col, W);
+        A c0, c1;
+        if (n < 0) {
+          const T* lp = lll + (b * Dn + 2 * u) * static_cast<int64_t>(H) * W +
+                        static_cast<int64_t>(gr) * W + gc;
+          c0 = load(lp);
+          c1 = load(lp + static_cast<int64_t>(H) * W);
+        } else {
+          unpack_corners<T, PLANES, A>(band_a, band_b, b, u, Dh, gr >> 1,
+                                       gc >> 1, Hb, Wb, n, gr & 1, gc & 1, c0,
+                                       c1);
+        }
+        xs[idx] = c0;
+        xs[XN + idx] = c1;
+      }
+      __syncthreads();
+      for (int idx = tid; idx < 2 * VN; idx += PACK_THREADS) {
+        const int c = idx / VN, rem = idx - c * VN;
+        const int r = rem / OW, ow = rem - r * OW;
+        const A y = fir<A, P, D, S>(sp, k, ow, xs + c * XN + r * XC, 1);
+        A* dst = v + ((i * 2 + j) * 2 + c) * VN + rem;
+        *dst = k ? *dst + y : y;
+      }
+    }
+  }
+  __syncthreads();
+
+  for (int idx = tid; idx < OH * OW; idx += PACK_THREADS) {
+    const int orow = idx / OW, ocol = idx - orow * OW;
+    const int gor = o0r + orow, goc = o0c + ocol;
+    if (gor >= Ho || goc >= Wo) continue;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      A* out = i ? uhi : ulo;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        A acc = 0;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          acc += fir<A, P, D, S>(sp, j, orow,
+                                    v + ((i * 2 + j) * 2 + c) * VN + ocol,
+                                    OW);
+        out[((b * Dn + 2 * u + c) * Ho + gor) * static_cast<int64_t>(Wo) +
+            goc] = acc;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+// taps: host [2][P][MAX_TAPS]; lens, offs: host [2][P].  Fills *plan and
+// the offsets' span; false if a stream is empty or too long.
+template <typename A, int P, int S>
+bool make_pack_plan(PackPlan<A, P>* plan, const double* taps,
+                    const int* lens, const int* offs, int* cmin, int* span) {
+  int lo = INT_MAX, hi = INT_MIN;
+  for (int b = 0; b < 2; ++b)
+    for (int s = 0; s < P; ++s) {
+      const int len = lens[b * P + s], c = offs[b * P + s];
+      if (len < 1 || len > MAX_TAPS) return false;
+      lo = c < lo ? c : lo;
+      hi = c + S * (len - 1) > hi ? c + S * (len - 1) : hi;
+    }
+  for (int b = 0; b < 2; ++b)
+    for (int s = 0; s < P; ++s) {
+      plan->len[b][s] = lens[b * P + s];
+      plan->off[b][s] = offs[b * P + s] - lo;
+      for (int k = 0; k < MAX_TAPS; ++k)
+        plan->t[b][s][k] = static_cast<A>(taps[(b * P + s) * MAX_TAPS + k]);
+    }
+  *cmin = lo;
+  *span = hi - lo + 1;
+  return true;
+}
+
+// The largest output tile (OH x OW, each a power of two <= PACK_TILE and a
+// multiple of `mult`) whose shared memory fits: n_x staged images of
+// XR x XC and n_v W-stage images of XR x OW.
+template <typename A, int P, int D>
+bool pick_tile(int span, int n_x, int n_v, int mult, int* OH, int* OW,
+               int* XR, int* XC, size_t* smem) {
+  int oh = PACK_TILE, ow = PACK_TILE;
+  for (;;) {
+    const int xr = D * (oh / P - 1) + span, xc = D * (ow / P - 1) + span;
+    const size_t bytes = sizeof(A) * (static_cast<size_t>(n_x) * xr * xc +
+                                      static_cast<size_t>(n_v) * xr * ow);
+    if (bytes <= PACK_SMEM_MAX) {
+      *OH = oh;
+      *OW = ow;
+      *XR = xr;
+      *XC = xc;
+      *smem = bytes;
+      return true;
+    }
+    if (oh >= ow && oh > mult) {
+      oh /= 2;
+    } else if (ow > mult) {
+      ow /= 2;
+    } else {
+      return false;
+    }
+  }
+}
+
+template <typename T, bool PLANES, int P, int D, int S, bool FWD>
+cudaError_t run_pack(const void* in_a, const void* in_b, const void* bands_a,
+                     const void* bands_b, void* out_a, void* out_b,
+                     void* out_c, int B, int Dn, int H, int W, int Ho, int Wo,
+                     const double* taps, const int* lens, const int* offs,
+                     cudaStream_t stream) {
+  using A = typename AccOf<T>::type;
+  PackPlan<A, P> plan;
+  int cmin, span, OH, OW, XR, XC;
+  size_t smem;
+  if (!make_pack_plan<A, P, S>(&plan, taps, lens, offs, &cmin, &span))
+    return cudaErrorInvalidValue;
+  const int mult = P > 2 ? P : 2;
+  if (!pick_tile<A, P, D>(span, FWD ? 1 : 2, 8, mult, &OH, &OW, &XR, &XC,
+                          &smem))
+    return cudaErrorInvalidValue;
+  const int n_th = (Ho + OH - 1) / OH, n_tw = (Wo + OW - 1) / OW;
+  const int64_t blocks =
+      static_cast<int64_t>(B) * (Dn / 2) * n_th * static_cast<int64_t>(n_tw);
+  if (blocks < 1 || blocks > INT_MAX) return cudaErrorInvalidValue;
+  cudaError_t e;
+  if constexpr (FWD) {
+    auto kernel = fwd_pack_kernel<T, PLANES, P, D, S>;
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    kernel<<<static_cast<unsigned>(blocks), PACK_THREADS, smem, stream>>>(
+        static_cast<const A*>(in_a), static_cast<const A*>(in_b),
+        static_cast<T*>(out_a), out_b, out_c, Dn, H, W, Ho, Wo, OH, OW, XR,
+        XC, cmin, n_th, n_tw, plan);
+  } else {
+    auto kernel = inv_pack_kernel<T, PLANES, P, D, S>;
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    kernel<<<static_cast<unsigned>(blocks), PACK_THREADS, smem, stream>>>(
+        static_cast<const T*>(in_a), bands_a, bands_b,
+        static_cast<A*>(out_a), static_cast<A*>(out_b), Dn, H, W, Ho, Wo, OH,
+        OW, XR, XC, cmin, n_th, n_tw, plan);
+  }
+  return cudaGetLastError();
+}
+
+template <int P, int D, int S, bool FWD>
+int dispatch_pack(const void* in_a, const void* in_b, const void* bands_a,
+                  const void* bands_b, void* out_a, void* out_b, void* out_c,
+                  int B, int Dn, int H, int W, int Ho, int Wo,
+                  const double* taps, const int* lens, const int* offs,
+                  int dtype, int planes, void* stream) {
+  if (B < 1 || Dn < 2 || Dn % 2 || H < 2 || W < 2 || Ho < 2 || Wo < 2 ||
+      Ho % 2 || Wo % 2)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define DTCWT_RUN_PACK(T, PL)                                               \
+  run_pack<T, PL, P, D, S, FWD>(in_a, in_b, bands_a, bands_b, out_a, out_b, \
+                                out_c, B, Dn, H, W, Ho, Wo, taps, lens, offs, \
+                                st)
+  switch (dtype) {
+    case DT_F32:
+      return planes ? DTCWT_RUN_PACK(float, true)
+                    : DTCWT_RUN_PACK(float, false);
+    case DT_BF16:
+      if (!planes) return cudaErrorInvalidValue;
+      return DTCWT_RUN_PACK(__nv_bfloat16, true);
+    case DT_F64:
+      return planes ? DTCWT_RUN_PACK(double, true)
+                    : DTCWT_RUN_PACK(double, false);
+  }
+#undef DTCWT_RUN_PACK
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace dtcwt
+
+// Common C interface of the four kernels.  dtype: the storage type.
+//   analysis:  in_a / in_b = lo / hi [B, Dn, H, W] (compute type);
+//              out_a = lll [B, Dn, Ho, Wo] (storage type); out_b / out_c =
+//              re / im planes [B, 28, Dn/2, Ho/2, Wo/2] (planes = 1) or
+//              out_b = the interleaved complex [B, Dn/2, Ho/2, Wo/2, 28]
+//              (planes = 0); bands_a / bands_b unused.
+//   synthesis: in_a = lll [B, Dn, H, W] (storage type); bands_a / bands_b =
+//              re / im planes [B, 28, Dn/2, H/2, W/2] (planes = 1) or
+//              bands_a = the interleaved complex level (planes = 0);
+//              out_a / out_b = U_0 / U_1 [B, Dn, Ho, Wo] (compute type).
+// taps: host float64 [2 branches][P streams][MAX_TAPS]; lens, offs: host
+// [2][P].  Returns the launch's CUDA error code.
+#define DTCWT_PACK_EXPORT(name, P, D, S, FWD)                                  \
+  extern "C" int name(const void* in_a, const void* in_b,                     \
+                      const void* bands_a, const void* bands_b, void* out_a,  \
+                      void* out_b, void* out_c, int B, int Dn, int H, int W,  \
+                      int Ho, int Wo, const double* taps, const int* lens,    \
+                      const int* offs, int dtype, int planes, void* stream) { \
+    return dtcwt::dispatch_pack<P, D, S, FWD>(                                \
+        in_a, in_b, bands_a, bands_b, out_a, out_b, out_c, B, Dn, H, W, Ho,   \
+        Wo, taps, lens, offs, dtype, planes, stream);                         \
+  }
+
+DTCWT_PACK_EXPORT(dtcwt_fwd_level1_pack, 1, 1, 1, true)
+DTCWT_PACK_EXPORT(dtcwt_inv_level1_pack, 1, 1, 1, false)
+DTCWT_PACK_EXPORT(dtcwt_fwd_level2_pack, 2, 4, 2, true)
+DTCWT_PACK_EXPORT(dtcwt_inv_level2_pack, 4, 2, 2, false)

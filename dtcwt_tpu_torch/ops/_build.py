@@ -2,9 +2,10 @@
 
 The kernels are CUDA C++ for Hopper (``sm_90a``) in ``../csrc``, behind a
 plain ``extern "C"`` interface that returns ``cudaGetLastError()``.  At
-first use one ``nvcc`` call compiles all of them into a shared library under
-``build/kernels/`` beside the package; the file name carries a hash of the
-sources and flags, so edited sources rebuild.  The library is loaded with
+first use one ``nvcc`` per source, all started together, compiles them to
+objects, and one more links the shared library under ``build/kernels/``
+beside the package; the file name carries a hash of the sources and flags,
+so edited sources rebuild.  The library is loaded with
 ``ctypes``, every pointer and the stream passed as ``c_void_p``.
 
 Nothing here runs on import.  Without ``nvcc`` the build raises: a CUDA
@@ -35,7 +36,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # argument types of each exported function (see csrc/*.cu)
@@ -56,6 +57,13 @@ _SIGNATURES = {
 for _name in ("filter2", "dfilt2", "filter2_sum", "ifilt2_sum"):
     _SIGNATURES["dtcwt_" + _name] = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                      _P, _P, _P, _I, _P)
+# the 3-D level kernels of csrc/pack3d.cu: in_a, in_b, bands_a, bands_b,
+# out_a, out_b, out_c, B, Dn, H, W, Ho, Wo, taps, lens, offs, dtype, planes,
+# stream
+for _name in ("fwd_level1_pack", "inv_level1_pack", "fwd_level2_pack",
+              "inv_level2_pack"):
+    _SIGNATURES["dtcwt_" + _name] = (_P,) * 7 + (_I,) * 6 + (_P,) * 3 + (
+        _I, _I, _P)
 
 #: Kernel launches per wrapper, counted where each wrapper launches.
 launches = collections.Counter()
@@ -102,16 +110,30 @@ def build() -> str:
         return path
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
-           *[s for s in srcs if s.endswith(".cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError("nvcc failed (exit %d):\n%s\n%s" % (
-            proc.returncode, " ".join(cmd), proc.stderr))
-    os.replace(tmp, path)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        jobs = []
+        for src in (s for s in srcs if s.endswith(".cu")):
+            obj = os.path.join(work, os.path.basename(src) + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", "-o", obj, src]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        for cmd, _, proc in jobs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                for *_, other in jobs:
+                    other.kill()
+                    other.wait()
+                raise RuntimeError("nvcc failed (exit %d):\n%s\n%s" % (
+                    proc.returncode, " ".join(cmd), err))
+        tmp = os.path.join(work, "lib.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp,
+               *[obj for _, obj, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed (exit %d):\n%s\n%s" % (
+                proc.returncode, " ".join(cmd), proc.stderr))
+        os.replace(tmp, path)
     return path
 
 

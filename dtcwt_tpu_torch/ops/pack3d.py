@@ -1,0 +1,362 @@
+"""The four level kernels of the 3-D DTCWT: CUDA kernels and their plain
+versions.
+
+Replaces the Pallas kernels of ``dtcwt_tpu/ops/pallas_pack3d.py``:
+
+===================  ================================  ======================
+entry                one level                         replaces
+===================  ================================  ======================
+``fwd_level1_pack``  biort analysis + cube2c pack      ``_build_pack_pairs``
+``inv_level1_pack``  c2cube unpack + biort synthesis   ``_build_unpack_pairs``
+``fwd_level2_pack``  qshift analysis + cube2c pack     ``_build_pack_pairs2``
+``inv_level2_pack``  c2cube unpack + qshift synthesis  ``_build_unpack_pairs2``
+===================  ================================  ======================
+
+Each level is a separable filter tree over ``[..., D, H, W]`` plus the
+octet <-> complex packing of its 7 highpass octants into 28 subbands, in
+the octant order :data:`_OCTANTS`.  On a CUDA tensor the depth stage runs
+on the dual-stream kernels of :mod:`dual` along axis -3 (first on analysis,
+last on synthesis) and the kernel of ``csrc/pack3d.cu`` does the (H, W)
+stages and the (un)pack per depth-slice pair; what bounds it and what its
+design does about it is in that source.  On a CPU tensor each entry runs its
+``*_reference`` plain version: the dual forms of :mod:`fb` along W, H and
+D, then :func:`packing.cube2c_planes` (or :func:`packing.cube2c`) per octant,
+computed at float32 for bfloat16 storage.  Any other device raises.
+
+The subbands are band-major planes ``(re, im)`` of ``[..., 28, D', H', W']``
+in the storage dtype (``planes=True``) or one complex band-minor
+``[..., D', H', W', 28]`` tensor.  The kernels take every shape the
+transform makes (even extents; multiples of 4 at levels >= 2), float32,
+bfloat16 (planes only) and float64, and odd-length level-1 filters; the
+transform runs even-length level-1 filters as a separable tree on the dual
+kernels.  Level >= 2 pairs follow the transform's call order ``(h0b, h0a)``
+/ ``(h1b, h1a)`` (analysis) and ``(g0b, g0a)`` / ``(g1b, g1a)`` (synthesis).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from dtcwt_tpu_torch.ops import _build, dual, fb
+from dtcwt_tpu_torch.ops.ilevel2 import ifilt_streams
+from dtcwt_tpu_torch.ops.level2 import dfilt_streams
+from dtcwt_tpu_torch.ops.packing import (
+    c2cube, c2cube_planes, cube2c, cube2c_planes)
+from dtcwt_tpu_torch.utils import compute_view
+
+__all__ = ["fwd_level1_pack", "inv_level1_pack", "fwd_level2_pack",
+           "inv_level2_pack", "fwd_level1_pack_reference",
+           "inv_level1_pack_reference", "fwd_level2_pack_reference",
+           "inv_level2_pack_reference", "analysis_octants", "pack_octants",
+           "unpack_octants", "synthesis"]
+
+#: Octant order of the 28 highpass subbands of a 3-D level: ``(i, j, k)``
+#: = branch (0 lowpass, 1 highpass) along (D, H, W); octant ``n`` holds
+#: subbands ``4n .. 4n + 3``.
+_OCTANTS = (
+    (0, 1, 0),   # HLL
+    (1, 0, 0),   # LHL
+    (1, 1, 0),   # HHL
+    (0, 0, 1),   # LLH
+    (0, 1, 1),   # HLH
+    (1, 0, 1),   # LHH
+    (1, 1, 1),   # HHH
+)
+
+_MAX_TAPS = 32  # csrc/common.cuh MAX_TAPS, per stream
+
+
+# ---------------------------------------------------------------------------
+# the separable tree and the (un)pack, shared by the plain versions and the
+# transform's even-filter route
+# ---------------------------------------------------------------------------
+
+def analysis_octants(x: torch.Tensor, split):
+    """The 8 octant volumes ``{(i, j, k): tensor}`` of one analysis level:
+    *split(v, axis)* returns both branches of one stage (a dual form),
+    applied along W, then H, then D."""
+    octs = {}
+    for k, v in enumerate(split(x, -1)):
+        for j, vj in enumerate(split(v, -2)):
+            octs[(0, j, k)], octs[(1, j, k)] = split(vj, -3)
+    return octs
+
+
+def pack_octants(octs, planes: bool, dtype=None):
+    """The 7 highpass octants packed into one 28-band level: ``(re, im)``
+    band-major planes cast to *dtype*, or the complex band-minor tensor."""
+    if planes:
+        parts = [cube2c_planes(octs[o]) for o in _OCTANTS]
+        re = torch.cat([r for r, _ in parts], dim=-4)
+        im = torch.cat([i for _, i in parts], dim=-4)
+        if dtype is not None:
+            re, im = re.to(dtype), im.to(dtype)
+        return re, im
+    return torch.cat([cube2c(octs[o]) for o in _OCTANTS], dim=-1)
+
+
+def unpack_octants(bands):
+    """The 7 highpass octant volumes of a 28-band level given as ``(re,
+    im)`` planes (computed at float32 for bfloat16) or as the complex
+    band-minor tensor."""
+    octs = {}
+    if isinstance(bands, tuple):
+        re, im = (compute_view(a) for a in bands)
+        for n, o in enumerate(_OCTANTS):
+            octs[o] = c2cube_planes(re[..., 4 * n:4 * n + 4, :, :, :],
+                                    im[..., 4 * n:4 * n + 4, :, :, :])
+    else:
+        for n, o in enumerate(_OCTANTS):
+            octs[o] = c2cube(bands[..., 4 * n:4 * n + 4])
+    return octs
+
+
+def synthesis(octs, merge):
+    """Separable synthesis of the 8 octant volumes: *merge(a, b, axis)* is
+    one stage's branch merge (a dual sum form), applied along D, then H,
+    then W."""
+    V = {(j, k): merge(octs[(0, j, k)], octs[(1, j, k)], -3)
+         for j in range(2) for k in range(2)}
+    return merge(merge(V[(0, 0)], V[(1, 0)], -2),
+                 merge(V[(0, 1)], V[(1, 1)], -2), -1)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def fwd_level1_pack_reference(x: torch.Tensor, h0o, h1o, planes=True):
+    """Plain level-1 analysis of ``[..., D, H, W]``: ``(lll [..., D, H, W],
+    subbands)``, the subbands ``(re, im) [..., 28, D/2, H/2, W/2]`` or
+    complex ``[..., D/2, H/2, W/2, 28]``."""
+    octs = analysis_octants(compute_view(x),
+                            lambda v, ax: fb.filter2_axis(v, h0o, h1o, ax))
+    return octs[(0, 0, 0)].to(x.dtype), pack_octants(octs, planes, x.dtype)
+
+
+def fwd_level2_pack_reference(x: torch.Tensor, pair0, pair1, planes=True):
+    """Plain qshift analysis of ``[..., D, H, W]`` (multiples of 4):
+    ``(lll [..., D/2, H/2, W/2], subbands [..., 28, D/4, H/4, W/4])``."""
+    octs = analysis_octants(
+        compute_view(x), lambda v, ax: fb.dfilt2_axis(v, pair0, pair1, ax))
+    return octs[(0, 0, 0)].to(x.dtype), pack_octants(octs, planes, x.dtype)
+
+
+def _band_arg(re, im):
+    return re if im is None else (re, im)
+
+
+def inv_level1_pack_reference(lll: torch.Tensor, re, im, g0o, g1o):
+    """Plain level-1 synthesis: the lowpass ``[..., D, H, W]`` and the
+    subbands, ``(re, im)`` planes ``[..., 28, D/2, H/2, W/2]`` or (with *im*
+    None) the complex band-minor *re*, back to ``[..., D, H, W]``."""
+    octs = unpack_octants(_band_arg(re, im))
+    octs[(0, 0, 0)] = compute_view(lll)
+    out = synthesis(octs, lambda a, b, ax: fb.filter2_sum_axis(a, b, g0o,
+                                                               g1o, ax))
+    return out.to(lll.dtype)
+
+
+def inv_level2_pack_reference(lll: torch.Tensor, re, im, pair0, pair1):
+    """Plain qshift synthesis: ``[..., D, H, W]`` and subbands
+    ``[..., 28, D/2, H/2, W/2]`` back to the uncropped
+    ``[..., 2D, 2H, 2W]``."""
+    octs = unpack_octants(_band_arg(re, im))
+    octs[(0, 0, 0)] = compute_view(lll)
+    out = synthesis(octs, lambda a, b, ax: fb.ifilt2_sum_axis(a, b, pair0,
+                                                              pair1, ax))
+    return out.to(lll.dtype)
+
+
+# ---------------------------------------------------------------------------
+# checks, host plans and the launch
+# ---------------------------------------------------------------------------
+
+def _volume(x: torch.Tensor, name: str, mult: int):
+    if x.ndim < 3:
+        raise ValueError("%s needs a [..., D, H, W] volume, got %s"
+                         % (name, tuple(x.shape)))
+    D, H, W = x.shape[-3:]
+    if D % mult or H % mult or W % mult or min(D, H, W) < mult:
+        raise ValueError("%s needs D, H, W multiples of %d, got %s"
+                         % (name, mult, tuple(x.shape)))
+    return D, H, W
+
+
+def _storage(x: torch.Tensor, planes: bool) -> None:
+    if x.dtype == torch.bfloat16 and not planes:
+        raise TypeError("bfloat16 subbands exist only in the plane layout")
+
+
+def _odd(h0, h1, name: str):
+    for h in (h0, h1):
+        m = fb._as_taps(h).size
+        if m % 2 == 0 or m >= _MAX_TAPS:
+            raise ValueError("%s takes odd-length level-1 filters of at most "
+                             "%d taps, got %d" % (name, _MAX_TAPS - 1, m))
+
+
+def _check_bands(lll: torch.Tensor, re, im, name: str):
+    """Check the subbands against the lowpass ``[..., D, H, W]``; return
+    ``(band_a, band_b, planes)`` for the kernel."""
+    lead, (D, H, W) = tuple(lll.shape[:-3]), tuple(lll.shape[-3:])
+    sub = (D // 2, H // 2, W // 2)
+    if im is not None:
+        want = lead + (28,) + sub
+        for a in (re, im):
+            if tuple(a.shape) != want or a.dtype != lll.dtype:
+                raise ValueError("%s: subband planes must be %s %s, got %s %s"
+                                 % (name, want, lll.dtype, tuple(a.shape),
+                                    a.dtype))
+        return re, im, True
+    want = lead + sub + (28,)
+    ctype = {torch.float32: torch.complex64,
+             torch.float64: torch.complex128}.get(lll.dtype)
+    if tuple(re.shape) != want or re.dtype != ctype:
+        raise ValueError("%s: subbands must be %s %s, got %s %s"
+                         % (name, want, ctype, tuple(re.shape), re.dtype))
+    return re, None, False
+
+
+def _table(plans):
+    """The plans' taps as the kernel's host [2][P][MAX_TAPS] float64 table
+    and the [2][P] tap counts and offsets."""
+    P = plans[0][0].shape[0]
+    taps = np.zeros((2, P, _MAX_TAPS))
+    lens, offs = [], []
+    for b, (t, o) in enumerate(plans):
+        if t.shape[1] > _MAX_TAPS:
+            raise ValueError("the 3-D level kernels take at most %d taps per "
+                             "stream, got %d" % (_MAX_TAPS, t.shape[1]))
+        taps[b, :, :t.shape[1]] = t
+        lens += [t.shape[1]] * P
+        offs += list(o)
+    return taps, _build.ints_arg(lens), _build.ints_arg(offs)
+
+
+def _launch(name, x, bands, plans, out_dtype, planes, Ho, Wo, fwd):
+    """Run kernel *name*.  Analysis: *x* is the pair (lo, hi) of branch
+    volumes [B, Dn, H, W]; returns (lll, band_a, band_b).  Synthesis: *x*
+    is (lll,) and *bands* the (band_a, band_b) inputs; returns (U_0, U_1)."""
+    src = x[0]
+    B, Dn, H, W = src.shape
+    dev = src.device
+    for t in list(x) + [a for a in bands if a is not None]:
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError("%s needs contiguous inputs on %s" % (name, dev))
+    code = _build.dtype_code(out_dtype if fwd else src.dtype)
+    acc = torch.float64 if code == 2 else torch.float32
+    if fwd:
+        lll = torch.empty((B, Dn, Ho, Wo), dtype=out_dtype, device=dev)
+        sub = (B, Dn // 2, Ho // 2, Wo // 2)
+        if planes:
+            ra = torch.empty((B, 28) + sub[1:], dtype=out_dtype, device=dev)
+            outs = (lll, ra, torch.empty_like(ra))
+        else:
+            ctype = torch.complex64 if acc == torch.float32 else \
+                torch.complex128
+            outs = (lll, torch.empty(sub + (28,), dtype=ctype, device=dev),
+                    None)
+        ins = (x[0], x[1], None, None)
+    else:
+        outs = (torch.empty((B, Dn, Ho, Wo), dtype=acc, device=dev),
+                torch.empty((B, Dn, Ho, Wo), dtype=acc, device=dev), None)
+        ins = (x[0], None) + tuple(bands)
+    ptr = lambda t: None if t is None else (
+        torch.view_as_real(t) if t.is_complex() else t).data_ptr()
+    taps, lens, offs = _table(plans)
+    fn = getattr(_build.library(), "dtcwt_" + name)
+    err = fn(*(ptr(t) for t in ins), *(ptr(t) for t in outs), B, Dn, H, W,
+             Ho, Wo, taps.ctypes.data, lens.ctypes.data, offs.ctypes.data,
+             code, int(planes), _build.stream_ptr(dev))
+    _build.check(name, err)
+    _build.count(name)
+    return outs
+
+
+def _fwd(name, x, depth_split, plans, planes, Ho, Wo):
+    """Depth stage on the dual kernels, then the pack kernel; the outputs
+    reshaped to x's leading axes."""
+    lead = tuple(x.shape[:-3])
+    x4 = compute_view(x).reshape((-1,) + tuple(x.shape[-3:])).contiguous()
+    lo, hi = depth_split(x4)
+    lll, ba, bb = _launch(name, (lo, hi), (), plans, x.dtype, planes, Ho, Wo,
+                          True)
+    lll = lll.reshape(lead + lll.shape[1:])
+    if planes:
+        return lll, (ba.reshape(lead + ba.shape[1:]),
+                     bb.reshape(lead + bb.shape[1:]))
+    return lll, ba.reshape(lead + ba.shape[1:])
+
+
+def _inv(name, lll, re, im, plans, depth_merge, Ho, Wo):
+    """The unpack kernel, then the depth stage on the dual kernels."""
+    ba, bb, planes = _check_bands(lll, re, im, name)
+    lead = tuple(lll.shape[:-3])
+    l4 = lll.reshape((-1,) + tuple(lll.shape[-3:])).contiguous()
+    flat = lambda a: None if a is None else a.reshape(
+        (l4.shape[0],) + tuple(a.shape[len(lead):])).contiguous()
+    ulo, uhi = _launch(name, (l4,), (flat(ba), flat(bb)), plans, None,
+                       planes, Ho, Wo, False)[:2]
+    y = depth_merge(ulo, uhi).to(lll.dtype)
+    return y.reshape(lead + y.shape[1:])
+
+
+def _filter_plans(h0, h1):
+    return [dual._filter_plan(h0), dual._filter_plan(h1)]
+
+
+# ---------------------------------------------------------------------------
+# the entries
+# ---------------------------------------------------------------------------
+
+def fwd_level1_pack(x: torch.Tensor, h0o, h1o, planes: bool = True):
+    """Level-1 analysis with odd-length biort filters; see
+    :func:`fwd_level1_pack_reference`.  D, H, W even."""
+    D, H, W = _volume(x, "fwd_level1_pack", 2)
+    _odd(h0o, h1o, "fwd_level1_pack")
+    _storage(x, planes)
+    if dual._on_cpu(x, "fwd_level1_pack"):
+        return fwd_level1_pack_reference(x, h0o, h1o, planes)
+    return _fwd("fwd_level1_pack", x,
+                lambda v: dual.filter2_axis(v, h0o, h1o, -3),
+                _filter_plans(h0o, h1o), planes, H, W)
+
+
+def fwd_level2_pack(x: torch.Tensor, pair0, pair1, planes: bool = True):
+    """Qshift analysis; see :func:`fwd_level2_pack_reference`.  D, H, W
+    multiples of 4."""
+    D, H, W = _volume(x, "fwd_level2_pack", 4)
+    pairs = dual._pairs(pair0, pair1)
+    _storage(x, planes)
+    if dual._on_cpu(x, "fwd_level2_pack"):
+        return fwd_level2_pack_reference(x, pair0, pair1, planes)
+    return _fwd("fwd_level2_pack", x,
+                lambda v: dual.dfilt2_axis(v, pair0, pair1, -3),
+                [dfilt_streams(*p) for p in pairs], planes, H // 2, W // 2)
+
+
+def inv_level1_pack(lll: torch.Tensor, re, im, g0o, g1o):
+    """Level-1 synthesis with odd-length biort filters; see
+    :func:`inv_level1_pack_reference`."""
+    D, H, W = _volume(lll, "inv_level1_pack", 2)
+    _odd(g0o, g1o, "inv_level1_pack")
+    _check_bands(lll, re, im, "inv_level1_pack")
+    if dual._on_cpu(lll, "inv_level1_pack"):
+        return inv_level1_pack_reference(lll, re, im, g0o, g1o)
+    return _inv("inv_level1_pack", lll, re, im, _filter_plans(g0o, g1o),
+                lambda a, b: dual.filter2_sum_axis(a, b, g0o, g1o, -3), H, W)
+
+
+def inv_level2_pack(lll: torch.Tensor, re, im, pair0, pair1):
+    """Qshift synthesis; see :func:`inv_level2_pack_reference`."""
+    D, H, W = _volume(lll, "inv_level2_pack", 2)
+    pairs = dual._pairs(pair0, pair1)
+    _check_bands(lll, re, im, "inv_level2_pack")
+    if dual._on_cpu(lll, "inv_level2_pack"):
+        return inv_level2_pack_reference(lll, re, im, pair0, pair1)
+    return _inv("inv_level2_pack", lll, re, im,
+                [ifilt_streams(*p) for p in pairs],
+                lambda a, b: dual.ifilt2_sum_axis(a, b, pair0, pair1, -3),
+                2 * H, 2 * W)

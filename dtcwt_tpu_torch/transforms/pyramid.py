@@ -1,4 +1,4 @@
-"""The transform-domain containers of the 1-D and 2-D transforms
+"""The transform-domain containers of the 1-D, 2-D and 3-D transforms
 (``dtcwt_tpu.transforms.pyramid``): plain classes holding tensors."""
 
 from __future__ import annotations
@@ -42,7 +42,8 @@ class Pyramid:
         return len(self.highpasses)
 
     def __repr__(self):
-        hp = ", ".join(str(tuple(h.shape)) for h in self.highpasses)
+        hp = ", ".join("None" if h is None else str(tuple(h.shape))
+                       for h in self.highpasses)
         return "Pyramid(lowpass={}, highpasses=[{}]{})".format(
             tuple(self.lowpass.shape), hp,
             "" if self.scales is None else ", scales=%d" % len(self.scales))
@@ -54,8 +55,11 @@ class PlanePyramid:
     transform (``kind='2d'``) they are band-major ``[..., 6, H_l, W_l]`` in
     :data:`PLANE_BAND_ORDER`, the layout the level kernels write and read
     directly; for the 1-D transform (``kind='1d'``) they are the real and
-    imaginary parts of the ``[..., N_l, C]`` subbands, with no band axis.
-    This is the only layout that stores bfloat16.  Convert with
+    imaginary parts of the ``[..., N_l, C]`` subbands, with no band axis;
+    for the 3-D transform (``kind='3d'``) they are band-major
+    ``[..., 28, D_l, H_l, W_l]`` in the octant band order of the
+    interleaved layout.  A ``None`` level (``discard_level_1``) stays
+    ``None``.  This is the only layout that stores bfloat16.  Convert with
     :meth:`interleaved` / :meth:`from_interleaved`.
     """
 
@@ -76,9 +80,13 @@ class PlanePyramid:
         up = lambda a: a.float() if a.dtype == torch.bfloat16 else a
 
         def pack(re, im):
+            if re is None:
+                return None
             z = torch.complex(up(re), up(im))
             if self.kind == "1d":
                 return z        # no band axis to reorder
+            if self.kind == "3d":
+                return z.movedim(-4, -1).contiguous()
             return torch.stack([z[..., p, :, :] for p in _PLANE_POS], dim=-1)
 
         return Pyramid(up(self.lowpass),
@@ -89,15 +97,21 @@ class PlanePyramid:
 
     @classmethod
     def from_interleaved(cls, p: Pyramid, kind: str = "2d") -> "PlanePyramid":
-        """Split an interleaved pyramid of the 2-D (``kind='2d'``) or 1-D
-        (``kind='1d'``) transform into planes."""
-        if kind == "1d":
-            planes = list(p.highpasses)
-        else:
-            planes = [torch.stack([h[..., d] for d in PLANE_BAND_ORDER],
-                                  dim=-3) for h in p.highpasses]
-        return cls(p.lowpass, tuple(z.real.contiguous() for z in planes),
-                   tuple(z.imag.contiguous() for z in planes), p.scales,
+        """Split an interleaved pyramid of the 2-D (``kind='2d'``), 1-D
+        (``kind='1d'``) or 3-D (``kind='3d'``) transform into planes."""
+        def split(h):
+            if h is None:
+                return None
+            if kind == "1d":
+                return h
+            if kind == "3d":
+                return h.movedim(-1, -4)
+            return torch.stack([h[..., d] for d in PLANE_BAND_ORDER], dim=-3)
+
+        planes = [split(h) for h in p.highpasses]
+        part = lambda z, f: None if z is None else f(z).contiguous()
+        return cls(p.lowpass, tuple(part(z, torch.real) for z in planes),
+                   tuple(part(z, torch.imag) for z in planes), p.scales,
                    kind=kind)
 
     @property
@@ -105,7 +119,8 @@ class PlanePyramid:
         return len(self.highpasses_re)
 
     def __repr__(self):
-        hp = ", ".join(str(tuple(h.shape)) for h in self.highpasses_re)
+        hp = ", ".join("None" if h is None else str(tuple(h.shape))
+                       for h in self.highpasses_re)
         return "PlanePyramid(lowpass={}, planes=[{}]{})".format(
             tuple(self.lowpass.shape), hp,
             "" if self.scales is None else ", scales=%d" % len(self.scales))

@@ -279,3 +279,117 @@ def test_cuda_dual_refuses_non_contiguous_input(cuda):
     x = torch.zeros(16, 8, device=cuda).t()
     with pytest.raises(ValueError, match="contiguous"):
         dual.filter2_axis(x, b[0], b[2], 0)
+
+
+# --- the 3-D level kernels (csrc/pack3d.cu) --------------------------------
+
+_PACK_FAMS = {"fwd_level1_pack": ("near_sym_a", "near_sym_b", "antonini"),
+              "inv_level1_pack": ("near_sym_a", "near_sym_b", "antonini"),
+              "fwd_level2_pack": ("qshift_a", "qshift_d", "qshift_32"),
+              "inv_level2_pack": ("qshift_a", "qshift_d", "qshift_32")}
+# the volume each level reads: H or W not a multiple of 32, above 512, or
+# shorter than the filter (JAX's Pallas envelope refuses all of them);
+# level 2 takes multiples of 4, and its inverse reads half of each
+_PACK_SHAPES = {1: [(2, 4, 6, 10), (6, 36, 44), (2, 520, 6)],
+                2: [(4, 8, 12), (2, 8, 36, 20), (4, 516, 8)]}
+
+
+def _pack_calls(kind, fam):
+    """(kernel wrapper, plain version) of one pack3d entry, both taking
+    (inputs, planes)."""
+    from dtcwt_tpu_torch.ops import pack3d
+    if kind.endswith("level1_pack"):
+        b = biort(fam)
+        f = (b[0], b[2]) if kind.startswith("fwd") else (b[1], b[3])
+    else:
+        q = qshift(fam)
+        f = (((q[1], q[0]), (q[5], q[4])) if kind.startswith("fwd")
+             else ((q[3], q[2]), (q[7], q[6])))
+    kern = getattr(pack3d, kind)
+    plain = getattr(pack3d, kind + "_reference")
+    if kind.startswith("fwd"):
+        return (lambda x, pl: kern(x[0], *f, planes=pl),
+                lambda x, pl: plain(x[0], *f, planes=pl))
+    return (lambda x, pl: kern(*x, *f)), (lambda x, pl: plain(*x, *f))
+
+
+def _pack_inputs(kind, shape, dtype, planes, device, seed=0):
+    if kind.startswith("fwd"):
+        return [_rand(shape, seed, device, dtype)]
+    if kind == "inv_level2_pack":
+        shape = tuple(shape[:-3]) + tuple(s // 2 for s in shape[-3:])
+    D, H, W = shape[-3:]
+    bshape = tuple(shape[:-3]) + (28, D // 2, H // 2, W // 2)
+    lll = _rand(shape, seed, device, dtype)
+    re = _rand(bshape, seed + 1, device, dtype)
+    im = _rand(bshape, seed + 2, device, dtype)
+    if planes:
+        return [lll, re, im]
+    return [lll, torch.complex(re, im).movedim(-4, -1).contiguous(), None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,planes", _CASES)
+@pytest.mark.parametrize("kind", ["fwd_level1_pack", "inv_level1_pack",
+                                  "fwd_level2_pack", "inv_level2_pack"])
+def test_cuda_pack3d_matches_plain(cuda, kind, dtype, planes):
+    level = 1 if "level1" in kind else 2
+    for fam in _PACK_FAMS[kind]:
+        kern, plain = _pack_calls(kind, fam)
+        for seed, shape in enumerate(_PACK_SHAPES[level]):
+            x = _pack_inputs(kind, shape, dtype, planes, cuda, seed)
+            got = kern(x, planes)
+            torch.cuda.synchronize()
+            want = plain(x, planes)
+            if kind.startswith("fwd") and planes:
+                got, want = (got[0], *got[1]), (want[0], *want[1])
+            assert _kerr(got, want) < _KTOL[dtype], (fam, shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["interleaved", "planes"])
+def test_cuda_transform3d_matches_plain_path(cuda, layout):
+    """The 3-D transform on the card against the CPU at float64: pads and
+    crops at levels 2 and 3 in both ext_modes, a batch, and the launch
+    counts of a 3-level round trip; an even-length biort pair runs the
+    separable tree on the dual kernels."""
+    for em, fams, x in ((4, ("near_sym_b", "qshift_b"),
+                         np.random.RandomState(6).rand(2, 18, 22, 26)),
+                        (8, ("near_sym_a", "qshift_a"),
+                         np.random.RandomState(7).rand(20, 28, 36))):
+        t = dt.Transform3d(*fams, ext_mode=em)
+        tc = dt.Transform3d(*fams, ext_mode=em, device="cpu")
+        _build.reset_launches()
+        pg = t.forward(x, 3, layout=layout, include_scale=True)
+        rg = t.inverse(pg)
+        torch.cuda.synchronize()
+        assert dict(_build.launches) == {
+            "filter2": 1, "fwd_level1_pack": 1, "dfilt2": 2,
+            "fwd_level2_pack": 2, "inv_level2_pack": 2, "ifilt2_sum": 2,
+            "inv_level1_pack": 1, "filter2_sum": 1}
+        pc = tc.forward(torch.from_numpy(x), 3, layout=layout,
+                        include_scale=True)
+        assert _kerr(rg.cpu(), tc.inverse(pc)) < 1e-12
+        assert float((rg.cpu() - torch.from_numpy(x)).abs().max()) < 1e-12
+        hg = pg.highpasses if layout == "interleaved" else \
+            pg.highpasses_re + pg.highpasses_im
+        hc = pc.highpasses if layout == "interleaved" else \
+            pc.highpasses_re + pc.highpasses_im
+        for a, b in zip((pg.lowpass,) + hg + pg.scales,
+                        (pc.lowpass,) + hc + pc.scales):
+            assert _kerr(a.cpu(), b) < 1e-12
+    h0 = np.array((0.5, 0.5))
+    haar = (h0, h0, h0 * [1, -1], -h0 * [-1, 1])
+    x = np.random.RandomState(8).rand(8, 10, 12)
+    pg = dt.Transform3d(haar).forward(x, 1, layout=layout)
+    pc = dt.Transform3d(haar, device="cpu").forward(torch.from_numpy(x), 1,
+                                                    layout=layout)
+    assert _kerr(dt.Transform3d(haar).inverse(pg).cpu(),
+                 dt.Transform3d(haar, device="cpu").inverse(pc)) < 1e-12
+
+
+@pytest.mark.cuda
+def test_cuda_transform3d_discard_level_1_raises(cuda):
+    with pytest.raises(NotImplementedError, match="row 5"):
+        dt.Transform3d().forward(torch.zeros(8, 8, 8, device=cuda), 2,
+                                 discard_level_1=True)

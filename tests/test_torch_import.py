@@ -13,8 +13,9 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_import_loads_no_jax_or_triton_and_builds_nothing():
     code = (
         "import sys, dtcwt_tpu_torch, dtcwt_tpu_torch.convert\n"
-        "from dtcwt_tpu_torch.ops import _build, level1, level2, ilevel1, "
-        "ilevel2\n"
+        "from dtcwt_tpu_torch.ops import _build, dual, level1, level2, "
+        "ilevel1, ilevel2, pack3d\n"
+        "from dtcwt_tpu_torch.transforms import transform3d\n"
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'triton', 'dtcwt_tpu'))\n"
         "assert not bad, bad\n"
