@@ -15,7 +15,17 @@ complex float32, float32 planes, bfloat16 planes):
   8 levels;
 * 3-D: ``dtcwt_tpu_torch.Transform3d()``, ``forward(v, nlevels=3)`` then
   ``inverse``, on a 256 x 256 x 256 volume (the four level kernels of
-  ``csrc/pack3d.cu``, each level's depth stage on the dual-stream kernels).
+  ``csrc/pack3d.cu``, each level's depth stage on the dual-stream kernels);
+  and the same with ``discard_level_1=True`` (level 1 is three passes of
+  the single-stream ``filter`` kernel each way, levels 2-3 as before);
+* the low-level API: ``dtcwt_tpu_torch.ops.colfilter`` / ``rowfilter``
+  (near_sym_a's h0o and h1o), ``coldfilt`` / ``rowdfilt`` (qshift_a's
+  (h0b, h0a)) and ``colifilt`` / ``rowifilt`` ((g0b, g0a)) on a 4096 x 4096
+  image, float32 and bfloat16 (the three kernels of ``csrc/single.cu``);
+* ``compat``: ``dtwavexfm3(v, 3, discard_level_1=True)`` / ``dtwaveifm3``
+  at 256^3, ``dtwavexfm2`` / ``dtwaveifm2`` at 4096^2 and ``dtwavexfm`` /
+  ``dtwaveifm`` at ``[131072, 128]``, and ``Transform2d.forward_channels``
+  on a ``[2, 1024, 1024, 3]`` nhwc batch.
 
 Phases, each printing its own lines:
 
@@ -28,7 +38,10 @@ Phases, each printing its own lines:
    signal (``inner = 1``) and in their from-extension mode; each 3-D level
    kernel as its entry (depth stage included) and alone, and at float64 in
    shapes the JAX package's kernels refuse (H or W not a multiple of 32,
-   above 512, shorter than the filter);
+   above 512, shorter than the filter); the single-stream kernels at 4096^2
+   along axes -2 and -1 (float32, bfloat16), at 256^3 along -1, -2 and -3,
+   and at float64 over every family's filters, the bandpass ones included,
+   in both modes;
 4. main paths: each round trip in all three layouts with the plain versions
    patched to raise, the launch counts (2-D 1/2/2/1, 1-D 1/7/7/1, 3-D
    ``filter2`` 1, ``fwd_level1_pack`` 1, ``dfilt2`` 2, ``fwd_level2_pack``
@@ -36,17 +49,25 @@ Phases, each printing its own lines:
    ``filter2_sum`` 1 per round trip), the reconstruction error and agreement
    with the plain path on the card; a 4 x 1000 x 1500 batch (pad and crop)
    against the plain path; the 4M-sample vector; a small float64 1-D case
-   against the CPU; 3-D pads and crops in both ``ext_mode`` values;
+   against the CPU; 3-D pads and crops in both ``ext_mode`` values; the
+   discard_level_1 round trip in three layouts (launches ``filter`` 6,
+   ``dfilt2`` 2, ``fwd_level2_pack`` 2, ``inv_level2_pack`` 2,
+   ``ifilt2_sum`` 2), against the plain path, a float64 case against the
+   CPU and the reference's gate on an ellipsoid (median abs error < 1e-3);
+   the low-level path (``filter`` 8, ``dfilt`` 4, ``ifilt`` 4 launches);
+   each compat entry equal to its Transform's result with the same
+   launches; the nhwc channel adapter equal to ``forward`` on moved axes;
 5. timing: CUDA events, median of 10 runs after 2 warm-up runs (for a round
    trip the time its caller waits; for a kernel, its plain version and a
    library call the device's time alone, the stream held while the host
    enqueues them): each kernel at its main-path shapes against its plain
    version and, where one PyTorch call computes the same function
-   (``F.conv2d`` for ``filter2`` and ``filter2_sum``, TF32 off), that
-   call; the bound of each kernel (its bytes at 3.35 TB/s or its float32
+   (``F.conv2d`` for ``filter2``, ``filter2_sum`` and ``filter``, TF32
+   off), that call; the bound of each kernel (its bytes at 3.35 TB/s or its float32
    operations at 67 TFLOP/s, whichever is longer); each round trip against
    the plain path; for the f32 interleaved round trips (3-D: both f32
-   layouts), a ``torch.profiler`` trace: device time by kernel, the
+   layouts; the discard round trip: interleaved), a ``torch.profiler``
+   trace: device time by kernel, the
    device's idle share and the host's time to enqueue.  A 3-D level kernel
    is timed alone, on its depth stage's outputs, against the plain version
    of that stage.
@@ -92,6 +113,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12         # float32 outside the tensor cores
 _DUAL_SRC = "dtcwt_tpu_torch/csrc/dual.cu"
 _PACK_SRC = "dtcwt_tpu_torch/csrc/pack3d.cu"
+_SINGLE_SRC = "dtcwt_tpu_torch/csrc/single.cu"
 KERNELS = {   # name -> (CUDA source, the TPU kernel it replaces)
     "level1": ("dtcwt_tpu_torch/csrc/level1.cu",
                "dtcwt_tpu/ops/pallas_level1.py:374"),
@@ -109,6 +131,9 @@ KERNELS = {   # name -> (CUDA source, the TPU kernel it replaces)
     "inv_level1_pack": (_PACK_SRC, "dtcwt_tpu/ops/pallas_pack3d.py:647"),
     "fwd_level2_pack": (_PACK_SRC, "dtcwt_tpu/ops/pallas_pack3d.py:503"),
     "inv_level2_pack": (_PACK_SRC, "dtcwt_tpu/ops/pallas_pack3d.py:549"),
+    "filter": (_SINGLE_SRC, "dtcwt_tpu/ops/pallas_fb.py:492"),
+    "dfilt": (_SINGLE_SRC, "dtcwt_tpu/ops/pallas_fb.py:642"),
+    "ifilt": (_SINGLE_SRC, "dtcwt_tpu/ops/pallas_fb.py:791"),
 }
 LAUNCHES_2D = {"level1": 1, "level2": 2, "ilevel2": 2, "ilevel1": 1}
 LAUNCHES_1D = {"filter2": 1, "dfilt2": 7, "ifilt2_sum": 7, "filter2_sum": 1}
@@ -592,6 +617,417 @@ def time_3d(dev, report) -> None:
                 report[name].update(tot)
 
 
+# --- the single-stream kernels: the low-level API, the 3-D discard path
+# and compat ------------------------------------------------------------------
+
+SINGLE_NAMES = ("filter", "dfilt", "ifilt")
+# per 3-level 256^3 discard_level_1 round trip
+LAUNCHES_DISCARD = {"filter": 6, "dfilt2": 2, "fwd_level2_pack": 2,
+                    "inv_level2_pack": 2, "ifilt2_sum": 2}
+# the low-level path: LOWLEVEL at 4096^2 in float32 and bfloat16
+LAUNCHES_LOWLEVEL = {"filter": 8, "dfilt": 4, "ifilt": 4}
+
+
+def lowlevel_calls():
+    """The low-level API's main path on a 4096^2 image: (kernel, public
+    name, filters, axis) of each call, default filters."""
+    import dtcwt_tpu_torch as dt
+    b, q = dt.biort("near_sym_a"), dt.qshift("qshift_a")
+    out = []
+    for h in (b[0], b[2]):
+        out += [("filter", "colfilter", (h,), -2),
+                ("filter", "rowfilter", (h,), -1)]
+    return out + [("dfilt", "coldfilt", (q[1], q[0]), -2),
+                  ("dfilt", "rowdfilt", (q[1], q[0]), -1),
+                  ("ifilt", "colifilt", (q[3], q[2]), -2),
+                  ("ifilt", "rowifilt", (q[3], q[2]), -1)]
+
+
+def discard_calls():
+    """The six filter passes of one 256^3 discard_level_1 round trip:
+    (filters, axis); forward W, H, D with h0o, inverse H, D, W with g0o."""
+    import dtcwt_tpu_torch as dt
+    b = dt.biort("near_sym_a")
+    return ([((b[0],), ax) for ax in (-1, -2, -3)]
+            + [((b[1],), ax) for ax in (-2, -3, -1)])
+
+
+def single_call(name, x, f, axis, side=None):
+    """(kernel wrapper, plain version) of single kernel *name*."""
+    from dtcwt_tpu_torch.ops import single
+    if side is None:
+        k = getattr(single, name + "_axis")
+        p = getattr(single, name + "_axis_reference")
+        return (lambda: k(x, *f, axis)), (lambda: p(x, *f, axis))
+    k = getattr(single, name + "_fromext_axis")
+    p = getattr(single, name + "_fromext_axis_reference")
+    return (lambda: k(x, side, *f, axis)), (lambda: p(x, side, *f, axis))
+
+
+def single_macs(name, f, out) -> int:
+    """Multiply-adds of one call: every output sample sums m taps (filter,
+    dfilt) or m / 2 (ifilt)."""
+    m = np.asarray(f[0]).size
+    return out.numel() * (m // 2 if name == "ifilt" else m)
+
+
+def single_plain_path():
+    """Patches that route every entry of the discard round trip to its plain
+    version."""
+    from dtcwt_tpu_torch.ops import pack3d, single
+    return ([(pack3d, n, getattr(pack3d, n + "_reference"))
+             for n in PACK_NAMES]
+            + [(single, "filter_axis", single.filter_axis_reference)])
+
+
+def single_no_plain():
+    """Patches that make every plain version of the kernels raise."""
+    from dtcwt_tpu_torch.ops import dual, pack3d, single
+    return ([(pack3d, n + "_reference", refuse) for n in PACK_NAMES]
+            + [(dual, n + "_axis_reference", refuse) for n in
+               ("filter2", "dfilt2", "ifilt2_sum", "filter2_sum")]
+            + [(single, n + suffix, refuse) for n in SINGLE_NAMES
+               for suffix in ("_axis_reference", "_fromext_axis_reference")])
+
+
+def ellipsoid(n, dev):
+    """tests/test_transform3d.py's ellipsoid (the reference's gate for
+    discard_level_1), n^3, float32."""
+    g = torch.arange(-(n >> 1), n >> 1, device=dev, dtype=torch.float32)
+    X, Y, Z = torch.meshgrid(g, g, g, indexing="ij")
+    r = torch.sqrt(X * X + (1.2 * Y) ** 2 + (1.4 * Z) ** 2)
+    return (r <= 0.4 * n).float()
+
+
+def check_single(dev, report):
+    """Phase 3 and 4 for the single-stream kernels: each kernel against its
+    plain version, then the 256^3 discard_level_1 round trip, the low-level
+    API path, the compat entries and the 2-D channel adapter.  Returns the
+    launch counts of the discard round trip (f32 interleaved) and of the
+    low-level path."""
+    import dtcwt_tpu_torch as dt
+    from dtcwt_tpu_torch import compat, ops
+    from dtcwt_tpu_torch.ops import _build, fb
+    # phase 3: the main-path shapes
+    img = rand((N, N), 21, dev, torch.float32)
+    for dtype in (torch.float32, torch.bfloat16):
+        worst = dict.fromkeys(SINGLE_NAMES, 0.0)
+        for name, _, f, axis in lowlevel_calls():
+            kern, plain = single_call(name, img.to(dtype), f, axis)
+            got = kern()
+            torch.cuda.synchronize()
+            want = plain()
+            worst[name] = max(worst[name], rel_err(got, want))
+            if dtype == torch.float32 and name != "filter":
+                report[name]["max_abs_err"] = max(
+                    report[name]["max_abs_err"], abs_err(got, want))
+            del got, want
+        for name in SINGLE_NAMES:
+            check(worst[name] <= TOL[dtype], "kernel %s %dx%d axes -2 and -1"
+                  " %s: worst rel err %.3g (tol %g)" % (
+                      name, N, N, dtype, worst[name], TOL[dtype]))
+    del img
+    vol = rand((VOL,) * 3, 22, dev, torch.float32)
+    worst = 0.0
+    for f, axis in discard_calls():
+        kern, plain = single_call("filter", vol, f, axis)
+        got = kern()
+        torch.cuda.synchronize()
+        want = plain()
+        worst = max(worst, rel_err(got, want))
+        report["filter"]["max_abs_err"] = max(
+            report["filter"]["max_abs_err"], abs_err(got, want))
+        del got, want
+    check(worst <= TOL[torch.float32], "kernel filter %d^3 axes -1, -2, -3 "
+          "(h0o and g0o) float32: worst rel err %.3g (tol %g)" % (
+              VOL, worst, TOL[torch.float32]))
+    del vol
+    # float64 at small shapes: every family's filters (bandpass included;
+    # both signs of sum(ha*hb)), axes -1/-2/-3, signals shorter than the
+    # filter, one signal (inner = 1), both modes
+    dual_small = [((8, 20, 36), (-1, -2, -3)), ((4, 8, 4), (-1, -2, -3)),
+                  ((1028, 1), (0,)), ((12, 130), (0,))]
+    side = 32
+    fams = {"filter": dt.BIORT_NAMES, "dfilt": dt.QSHIFT_NAMES,
+            "ifilt": dt.QSHIFT_NAMES}
+    for name in SINGLE_NAMES:
+        worst = 0.0
+        for fam in fams[name]:
+            if name == "filter":
+                filters = [(h,) for h in dt.biort(fam)]
+            else:
+                qq = dt.qshift(fam)
+                first = 0 if name == "dfilt" else 2
+                filters = [(qq[i + 1], qq[i])
+                           for i in range(first, len(qq), 4)]
+            for f in filters:
+                for seed, (shape, axes) in enumerate(dual_small):
+                    x = rand(shape, seed, dev, torch.float64)
+                    for axis in axes:
+                        for s in (None, side):
+                            xin = x if s is None else fb.symmetric_extend(
+                                x, s, axis).contiguous()
+                            kern, plain = single_call(name, xin, f, axis, s)
+                            got = kern()
+                            torch.cuda.synchronize()
+                            worst = max(worst, rel_err(got, plain()))
+        check(worst <= TOL[torch.float64],
+              "kernel %s float64, families %s, shapes %s on every axis, "
+              "axis and from-extension modes: worst rel err %.3g (tol %g)"
+              % (name, ",".join(fams[name]), [s for s, _ in dual_small],
+                 worst, TOL[torch.float64]))
+
+    # phase 4: the discard_level_1 round trip in three layouts
+    t3 = dt.Transform3d()
+    x32 = rand((VOL,) * 3, 23, dev, torch.float32)
+    launches = {}
+    for label, dtype, layout in LAYOUTS:
+        x = x32.to(dtype)
+        _build.reset_launches()
+        with patched(single_no_plain()):
+            pyr = t3.forward(x, nlevels=NLEVELS, layout=layout,
+                             discard_level_1=True)
+            rec = t3.inverse(pyr)
+            torch.cuda.synchronize()
+        counts = dict(_build.launches)
+        if not launches:
+            launches = counts
+        check(counts == LAUNCHES_DISCARD,
+              "main path 3-D discard_level_1 %s: launches %s" % (label,
+                                                                 counts))
+        hp = pyr.highpasses if layout == "interleaved" else pyr.highpasses_re
+        shapes_ok = (tuple(rec.shape) == (VOL,) * 3 and rec.dtype == dtype
+                     and tuple(pyr.lowpass.shape) == (VOL // 4,) * 3
+                     and len(hp) == NLEVELS and hp[0] is None)
+        finite = bool(torch.isfinite(rec.float()).all()) and all(
+            bool(torch.isfinite(torch.view_as_real(h) if h.is_complex()
+                                else h.float()).all()) for h in hp[1:])
+        with patched(single_plain_path()):
+            pp = t3.forward(x, nlevels=NLEVELS, layout=layout,
+                            discard_level_1=True)
+            rec_plain = t3.inverse(pp)
+        e = max([rel_err(rec, rec_plain), rel_err(pyr.lowpass, pp.lowpass)]
+                + [rel_err(a, c) for a, c in zip(hp[1:], (
+                    pp.highpasses if layout == "interleaved"
+                    else pp.highpasses_re)[1:])])
+        check(shapes_ok and finite and e <= TOL[dtype] * 10,
+              "main path 3-D discard_level_1 %s: %d^3 %d-level round trip, "
+              "kernel vs plain path on the card (lowpass, levels 2-3, "
+              "reconstruction) rel err %.3g (tol %g), shapes %s, finite %s"
+              % (label, VOL, NLEVELS, e, TOL[dtype] * 10, shapes_ok, finite))
+        del pyr, rec, pp, rec_plain
+    del x32
+    # the reference's behavioural gate: a lowpass-only level 1 still
+    # reconstructs an ellipsoid to a median abs error under 1e-3
+    ell = ellipsoid(VOL, dev)
+    rec = t3.inverse(t3.forward(ell, NLEVELS, discard_level_1=True))
+    med = float((rec - ell).abs().median())
+    check(med < 1e-3, "main path 3-D discard_level_1: %d^3 ellipsoid "
+          "reconstruction median abs err %.3g (reference gate 1e-3)"
+          % (VOL, med))
+    del ell, rec
+    xs = np.random.RandomState(24).rand(20, 24, 28)
+    tc = dt.Transform3d(device="cpu")
+    e = 0.0
+    for layout in ("interleaved", "planes"):
+        pg = t3.forward(xs, NLEVELS, layout=layout, discard_level_1=True,
+                        include_scale=True)
+        pc = tc.forward(torch.from_numpy(xs), NLEVELS, layout=layout,
+                        discard_level_1=True, include_scale=True)
+        hg = pg.highpasses if layout == "interleaved" else \
+            pg.highpasses_re + pg.highpasses_im
+        hc = pc.highpasses if layout == "interleaved" else \
+            pc.highpasses_re + pc.highpasses_im
+        e = max([e, rel_err(t3.inverse(pg).cpu(), tc.inverse(pc))]
+                + [rel_err(a.cpu(), c) for a, c in zip(
+                    (pg.lowpass,) + pg.scales + tuple(
+                        h for h in hg if h is not None),
+                    (pc.lowpass,) + pc.scales + tuple(
+                        h for h in hc if h is not None))])
+    check(e <= TOL[torch.float64], "3-D discard_level_1 float64 20x24x28 "
+          "(pad + crop at level 3), both layouts: card vs CPU, every leaf, "
+          "rel err %.3g (tol %g)" % (e, TOL[torch.float64]))
+
+    # the low-level API at 4096^2, float32 and bfloat16
+    img = rand((N, N), 25, dev, torch.float32)
+    outs = []
+    _build.reset_launches()
+    with patched(single_no_plain()):
+        for dtype in (torch.float32, torch.bfloat16):
+            xd = img.to(dtype)
+            for name, fn, f, axis in lowlevel_calls():
+                outs.append((name, fn, f, axis, xd,
+                             getattr(ops, fn)(xd, *f)))
+        torch.cuda.synchronize()
+    low_launches = dict(_build.launches)
+    check(low_launches == LAUNCHES_LOWLEVEL,
+          "main path low-level API %dx%d (colfilter, rowfilter with h0o and"
+          " h1o; coldfilt, rowdfilt; colifilt, rowifilt; f32 and bf16): "
+          "launches %s" % (N, N, low_launches))
+    worst = 0.0
+    for name, fn, f, axis, xd, got in outs:
+        want = single_call(name, xd, f, axis)[1]()
+        worst = max(worst, rel_err(got, want) / TOL[xd.dtype])
+    check(worst <= 1.0, "main path low-level API %dx%d: every call against "
+          "its plain version, worst rel err / tol %.3g" % (N, N, worst))
+    del outs, img
+
+    # each compat entry at its main-path size: the Transform's result, with
+    # the same launch counts
+    def same(a, b):
+        if isinstance(a, (tuple, list)):
+            return len(a) == len(b) and all(same(u, v) for u, v in zip(a, b))
+        if a is None or b is None:
+            return a is None and b is None
+        return torch.equal(a, b)
+
+    v = rand((VOL,) * 3, 26, dev, torch.float32)
+    im = rand((N, N), 27, dev, torch.float32)
+    sig = rand((N1, C1), 28, dev, torch.float32)
+    entries = (
+        ("dtwavexfm3 / dtwaveifm3, discard_level_1, %d^3" % VOL,
+         lambda: compat.dtwavexfm3(v, NLEVELS, discard_level_1=True),
+         lambda yl, yh: compat.dtwaveifm3(yl, yh),
+         lambda: t3.forward(v, NLEVELS, discard_level_1=True), t3,
+         LAUNCHES_DISCARD),
+        ("dtwavexfm2 / dtwaveifm2, %dx%d" % (N, N),
+         lambda: compat.dtwavexfm2(im, NLEVELS),
+         lambda yl, yh: compat.dtwaveifm2(yl, yh),
+         lambda: dt.Transform2d().forward(im, NLEVELS), dt.Transform2d(),
+         LAUNCHES_2D),
+        ("dtwavexfm / dtwaveifm, %dx%d, %d levels" % (N1, C1, NLEVELS1),
+         lambda: compat.dtwavexfm(sig, NLEVELS1),
+         lambda yl, yh: compat.dtwaveifm(yl, yh),
+         lambda: dt.Transform1d().forward(sig, NLEVELS1), dt.Transform1d(),
+         LAUNCHES_1D))
+    for what, xfm, ifm, fwd, tr, want_counts in entries:
+        _build.reset_launches()
+        with patched(single_no_plain()):
+            yl, yh = xfm()
+            rec = ifm(yl, yh)
+            torch.cuda.synchronize()
+        counts = dict(_build.launches)
+        p = fwd()
+        ok = (same((yl, yh), (p.lowpass, p.highpasses))
+              and torch.equal(rec, tr.inverse(p)))
+        check(ok and counts == want_counts, "main path compat %s: equal to "
+              "the Transform's result %s, launches %s" % (what, ok, counts))
+        del yl, yh, rec, p
+    del v, im, sig
+
+    # the 2-D channel adapter against forward on the moved axes
+    t2 = dt.Transform2d()
+    xc = rand((2, 1024, 1024, 3), 29, dev, torch.float32)
+    pc = t2.forward_channels(xc, "nhwc", NLEVELS)
+    pm = t2.forward(xc.movedim(-1, 1), NLEVELS)
+    ok = torch.equal(pc.lowpass, pm.lowpass.movedim(1, -1)) and all(
+        torch.equal(a, b.movedim(1, -2))
+        for a, b in zip(pc.highpasses, pm.highpasses))
+    rec_e = float((t2.inverse_channels(pc, "nhwc") - xc).abs().max())
+    check(ok and rec_e <= REC_TOL[torch.float32],
+          "main path forward_channels(x, 'nhwc') 2x1024x1024x3: equal to "
+          "forward on the moved axes %s, inverse_channels reconstruction "
+          "max abs err %.3g" % (ok, rec_e))
+    return launches, low_launches
+
+
+def conv_filter(x, h, axis):
+    """One F.conv2d computing ``filter_axis(x, h, axis)`` of a [D, H, W]
+    volume from its input pre-extended by len(h)//2 a side (the extension
+    made here, outside the timed call): (call, its output as [D, H, W])."""
+    from dtcwt_tpu_torch.ops import fb
+    h = np.asarray(h, np.float64).reshape(-1)
+    m = h.size
+    ext = fb.symmetric_extend(x, m // 2, axis).contiguous()
+    w = torch.from_numpy(h[::-1].copy()).to(x.device, x.dtype)
+    D, H, W = ext.shape
+    if axis == -3:
+        inp, weight = ext.reshape(1, 1, D, H * W), w.view(1, 1, m, 1)
+    elif axis == -2:
+        inp, weight = ext.reshape(D, 1, H, W), w.view(1, 1, m, 1)
+    else:
+        inp, weight = ext.reshape(1, 1, D * H, W), w.view(1, 1, 1, m)
+    return (lambda: F.conv2d(inp, weight)), (lambda y: y.reshape(x.shape))
+
+
+def time_single(dev, report) -> None:
+    """Phase 5 for the single-stream kernels: the discard_level_1 round
+    trip against the plain path in three layouts with a profiler trace,
+    each kernel alone at its main-path shapes (device time, stream held)
+    against its plain version and its bound, and filter's library call."""
+    import dtcwt_tpu_torch as dt
+    t3 = dt.Transform3d()
+    x = rand((VOL,) * 3, 23, dev, torch.float32)
+    for label, dtype, layout in LAYOUTS:
+        xd = x.to(dtype)
+        run = lambda: t3.inverse(t3.forward(xd, NLEVELS, layout=layout,
+                                            discard_level_1=True))
+        ms = cuda_ms(run)
+        with patched(single_plain_path()):
+            pms = cuda_ms(run, reps=3, warmup=1)
+        print("time round trip 3-D discard_level_1 %d^3 %d levels %s: "
+              "kernels %.3f ms, plain %.3f ms" % (VOL, NLEVELS, label, ms,
+                                                  pms), flush=True)
+        if dtype == torch.float32 and layout == "interleaved":
+            print_trace("round trip 3-D discard_level_1 %s" % label, run)
+    # filter: the six passes of the discard round trip, f32
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": "bytes",
+           "library_ms": 0.0}
+    for f, axis in discard_calls():
+        kern, plain = single_call("filter", x, f, axis)
+        out = kern()
+        bms, by = bound(nbytes(x) + nbytes(out), single_macs("filter", f,
+                                                             out))
+        ms = cuda_ms(kern, hold=True)
+        pms = cuda_ms(plain, hold=True, reps=3, warmup=1)
+        lib, shape = conv_filter(x, f[0], axis)
+        lms = cuda_ms(lib, hold=True)
+        lerr = rel_err(shape(lib()), out)
+        for k, v in (("ms", ms), ("plain_ms", pms), ("bound_ms", bms),
+                     ("library_ms", lms)):
+            tot[k] += v
+        if by != "bytes":
+            tot["bound_by"] = by
+        print("time filter %d^3 axis %d (%d taps) f32: kernel %.4f ms, plain "
+              "%.4f ms, bound %.4f ms (%s), library F.conv2d (TF32 off) %.4f"
+              " ms (rel err against the kernel %.3g)" % (
+                  VOL, axis, np.asarray(f[0]).size, ms, pms, bms, by, lms,
+                  lerr), flush=True)
+        del out, lib
+    print("time filter, its 6 launches of one discard_level_1 round trip: "
+          "kernel %.4f ms, plain %.4f ms, bound %.4f ms, F.conv2d %.4f ms"
+          % (tot["ms"], tot["plain_ms"], tot["bound_ms"], tot["library_ms"]),
+          flush=True)
+    report["filter"].update(tot)
+    del x
+    # the low-level path at 4096^2; dfilt and ifilt report its f32 calls
+    img = rand((N, N), 21, dev, torch.float32)
+    for dtype in (torch.float32, torch.bfloat16):
+        tot = {n: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                   "bound_by": "bytes"} for n in SINGLE_NAMES}
+        xd = img.to(dtype)
+        for name, fn, f, axis in lowlevel_calls():
+            kern, plain = single_call(name, xd, f, axis)
+            out = kern()
+            bms, by = bound(nbytes(xd) + nbytes(out),
+                            single_macs(name, f, out))
+            ms = cuda_ms(kern, hold=True)
+            pms = cuda_ms(plain, hold=True, reps=3, warmup=1)
+            for k, v in (("ms", ms), ("plain_ms", pms), ("bound_ms", bms)):
+                tot[name][k] += v
+            if by != "bytes":
+                tot[name]["bound_by"] = by
+            print("time %s (%s) %dx%d axis %d (%d taps) %s: kernel %.4f ms, "
+                  "plain %.4f ms, bound %.4f ms (%s)" % (
+                      name, fn, N, N, axis, np.asarray(f[0]).size, dtype, ms,
+                      pms, bms, by), flush=True)
+            del out
+        if dtype == torch.float32:
+            for name in ("dfilt", "ifilt"):
+                report[name].update(tot[name])
+    del img
+
+
 def main() -> int:
     # --- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -923,6 +1359,7 @@ def main() -> int:
           "(tol %g)" % (e, TOL[torch.float64]))
 
     launches_3d = check_3d(dev, report)
+    launches_discard, launches_low = check_single(dev, report)
 
     # --- 5. timing -----------------------------------------------------------
     print("timing on %s: CUDA events, median of 10 runs after 2 warm-up runs"
@@ -1035,10 +1472,14 @@ def main() -> int:
         del ins, ext, got, want
 
     time_3d(dev, report)
+    time_single(dev, report)
 
     # the dual kernels report the 1-D path's launches, the level kernels
-    # their own path's
-    counts = dict(launches_3d, **launches, **launches_1d)
+    # their own path's, filter the discard_level_1 round trip's, dfilt and
+    # ifilt the low-level path's
+    counts = dict(launches_3d, **launches, **launches_1d,
+                  filter=launches_discard["filter"],
+                  dfilt=launches_low["dfilt"], ifilt=launches_low["ifilt"])
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": counts.get(name, 0),
                 **report[name]}
@@ -1046,8 +1487,11 @@ def main() -> int:
     print("ms / plain_ms / bound_ms: the kernel's calls in one f32 round "
           "trip of its main path (2-D interleaved, 1-D [131072, 128], 3-D "
           "256^3 interleaved; a 3-D level kernel alone, after its depth "
-          "stage); max_abs_err: f32 at the main-path shapes; library_ms: "
-          "one F.conv2d at the main-path shape, where one call computes it")
+          "stage; filter: the 6 passes of the 256^3 discard_level_1 round "
+          "trip; dfilt, ifilt: the col and row calls of the 4096^2 "
+          "low-level path); max_abs_err: f32 at the main-path shapes; "
+          "library_ms: one F.conv2d per call at the main-path shapes, "
+          "where one call computes it")
     if failures:
         print("FAILED %d check(s):" % len(failures))
         for f in failures:

@@ -51,10 +51,11 @@ _SIGNATURES = {
     "dtcwt_ilevel1": (_P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _I, _I, _I,
                       _P),
 }
-# the dual-stream kernels of csrc/dual.cu share one interface: in0, in1,
-# out0, out1, outer, n_in, inner, g0, g1, refl, taps, lens, offs, dtype,
-# stream
-for _name in ("filter2", "dfilt2", "filter2_sum", "ifilt2_sum"):
+# the stream kernels of csrc/dual.cu and csrc/single.cu share one interface
+# (csrc/streams.cuh): in0, in1, out0, out1, outer, n_in, inner, g0, g1,
+# refl, taps, lens, offs, dtype, stream
+for _name in ("filter2", "dfilt2", "filter2_sum", "ifilt2_sum", "filter",
+              "dfilt", "ifilt"):
     _SIGNATURES["dtcwt_" + _name] = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                      _P, _P, _P, _I, _P)
 # the 3-D level kernels of csrc/pack3d.cu: in_a, in_b, bands_a, bands_b,

@@ -27,6 +27,11 @@ bfloat16 or float64, filters of up to 32 taps per stream of any length and
 parity, and signals shorter than the filter.  The host turns every filter
 pair into output streams (:func:`level2.dfilt_streams`,
 :func:`ilevel2.ifilt_streams`), so the kernels hold no parity logic.
+
+The same stream plans with one branch are the single-stream kernels of
+:mod:`single` (``filter``, ``dfilt``, ``ifilt``; ``csrc/single.cu``), which
+launch through :func:`_launch` here; both sources instantiate the one
+kernel of ``csrc/streams.cuh``.
 """
 
 from __future__ import annotations
@@ -53,9 +58,12 @@ __all__ = [
 _MAX_TAPS = 32      # csrc/common.cuh MAX_TAPS, per output stream
 _INT_MAX = 2 ** 31 - 1
 # kernel -> (inputs, outputs, streams P, input step per group D, tap step S):
-# branch b writes Y[P g + s] = sum_k t[s][k] x[D g + c[s] + S k]
+# branch b writes Y[P g + s] = sum_k t[s][k] x[D g + c[s] + S k]; the
+# branches are the plans given to _launch (two here, one in ops/single)
 _GEOM = {"filter2": (1, 2, 1, 1, 1), "dfilt2": (1, 2, 2, 4, 2),
-         "filter2_sum": (2, 1, 1, 1, 1), "ifilt2_sum": (2, 1, 4, 2, 2)}
+         "filter2_sum": (2, 1, 1, 1, 1), "ifilt2_sum": (2, 1, 4, 2, 2),
+         "filter": (1, 1, 1, 1, 1), "dfilt": (1, 1, 2, 4, 2),
+         "ifilt": (1, 1, 4, 2, 2)}
 
 _device_taps = {}   # (taps bytes, device) -> float64 tap table on the card
 
@@ -133,13 +141,13 @@ def _ext_len(ext: torch.Tensor, side: int, axis: int) -> int:
 
 
 def _tap_table(plans, device) -> torch.Tensor:
-    """The streams' taps as the kernel's [2][P][MAX_TAPS] float64 table on
-    *device*, built once per filter set and device."""
+    """The streams' taps as the kernel's [branches][P][MAX_TAPS] float64
+    table on *device*, built once per filter set and device."""
     P = plans[0][0].shape[0]
-    buf = np.zeros((2, P, _MAX_TAPS))
+    buf = np.zeros((len(plans), P, _MAX_TAPS))
     for b, (taps, _) in enumerate(plans):
         if taps.shape[1] > _MAX_TAPS:
-            raise ValueError("the dual-stream kernels take at most %d taps "
+            raise ValueError("the stream kernels take at most %d taps "
                              "per stream, got %d" % (_MAX_TAPS,
                                                      taps.shape[1]))
         buf[b, :, :taps.shape[1]] = taps
@@ -153,8 +161,9 @@ def _tap_table(plans, device) -> torch.Tensor:
 def _launch(name: str, ins, plans, groups, axis: int, side=None):
     """Run kernel *name* on the contiguous CUDA tensors *ins* along *axis*:
     branch b's streams ``plans[b] = (taps [P, m_b], offsets)`` write
-    ``P * groups[b]`` samples.  *side*: the inputs are extended by that many
-    samples per side (from-extension mode) instead of reflected."""
+    ``P * groups[b]`` samples (one or two branches, as the kernel has).
+    *side*: the inputs are extended by that many samples per side
+    (from-extension mode) instead of reflected."""
     n_in_t, n_out, P, D, S = _GEOM[name]
     x = ins[0]
     ax = fb._norm_axis(axis, x.ndim)
@@ -197,7 +206,7 @@ def _launch(name: str, ins, plans, groups, axis: int, side=None):
     fn = getattr(_build.library(), "dtcwt_" + name)
     err = fn(ins[0].data_ptr(), ins[1].data_ptr() if n_in_t == 2 else None,
              outs[0].data_ptr(), outs[1].data_ptr() if n_out == 2 else None,
-             outer, n_in, inner, groups[0], groups[1], int(side is None),
+             outer, n_in, inner, groups[0], groups[-1], int(side is None),
              table.data_ptr(), lens.ctypes.data, offs.ctypes.data, code,
              _build.stream_ptr(x.device))
     _build.check(name, err)

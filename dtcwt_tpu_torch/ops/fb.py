@@ -34,7 +34,8 @@ __all__ = [
     "symmetric_extend", "filter_from_ext", "dfilt_from_ext", "ifilt_from_ext",
     "filter_axis", "dfilt_axis", "ifilt_axis",
     "filter2_axis", "dfilt2_axis", "filter2_sum_axis", "ifilt2_sum_axis",
-    "trim_ext", "filter2_from_wide_ext", "dfilt2_from_wide_ext",
+    "trim_ext", "filter_from_wide_ext", "dfilt_from_wide_ext",
+    "ifilt_from_wide_ext", "filter2_from_wide_ext", "dfilt2_from_wide_ext",
     "filter2_sum_from_wide_ext", "ifilt2_sum_from_wide_ext",
     "colfilter", "rowfilter", "coldfilt", "rowdfilt", "colifilt", "rowifilt",
 ]
@@ -231,9 +232,9 @@ def ifilt2_sum_axis(a, b, pair0, pair1, axis: int):
 
 
 # ---------------------------------------------------------------------------
-# the dual forms on a wide extension: a buffer the caller has already
-# extended by *side* samples each side of *axis* (side >= what each filter
-# needs), trimmed to each filter's own width
+# the primitives and their dual forms on a wide extension: a buffer the
+# caller has already extended by *side* samples each side of *axis* (side >=
+# what each filter needs), trimmed to each filter's own width
 # ---------------------------------------------------------------------------
 
 def trim_ext(ext: torch.Tensor, side: int, need: int, axis: int):
@@ -242,6 +243,28 @@ def trim_ext(ext: torch.Tensor, side: int, need: int, axis: int):
         return ext
     axis = _norm_axis(axis, ext.ndim)
     return ext.narrow(axis, side - need, ext.shape[axis] - 2 * (side - need))
+
+
+def filter_from_wide_ext(ext, side: int, h, axis: int):
+    """:func:`filter_from_ext` on an extension of width *side* >=
+    ``len(h)//2`` per side."""
+    h = _as_taps(h)
+    return filter_from_ext(trim_ext(ext, side, h.size // 2, axis), h, axis)
+
+
+def dfilt_from_wide_ext(ext, side: int, ha, hb, axis: int):
+    """:func:`dfilt_from_ext` on an extension of width *side* >= ``len(ha)``
+    per side."""
+    ha, hb = _as_taps(ha), _as_taps(hb)
+    return dfilt_from_ext(trim_ext(ext, side, ha.size, axis), ha, hb, axis)
+
+
+def ifilt_from_wide_ext(ext, side: int, ha, hb, axis: int):
+    """:func:`ifilt_from_ext` on an extension of width *side* >=
+    ``len(ha)//2`` per side."""
+    ha, hb = _as_taps(ha), _as_taps(hb)
+    return ifilt_from_ext(trim_ext(ext, side, ha.size // 2, axis), ha, hb,
+                          axis)
 
 
 def filter2_from_wide_ext(ext, side: int, h0, h1, axis: int):

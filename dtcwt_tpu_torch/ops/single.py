@@ -1,0 +1,181 @@
+"""The three single-stream filter kernels: CUDA kernels and their plain
+versions.
+
+The counterpart of ``dtcwt_tpu/ops/pallas_fb.py`` (the name ``fb`` is taken
+by the plain primitives, the counterpart of ``dtcwt_tpu/ops/fb.py``):
+
+=================  =================================  ==================
+entry              computes                           Pallas builder
+=================  =================================  ==================
+``filter_axis``    ``filter(x, h)``, no decimation    ``_build_filter``
+``dfilt_axis``     ``dfilt(x, ha, hb)``, r -> r / 2   ``_build_dfilt``
+``ifilt_axis``     ``ifilt(x, ha, hb)``, r -> 2 r     ``_build_ifilt``
+=================  =================================  ==================
+
+Each entry has an ``*_axis`` form, which extends the signal by symmetric
+reflection itself, and a ``*_fromext_axis`` form, which reads a buffer the
+caller has already extended by *side* samples each side of *axis*
+(:func:`fb.filter_from_wide_ext`, ...), in the argument order of
+:mod:`dual`.  Each entry ``f`` has ``f_reference``, its plain version:
+:mod:`fb`'s form, computed at float32 for bfloat16 storage as the kernels
+compute.  ``colfilter`` ... ``rowifilt`` are the column and row aliases of
+the JAX package's low-level API, on these entries.
+
+An entry takes its route from the input's device: a CPU tensor runs the
+plain version, a CUDA tensor launches the kernel (``csrc/single.cu``, the
+one-branch instance of the stream kernel that :mod:`dual` runs with two) or
+raises.  The kernels take any axis of a contiguous tensor, float32,
+bfloat16 or float64, filters of up to 32 taps per stream of any length and
+parity, and signals shorter than the filter; the host plans
+(:func:`dual._filter_plan`, :func:`level2.dfilt_streams`,
+:func:`ilevel2.ifilt_streams`) hold every parity rule.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dtcwt_tpu_torch.ops import fb
+from dtcwt_tpu_torch.ops.dual import (
+    _ext_len, _filter_plan, _launch, _on_cpu, _plain)
+from dtcwt_tpu_torch.ops.ilevel2 import ifilt_streams
+from dtcwt_tpu_torch.ops.level2 import dfilt_streams
+
+__all__ = [
+    "filter_axis", "dfilt_axis", "ifilt_axis",
+    "filter_fromext_axis", "dfilt_fromext_axis", "ifilt_fromext_axis",
+    "filter_axis_reference", "dfilt_axis_reference", "ifilt_axis_reference",
+    "filter_fromext_axis_reference", "dfilt_fromext_axis_reference",
+    "ifilt_fromext_axis_reference",
+    "colfilter", "rowfilter", "coldfilt", "rowdfilt", "colifilt", "rowifilt",
+]
+
+filter_axis_reference = _plain(fb.filter_axis)
+dfilt_axis_reference = _plain(fb.dfilt_axis)
+ifilt_axis_reference = _plain(fb.ifilt_axis)
+filter_fromext_axis_reference = _plain(fb.filter_from_wide_ext)
+dfilt_fromext_axis_reference = _plain(fb.dfilt_from_wide_ext)
+ifilt_fromext_axis_reference = _plain(fb.ifilt_from_wide_ext)
+
+
+def _pair(ha, hb):
+    ha, hb = fb._as_taps(ha), fb._as_taps(hb)
+    fb._check_pair(ha, hb)
+    return ha, hb
+
+
+def _filter(x, h, axis, n, side=None):
+    plan = _filter_plan(h)
+    g = n + 1 - plan[0].shape[1] % 2
+    return _launch("filter", [x], [plan], [g], axis, side)[0]
+
+
+def filter_axis(x: torch.Tensor, h, axis: int) -> torch.Tensor:
+    """Non-decimating filter along *axis* with symmetric extension: as many
+    samples as the input for odd-length *h*, one more for even-length."""
+    x = fb._asfloat(x)
+    if _on_cpu(x, "filter_axis"):
+        return filter_axis_reference(x, h, axis)
+    return _filter(x, h, axis, x.shape[axis])
+
+
+def filter_fromext_axis(ext: torch.Tensor, side: int, h,
+                        axis: int) -> torch.Tensor:
+    """:func:`filter_axis` on a buffer extended by *side* >= ``len(h)//2``
+    per side."""
+    ext = fb._asfloat(ext)
+    if _on_cpu(ext, "filter_fromext_axis"):
+        return filter_fromext_axis_reference(ext, side, h, axis)
+    return _filter(ext, h, axis, _ext_len(ext, side, axis), side)
+
+
+def _dfilt(x, ha, hb, axis, n, side=None):
+    return _launch("dfilt", [x], [dfilt_streams(ha, hb)], [n // 4], axis,
+                   side)[0]
+
+
+def dfilt_axis(x: torch.Tensor, ha, hb, axis: int) -> torch.Tensor:
+    """Dual-tree decimate-by-2 filter along *axis*: *ha* on one polyphase
+    branch, *hb* on the other, interleaved in the order given by the sign
+    of ``sum(ha*hb)``.  The axis length must be a multiple of 4."""
+    x = fb._asfloat(x)
+    if x.shape[axis] % 4:
+        raise ValueError("Length of axis %d must be a multiple of 4" % axis)
+    ha, hb = _pair(ha, hb)
+    if _on_cpu(x, "dfilt_axis"):
+        return dfilt_axis_reference(x, ha, hb, axis)
+    return _dfilt(x, ha, hb, axis, x.shape[axis])
+
+
+def dfilt_fromext_axis(ext: torch.Tensor, side: int, ha, hb,
+                       axis: int) -> torch.Tensor:
+    """:func:`dfilt_axis` on a buffer extended by *side* >= ``len(ha)`` per
+    side."""
+    ext = fb._asfloat(ext)
+    ha, hb = _pair(ha, hb)
+    if _on_cpu(ext, "dfilt_fromext_axis"):
+        return dfilt_fromext_axis_reference(ext, side, ha, hb, axis)
+    return _dfilt(ext, ha, hb, axis, _ext_len(ext, side, axis), side)
+
+
+def _ifilt(x, ha, hb, axis, n, side=None):
+    return _launch("ifilt", [x], [ifilt_streams(ha, hb)], [n // 2], axis,
+                   side)[0]
+
+
+def ifilt_axis(x: torch.Tensor, ha, hb, axis: int) -> torch.Tensor:
+    """Dual-tree interpolate-by-2 filter along *axis* (twice the input
+    length).  The axis length must be even."""
+    x = fb._asfloat(x)
+    if x.shape[axis] % 2:
+        raise ValueError("Length of axis %d must be a multiple of 2" % axis)
+    ha, hb = _pair(ha, hb)
+    if _on_cpu(x, "ifilt_axis"):
+        return ifilt_axis_reference(x, ha, hb, axis)
+    return _ifilt(x, ha, hb, axis, x.shape[axis])
+
+
+def ifilt_fromext_axis(ext: torch.Tensor, side: int, ha, hb,
+                       axis: int) -> torch.Tensor:
+    """:func:`ifilt_axis` on a buffer extended by *side* >= ``len(ha)//2``
+    per side."""
+    ext = fb._asfloat(ext)
+    ha, hb = _pair(ha, hb)
+    if _on_cpu(ext, "ifilt_fromext_axis"):
+        return ifilt_fromext_axis_reference(ext, side, ha, hb, axis)
+    return _ifilt(ext, ha, hb, axis, _ext_len(ext, side, axis), side)
+
+
+# ---------------------------------------------------------------------------
+# column/row aliases (column = second-to-last axis, row = last axis; 1-D
+# and 2-D inputs filter axis 0, as fb._col_axis says)
+# ---------------------------------------------------------------------------
+
+def colfilter(X, h):
+    """Filter image columns with *h*, no decimation."""
+    return filter_axis(X, h, fb._col_axis(X))
+
+
+def rowfilter(X, h):
+    """Filter image rows with *h*, no decimation."""
+    return filter_axis(X, h, -1)
+
+
+def coldfilt(X, ha, hb):
+    """Decimate-by-2 dual filter on image columns."""
+    return dfilt_axis(X, ha, hb, fb._col_axis(X))
+
+
+def rowdfilt(X, ha, hb):
+    """Decimate-by-2 dual filter on image rows."""
+    return dfilt_axis(X, ha, hb, -1)
+
+
+def colifilt(X, ha, hb):
+    """Interpolate-by-2 dual filter on image columns."""
+    return ifilt_axis(X, ha, hb, fb._col_axis(X))
+
+
+def rowifilt(X, ha, hb):
+    """Interpolate-by-2 dual filter on image rows."""
+    return ifilt_axis(X, ha, hb, -1)

@@ -162,6 +162,73 @@ class Transform2d(nn.Module):
                                 tuple(i for _, i in Yh), scales)
         return Pyramid(lolo, tuple(Yh), scales)
 
+    # ------------------------------------------------------------------
+    # channel/batch layout adapters
+    # ------------------------------------------------------------------
+    _FORMATS_3D = ("nhw", "chw", "hwn", "hwc")
+    _FORMATS_4D = ("nchw", "nhwc")
+
+    @classmethod
+    def _check_format(cls, data_format: str, ndim: int) -> str:
+        fmt = data_format.lower()
+        formats = cls._FORMATS_3D + cls._FORMATS_4D
+        if fmt not in formats:
+            raise ValueError("The data format must be one of: %s" % (formats,))
+        want = 3 if fmt in cls._FORMATS_3D else 4
+        if ndim != want:
+            raise ValueError("%r data format expects a %d-D input, got %d-D"
+                             % (fmt, want, ndim))
+        return fmt
+
+    def forward_channels(self, X, data_format, nlevels: int = 3,
+                         include_scale: bool = False) -> Pyramid:
+        """Forward transform of a batch of multi-channel images, each channel
+        transformed on its own.
+
+        *data_format* is one of ``nhw``/``chw``/``hwn``/``hwc`` (3-D inputs)
+        or ``nchw``/``nhwc`` (4-D); the outputs keep the batch/channel axes
+        where the input has them.  The transform is batched over any leading
+        axes, so this only moves axes, and the outputs are views of the
+        pyramid's leaves (a channel-last input is made contiguous once, by
+        :meth:`forward`, as the kernels read it)."""
+        X = torch.as_tensor(X, device=self.device)
+        fmt = self._check_format(data_format, X.ndim)
+        if fmt in ("hwn", "hwc"):
+            X = X.movedim(-1, 0)
+        elif fmt == "nhwc":
+            X = X.movedim(-1, 1)
+        p = self.forward(X, nlevels, include_scale)
+        if fmt in ("nhw", "chw", "nchw"):
+            return p
+        src = 0 if fmt in ("hwn", "hwc") else 1
+        img = lambda a: a.movedim(src, -1)
+        hp = lambda a: a.movedim(src, -2)
+        return Pyramid(img(p.lowpass), tuple(hp(h) for h in p.highpasses),
+                       None if p.scales is None
+                       else tuple(img(s) for s in p.scales))
+
+    def inverse_channels(self, pyramid: Pyramid, data_format,
+                         gain_mask=None) -> torch.Tensor:
+        """Inverse of :meth:`forward_channels`; *data_format* must be the
+        one the forward call used."""
+        on = lambda a: torch.as_tensor(a, device=self.device)
+        low = on(pyramid.lowpass)
+        fmt = self._check_format(data_format, low.ndim)
+        if fmt in ("nhw", "chw", "nchw"):
+            p = pyramid
+        else:
+            # channel axis: -1 in images, -2 in [..., H, W, 6] highpasses
+            ch_dst = 0 if fmt in ("hwn", "hwc") else 1
+            p = Pyramid(low.movedim(-1, ch_dst),
+                        tuple(on(h).movedim(-2, ch_dst)
+                              for h in pyramid.highpasses))
+        Z = self.inverse(p, gain_mask)
+        if fmt in ("hwn", "hwc"):
+            return Z.movedim(0, -1)
+        if fmt == "nhwc":
+            return Z.movedim(1, -1)
+        return Z
+
     def inverse(self, pyramid, gain_mask=None) -> torch.Tensor:
         """Inverse transform of a :class:`Pyramid` or :class:`PlanePyramid`.
         *gain_mask* is an optional ``(6, nlevels)`` array of per-subband

@@ -9,13 +9,14 @@ kernels (``ops/dual``) and the (H, W) stages and the (un)pack in one
 kernel, and on a CPU tensor its plain PyTorch version.  Odd-length level-1
 filters take that route; even-length custom level-1 filters run the
 separable tree on the dual kernels with the packing in PyTorch, the JAX
-package's own route for them.  What stays here is glue: the ``ext_mode``
-divisibility check and edge-repeat padding of levels >= 2, the inverse's
-crop, the even-filter trims, ``discard_level_1`` and the bfloat16 rules
-(bfloat16 is storage: the arithmetic runs at float32, and the lowpass is
-stored in bfloat16 at each level boundary).  The transform runs on its
-``device`` ("cuda" unless the caller asks for "cpu") and moves its inputs
-there.
+package's own route for them.  ``discard_level_1`` replaces level 1 by its
+lowpass-only tree: three single-stream filter passes (``ops/single``) each
+way.  What stays here is glue: the ``ext_mode`` divisibility check and
+edge-repeat padding of levels >= 2, the inverse's crop, the even-filter
+trims and the bfloat16 rules (bfloat16 is storage: the arithmetic runs at
+float32, and the lowpass is stored in bfloat16 at each level boundary).
+The transform runs on its ``device`` ("cuda" unless the caller asks for
+"cpu") and moves its inputs there.
 """
 
 from __future__ import annotations
@@ -24,17 +25,13 @@ import torch
 from torch import nn
 
 from dtcwt_tpu_torch.defaults import DEFAULT_BIORT, DEFAULT_QSHIFT
-from dtcwt_tpu_torch.ops import dual, fb, pack3d
+from dtcwt_tpu_torch.ops import dual, pack3d, single
 from dtcwt_tpu_torch.transforms.pyramid import PlanePyramid, Pyramid
 from dtcwt_tpu_torch.transforms.transform2d import (
     normalize_biort, normalize_qshift)
 from dtcwt_tpu_torch.utils import compute_view
 
 __all__ = ["Transform3d"]
-
-_ROW5_TODO = ("discard_level_1 runs the single-stream filter (ROADMAP.md, "
-              "Queue 2 row 5, pallas_fb.filter_axis), which has no CUDA "
-              "kernel yet; use device='cpu'")
 
 
 def _repeat_edges(x: torch.Tensor, axis: int, n: int) -> torch.Tensor:
@@ -51,12 +48,12 @@ def _trim_last(v: torch.Tensor) -> torch.Tensor:
 
 
 def _lowpass_only(x: torch.Tensor, h, axes) -> torch.Tensor:
-    """The single-branch tree of ``discard_level_1`` (plain path only)."""
-    if x.device.type != "cpu":
-        raise NotImplementedError(_ROW5_TODO)
+    """The single-branch tree of ``discard_level_1``: the odd filter *h*
+    along each of *axes* in turn, at the compute precision (bfloat16 is
+    widened once and stored once at the end)."""
     out = compute_view(x)
     for ax in axes:
-        out = fb.filter_axis(out, h, ax)
+        out = single.filter_axis(out, h, ax)
     return out.to(x.dtype)
 
 

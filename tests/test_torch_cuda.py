@@ -19,7 +19,7 @@ import torch
 import dtcwt_tpu_torch as dt
 from dtcwt_tpu_torch.coeffs import biort, qshift
 from dtcwt_tpu_torch.ops import (
-    _build, dual, fb, ilevel1, ilevel2, level1, level2)
+    _build, dual, fb, ilevel1, ilevel2, level1, level2, single)
 from dtcwt_tpu_torch.transforms.pyramid import PLANE_BAND_ORDER
 
 _KTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float64: 1e-12}
@@ -389,7 +389,138 @@ def test_cuda_transform3d_matches_plain_path(cuda, layout):
 
 
 @pytest.mark.cuda
-def test_cuda_transform3d_discard_level_1_raises(cuda):
-    with pytest.raises(NotImplementedError, match="row 5"):
-        dt.Transform3d().forward(torch.zeros(8, 8, 8, device=cuda), 2,
-                                 discard_level_1=True)
+@pytest.mark.parametrize("layout", ["interleaved", "planes"])
+def test_cuda_transform3d_discard_level_1_matches_cpu(cuda, layout):
+    """``discard_level_1`` on the card: the lowpass-only level 1 is three
+    ``filter`` launches each way, and every leaf and the inverse match the
+    CPU at float64, with a pad and crop at level 3."""
+    x = np.random.RandomState(9).rand(20, 24, 28)
+    t, tc = dt.Transform3d(), dt.Transform3d(device="cpu")
+    _build.reset_launches()
+    pg = t.forward(x, 3, layout=layout, discard_level_1=True)
+    rg = t.inverse(pg)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {
+        "filter": 6, "dfilt2": 2, "fwd_level2_pack": 2,
+        "inv_level2_pack": 2, "ifilt2_sum": 2}
+    pc = tc.forward(torch.from_numpy(x), 3, layout=layout,
+                    discard_level_1=True)
+    assert _kerr(rg.cpu(), tc.inverse(pc)) < 1e-12
+    hg = pg.highpasses if layout == "interleaved" else pg.highpasses_re
+    hc = pc.highpasses if layout == "interleaved" else pc.highpasses_re
+    assert hg[0] is None and hc[0] is None
+    for a, b in zip((pg.lowpass,) + hg[1:], (pc.lowpass,) + hc[1:]):
+        assert _kerr(a.cpu(), b) < 1e-12
+    # bfloat16 planes: widened once, stored once
+    xb = torch.from_numpy(x).to(cuda, torch.bfloat16)
+    pb = t.forward(xb, 2, layout="planes", discard_level_1=True)
+    assert pb.lowpass.dtype == torch.bfloat16
+    assert t.inverse(pb).dtype == torch.bfloat16
+
+
+# --- the single-stream kernels (csrc/single.cu) ----------------------------
+
+def _single_cases(kind):
+    """The filters of every family for one single-stream kernel, the
+    bandpass ones included: (label, filter args)."""
+    out = []
+    if kind == "filter":
+        for fam in dt.BIORT_NAMES:
+            out += [(fam, (h,)) for h in biort(fam)]
+        out += [("qshift_a h0a (even)", (qshift("qshift_a")[0],)),
+                ("even", (_EVEN[0],))]
+        return out
+    for fam in dt.QSHIFT_NAMES:
+        q = qshift(fam)
+        for i in range(0, len(q), 2):
+            out += [(fam, (q[i + 1], q[i])), (fam, (q[i], q[i + 1]))]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("kind", ["filter", "dfilt", "ifilt"])
+def test_cuda_single_matches_plain(cuda, kind, dtype):
+    """Every single-stream kernel in its axis and from-extension modes, for
+    every family's filters (bandpass included, both tap orders of each
+    pair, so both signs of sum(ha*hb)), on axes -1, -2 and -3, inner 1 and
+    signals shorter than the filter."""
+    kern = getattr(single, kind + "_axis")
+    plain = getattr(single, kind + "_axis_reference")
+    kern_x = getattr(single, kind + "_fromext_axis")
+    plain_x = getattr(single, kind + "_fromext_axis_reference")
+    side = 32       # covers qshift_32's 32-tap decimator
+    for label, f in _single_cases(kind):
+        for seed, (shape, axes) in enumerate(_DUAL_SHAPES):
+            x = _rand(shape, seed, cuda, dtype)
+            for axis in axes:
+                got = kern(x, *f, axis)
+                torch.cuda.synchronize()
+                assert _kerr(got, plain(x, *f, axis)) < _KTOL[dtype], \
+                    (label, shape, axis)
+                e = fb.symmetric_extend(x, side, axis).contiguous()
+                got = kern_x(e, side, *f, axis)
+                torch.cuda.synchronize()
+                assert _kerr(got, plain_x(e, side, *f, axis)) < \
+                    _KTOL[dtype], (label, shape, axis, side)
+
+
+@pytest.mark.cuda
+def test_cuda_ops_names_launch_the_single_kernels(cuda):
+    """The public low-level names on CUDA tensors launch one single-stream
+    kernel each and agree with the same names on CPU tensors."""
+    from dtcwt_tpu_torch import ops
+    b, q = biort("near_sym_a"), qshift("qshift_a")
+    x = np.random.RandomState(10).rand(4, 24, 40)
+    calls = [("filter", lambda v: ops.colfilter(v, b[0])),
+             ("filter", lambda v: ops.rowfilter(v, b[2])),
+             ("dfilt", lambda v: ops.coldfilt(v, q[1], q[0])),
+             ("dfilt", lambda v: ops.rowdfilt(v, q[5], q[4])),
+             ("ifilt", lambda v: ops.colifilt(v, q[3], q[2])),
+             ("ifilt", lambda v: ops.rowifilt(v, q[7], q[6])),
+             ("filter", lambda v: ops.filter_axis(v, b[0], -3)),
+             ("dfilt", lambda v: ops.dfilt_axis(v, q[1], q[0], -2)),
+             ("ifilt", lambda v: ops.ifilt_axis(v, q[3], q[2], -3))]
+    for name, call in calls:
+        _build.reset_launches()
+        got = call(torch.from_numpy(x).to(cuda))
+        torch.cuda.synchronize()
+        assert dict(_build.launches) == {name: 1}
+        assert _kerr(got.cpu(), call(torch.from_numpy(x))) < 1e-12
+
+
+@pytest.mark.cuda
+def test_cuda_single_refuses_what_the_kernel_does_not_take(cuda):
+    b = biort("near_sym_a")
+    with pytest.raises(ValueError, match="contiguous"):
+        single.filter_axis(torch.zeros(16, 8, device=cuda).t(), b[0], 0)
+    with pytest.raises(TypeError, match="float32, bfloat16 or float64"):
+        single.filter_axis(torch.zeros(16, 8, device=cuda,
+                                       dtype=torch.float16), b[0], 0)
+    q = qshift("qshift_a")
+    with pytest.raises(ValueError, match="reach"):
+        single.dfilt_fromext_axis(torch.zeros(24, 8, device=cuda), 4, q[1],
+                                  q[0], 0)
+
+
+@pytest.mark.cuda
+def test_cuda_compat_matches_the_transforms(cuda):
+    """The compat entries on the card give the Transforms' results."""
+    from dtcwt_tpu_torch import compat
+    v = np.random.RandomState(11).rand(16, 20, 24)
+    yl, yh = compat.dtwavexfm3(v, 3, discard_level_1=True)
+    p = dt.Transform3d().forward(v, 3, discard_level_1=True)
+    assert torch.equal(yl, p.lowpass) and yh[0] is None
+    assert all(torch.equal(a, c) for a, c in zip(yh[1:], p.highpasses[1:]))
+    assert torch.equal(compat.dtwaveifm3(yl, yh),
+                       dt.Transform3d().inverse(p))
+    x = np.random.RandomState(12).rand(40, 36)
+    yl, yh = compat.dtwavexfm2(x, 3)
+    assert torch.equal(compat.dtwaveifm2(yl, yh),
+                       dt.Transform2d().inverse(dt.Transform2d().forward(
+                           x, 3)))
+    s = np.random.RandomState(13).rand(256, 4)
+    yl, yh = compat.dtwavexfm(s, 4)
+    assert float((compat.dtwaveifm(yl, yh).cpu()
+                  - torch.from_numpy(s)).abs().max()) < 1e-12

@@ -1,5 +1,7 @@
-"""Importing the port pulls in neither JAX nor Triton and builds nothing,
-and the kernel build refuses loudly where there is no ``nvcc``."""
+"""Importing the port (its package, ``ops``, ``compat`` and every kernel
+module) pulls in neither JAX nor Triton and builds nothing, in whichever
+order the modules come, and the kernel build refuses loudly where there is
+no ``nvcc``."""
 
 import os
 import subprocess
@@ -13,13 +15,35 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_import_loads_no_jax_or_triton_and_builds_nothing():
     code = (
         "import sys, dtcwt_tpu_torch, dtcwt_tpu_torch.convert\n"
+        "import dtcwt_tpu_torch.ops, dtcwt_tpu_torch.compat\n"
+        "import dtcwt_tpu_torch.compat_backend\n"
         "from dtcwt_tpu_torch.ops import _build, dual, level1, level2, "
-        "ilevel1, ilevel2, pack3d\n"
+        "ilevel1, ilevel2, pack3d, single\n"
         "from dtcwt_tpu_torch.transforms import transform3d\n"
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'triton', 'dtcwt_tpu'))\n"
         "assert not bad, bad\n"
         "assert _build._lib is None\n")
+    env = dict(os.environ, PYTHONPATH=_REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("first", ["dtcwt_tpu_torch.ops",
+                                   "dtcwt_tpu_torch.compat",
+                                   "dtcwt_tpu_torch.transforms.transform3d",
+                                   "dtcwt_tpu_torch.ops.single"])
+def test_each_module_imports_first_without_a_cycle(first):
+    """Any of the public modules can be the first one imported: ``ops``
+    (which binds the filter names to ``ops.single``) and the transforms
+    import each other's modules without a cycle."""
+    code = ("import importlib, sys\n"
+            "importlib.import_module(%r)\n"
+            "import dtcwt_tpu_torch.ops as ops, dtcwt_tpu_torch.compat\n"
+            "assert ops.coldfilt.__module__ == 'dtcwt_tpu_torch.ops.single'\n"
+            "assert not [m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'triton', 'dtcwt_tpu')]\n" % first)
     env = dict(os.environ, PYTHONPATH=_REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
                           capture_output=True, text=True, timeout=120)

@@ -262,15 +262,16 @@ def test_3d_band_indices_match_equations():
 def test_runs_on_the_card_unless_asked_for_the_cpu():
     """The default device is CUDA: a numpy volume goes to the card, and
     where there is none the call raises instead of running on the CPU;
-    ``discard_level_1`` raises on the card (its single-stream filter has no
-    kernel yet).  With ``device="cpu"`` every leaf lands on the CPU."""
+    ``discard_level_1`` runs there too (on the single-stream filter
+    kernel).  With ``device="cpu"`` every leaf lands on the CPU."""
     x = _rand((8, 8, 12), 9)
     t = tdt.Transform3d()
     assert t.device.type == "cuda"
     if torch.cuda.is_available():
         assert t.forward(x, 2).lowpass.device.type == "cuda"
-        with pytest.raises(NotImplementedError, match="row 5"):
-            t.forward(x, 2, discard_level_1=True)
+        p = t.forward(x, 2, discard_level_1=True)
+        assert p.highpasses[0] is None
+        assert p.lowpass.device.type == "cuda"
     else:
         with pytest.raises((AssertionError, RuntimeError)):
             t.forward(x, 2)
