@@ -3,7 +3,7 @@ them.
 
     python3 chip_smoke.py
 
-Three main paths, each through the entry points a user calls, with the
+The main paths, each through the entry points a user calls, with the
 default filters (near_sym_a / qshift_a), in three layouts (interleaved
 complex float32, float32 planes, bfloat16 planes):
 
@@ -25,7 +25,13 @@ complex float32, float32 planes, bfloat16 planes):
 * ``compat``: ``dtwavexfm3(v, 3, discard_level_1=True)`` / ``dtwaveifm3``
   at 256^3, ``dtwavexfm2`` / ``dtwaveifm2`` at 4096^2 and ``dtwavexfm`` /
   ``dtwaveifm`` at ``[131072, 128]``, and ``Transform2d.forward_channels``
-  on a ``[2, 1024, 1024, 3]`` nhwc batch.
+  on a ``[2, 1024, 1024, 3]`` nhwc batch;
+* the sharded 3-D transform: ``dtcwt_tpu_torch.parallel.ShardedTransform3d``
+  on ``make_mesh((1, 4), ("data", "depth"), ["cuda"] * 4)`` (four shards of
+  the one card), ``forward(v, nlevels=3)`` then ``inverse`` on a ``[1, 256,
+  256, 256]`` volume with every level depth-sharded: the (H, W) stage pair
+  of each shard on the four kernels of ``csrc/hw.cu``, the depth stages on
+  the dual kernels' from-extension mode after a halo exchange.
 
 Phases, each printing its own lines:
 
@@ -41,7 +47,9 @@ Phases, each printing its own lines:
    above 512, shorter than the filter); the single-stream kernels at 4096^2
    along axes -2 and -1 (float32, bfloat16), at 256^3 along -1, -2 and -3,
    and at float64 over every family's filters, the bandpass ones included,
-   in both modes;
+   in both modes; the hw kernels at the sharded round trip's shard shapes
+   (float32, bfloat16) and at float64 over the families at shapes the JAX
+   envelope refuses;
 4. main paths: each round trip in all three layouts with the plain versions
    patched to raise, the launch counts (2-D 1/2/2/1, 1-D 1/7/7/1, 3-D
    ``filter2`` 1, ``fwd_level1_pack`` 1, ``dfilt2`` 2, ``fwd_level2_pack``
@@ -57,6 +65,13 @@ Phases, each printing its own lines:
    the low-level path (``filter`` 8, ``dfilt`` 4, ``ifilt`` 4 launches);
    each compat entry equal to its Transform's result with the same
    launches; the nhwc channel adapter equal to ``forward`` on moved axes;
+   the sharded round trip in three layouts (launches ``filter_hw22`` 4,
+   ``dfilt_hw22`` 8, ``filter2`` 16, ``dfilt2`` 32, ``ifilt2_sum`` 32,
+   ``ifilt_sum_hw22`` 8, ``filter2_sum`` 16, ``filter_sum_hw22`` 4), every
+   leaf against ``Transform3d`` on the card and against the plain path; a
+   ``[1, 32, 256, 256]`` volume whose levels 2-3 gather (their inverse
+   merges on ``ifilt_sum_hw22``); a (1, 2, 2) rows mesh; float64 card
+   against CPU meshes;
 5. timing: CUDA events, median of 10 runs after 2 warm-up runs (for a round
    trip the time its caller waits; for a kernel, its plain version and a
    library call the device's time alone, the stream held while the host
@@ -70,7 +85,10 @@ Phases, each printing its own lines:
    trace: device time by kernel, the
    device's idle share and the host's time to enqueue.  A 3-D level kernel
    is timed alone, on its depth stage's outputs, against the plain version
-   of that stage.
+   of that stage.  The sharded round trip against ``Transform3d`` and the
+   plain path, with a trace (f32 interleaved); each hw kernel's launches of
+   one round trip against the plain version, the bound and one
+   ``torch.einsum("ah,nhw,wb->nab")`` over the dense operators (TF32 off).
 
 Tolerances, relative to the largest reference value: float32 1e-5 (sums in
 another order), bfloat16 1e-2 (one bfloat16 step of the stored outputs),
@@ -114,6 +132,7 @@ F32_FLOP_PER_S = 67e12         # float32 outside the tensor cores
 _DUAL_SRC = "dtcwt_tpu_torch/csrc/dual.cu"
 _PACK_SRC = "dtcwt_tpu_torch/csrc/pack3d.cu"
 _SINGLE_SRC = "dtcwt_tpu_torch/csrc/single.cu"
+_HW_SRC = "dtcwt_tpu_torch/csrc/hw.cu"
 KERNELS = {   # name -> (CUDA source, the TPU kernel it replaces)
     "level1": ("dtcwt_tpu_torch/csrc/level1.cu",
                "dtcwt_tpu/ops/pallas_level1.py:374"),
@@ -134,6 +153,10 @@ KERNELS = {   # name -> (CUDA source, the TPU kernel it replaces)
     "filter": (_SINGLE_SRC, "dtcwt_tpu/ops/pallas_fb.py:492"),
     "dfilt": (_SINGLE_SRC, "dtcwt_tpu/ops/pallas_fb.py:642"),
     "ifilt": (_SINGLE_SRC, "dtcwt_tpu/ops/pallas_fb.py:791"),
+    "filter_hw22": (_HW_SRC, "dtcwt_tpu/ops/pallas_hw.py:145"),
+    "dfilt_hw22": (_HW_SRC, "dtcwt_tpu/ops/pallas_hw.py:155"),
+    "filter_sum_hw22": (_HW_SRC, "dtcwt_tpu/ops/pallas_hw.py:223"),
+    "ifilt_sum_hw22": (_HW_SRC, "dtcwt_tpu/ops/pallas_hw.py:234"),
 }
 LAUNCHES_2D = {"level1": 1, "level2": 2, "ilevel2": 2, "ilevel1": 1}
 LAUNCHES_1D = {"filter2": 1, "dfilt2": 7, "ifilt2_sum": 7, "filter2_sum": 1}
@@ -1028,6 +1051,354 @@ def time_single(dev, report) -> None:
     del img
 
 
+# --- the sharded 3-D path and the two-sided (H, W) kernels ------------------
+
+HW_NAMES = ("filter_hw22", "dfilt_hw22", "filter_sum_hw22", "ifilt_sum_hw22")
+SHARDS = 4      # the card mesh: (1, 4) over ("data", "depth"), ["cuda"] * 4
+# per 256^3 3-level round trip on the card mesh, every level depth-sharded
+# (local depths 64, 64, 32): the shard each hw entry reads, once per shard
+HW_SHAPES = {"filter_hw22": [(1, 64, VOL, VOL)],
+             "dfilt_hw22": [(1, 64, VOL, VOL), (1, 32, VOL // 2, VOL // 2)],
+             "filter_sum_hw22": [(1, 64, VOL, VOL)],
+             "ifilt_sum_hw22": [(1, 32, VOL // 4, VOL // 4),
+                                (1, 64, VOL // 2, VOL // 2)]}
+LAUNCHES_SHARDED = {"filter_hw22": 4, "dfilt_hw22": 8, "filter2": 16,
+                    "dfilt2": 32, "ifilt2_sum": 32, "ifilt_sum_hw22": 8,
+                    "filter2_sum": 16, "filter_sum_hw22": 4}
+# [1, 32, 256, 256] on the card mesh: level 1 depth-sharded, levels 2-3
+# gathered (the inverse's (H, W) merge on ifilt_sum_hw22, JAX's
+# transform3d_dist.py:557 route)
+LAUNCHES_DEGRADE = {"filter_hw22": 4, "filter2": 16, "dfilt2": 2,
+                    "fwd_level2_pack": 2, "ifilt2_sum": 8,
+                    "ifilt_sum_hw22": 2, "filter2_sum": 16,
+                    "filter_sum_hw22": 4}
+DUAL_NAMES = ("filter2", "dfilt2", "ifilt2_sum", "filter2_sum")
+
+
+def hw_filters(name, fam=None):
+    """The filters of one hw entry: a biort family's (h0o, h1o) / (g0o,
+    g1o), a qshift family's analysis or synthesis pairs (default filters
+    near_sym_a / qshift_a)."""
+    import dtcwt_tpu_torch as dt
+    if name in ("filter_hw22", "filter_sum_hw22"):
+        b = dt.biort(fam or "near_sym_a")
+        return (b[0], b[2]) if name == "filter_hw22" else (b[1], b[3])
+    q = dt.qshift(fam or "qshift_a")
+    return (((q[1], q[0]), (q[5], q[4])) if name == "dfilt_hw22"
+            else ((q[3], q[2]), (q[7], q[6])))
+
+
+def hw_case(name, shape, dtype, dev, fam=None, seed=0):
+    """(kernel call, plain call, inputs) of one hw entry on random inputs
+    of *shape*; the analysis outputs flattened to (u00, u01, u10, u11)."""
+    from dtcwt_tpu_torch.ops import hw
+    f = hw_filters(name, fam)
+    n = 4 if "sum" in name else 1
+    xs = [rand(shape, seed + i, dev, dtype) for i in range(n)]
+    k, p = getattr(hw, name), getattr(hw, name + "_reference")
+    flat = (lambda u: u) if n == 4 else (
+        lambda u: tuple(v for row in u for v in row))
+    return (lambda: flat(k(*xs, *f))), (lambda: flat(p(*xs, *f))), xs
+
+
+def hw_macs(name, shape) -> int:
+    """Multiply-adds of one call: the W stage of every input image and the
+    H stage of every output, each output sample summing its stream's taps
+    (filter and dfilt m, ifilt m / 2)."""
+    f = hw_filters(name)
+    N = int(np.prod(shape[:-2]))
+    H, W = shape[-2:]
+    if name in ("filter_hw22", "filter_sum_hw22"):
+        taps, HO, WO = sum(np.asarray(h).size for h in f), H, W
+    elif name == "dfilt_hw22":
+        taps, HO, WO = 2 * np.asarray(f[0][0]).size, H // 2, W // 2
+    else:
+        taps, HO, WO = np.asarray(f[0][0]).size, 2 * H, 2 * W
+    if "sum" in name:
+        return N * taps * (2 * H * WO + HO * WO)
+    return N * taps * (H * WO + 2 * HO * WO)
+
+
+def hw_einsum(name, xs):
+    """One ``torch.einsum("ah,nhw,wb->nab")`` computing the same map with the
+    dense operators (the plain single-stream filters on an identity, built
+    here outside the timed call): (call, its outputs as the kernel's)."""
+    from dtcwt_tpu_torch.ops import fb
+    f = hw_filters(name)
+    x = xs[0]
+    lead, (H, W) = tuple(x.shape[:-2]), tuple(x.shape[-2:])
+
+    def op(n, g):
+        eye = torch.eye(n, dtype=torch.float64)
+        if name in ("filter_hw22", "filter_sum_hw22"):
+            return fb.filter_axis(eye, g, 0)
+        if name == "dfilt_hw22":
+            return fb.dfilt_axis(eye, *g, 0)
+        return fb.ifilt_axis(eye, *g, 0)
+
+    to = lambda m: m.to(x.device, x.dtype).contiguous()
+    A = [op(H, g) for g in f]                 # [HO, H] from the left
+    Bt = [op(W, g) for g in f]                # [WO, W], B = Bt^T
+    HO, WO = A[0].shape[0], Bt[0].shape[0]
+    if "sum" not in name:
+        a, bm = to(torch.cat(A, 0)), to(torch.cat(Bt, 0).T)
+        v = x.reshape((-1, H, W))
+        call = lambda: torch.einsum("ah,nhw,wb->nab", a, v, bm)
+
+        def shape(y):
+            return tuple(y[:, j * HO:(j + 1) * HO, k * WO:(k + 1) * WO]
+                         .reshape(lead + (HO, WO))
+                         for j in range(2) for k in range(2))
+        return call, shape
+    a, bm = to(torch.cat(A, 1)), to(torch.cat(Bt, 1).T)
+    v = torch.cat([torch.cat(xs[0:2], -1), torch.cat(xs[2:4], -1)],
+                  -2).reshape((-1, 2 * H, 2 * W))
+    return (lambda: torch.einsum("ah,nhw,wb->nab", a, v, bm)), (
+        lambda y: y.reshape(lead + (HO, WO)))
+
+
+def sharded_no_plain():
+    """Patches that make every plain version of the sharded path raise."""
+    from dtcwt_tpu_torch.ops import dual, hw
+    return (single_no_plain()
+            + [(hw, n + "_reference", refuse) for n in HW_NAMES]
+            + [(dual, n + "_fromext_axis_reference", refuse)
+               for n in DUAL_NAMES])
+
+
+def sharded_plain_path():
+    """Patches that route every kernel entry of the sharded path to its
+    plain version."""
+    from dtcwt_tpu_torch.ops import dual, hw, pack3d, single
+    return ([(hw, n, getattr(hw, n + "_reference")) for n in HW_NAMES]
+            + [(dual, n + s, getattr(dual, n + s + "_reference"))
+               for n in DUAL_NAMES for s in ("_axis", "_fromext_axis")]
+            + [(single, n, getattr(single, n + "_reference"))
+               for n in ("filter_axis", "filter_fromext_axis")]
+            + [(pack3d, n, getattr(pack3d, n + "_reference"))
+               for n in PACK_NAMES])
+
+
+def leaves(p):
+    """Every tensor leaf of a pyramid: lowpass, subbands, scales."""
+    from dtcwt_tpu_torch.transforms.pyramid import PlanePyramid
+    hp = (p.highpasses_re + p.highpasses_im if isinstance(p, PlanePyramid)
+          else p.highpasses)
+    return [p.lowpass] + [h for h in hp if h is not None] + list(
+        p.scales or ())
+
+
+def check_sharded(dev, report) -> dict:
+    """Phase 3 and 4 for the sharded 3-D path: each hw kernel against its
+    plain version, then the 256^3 3-level round trip on the (1, 4) card
+    mesh in three layouts with the launch counts, against Transform3d and
+    the plain path; a plan that gathers, a rows mesh, float64 against the
+    CPU.  Returns the launch counts of the f32 interleaved round trip."""
+    import dtcwt_tpu_torch as dt
+    from dtcwt_tpu_torch.ops import _build
+    from dtcwt_tpu_torch.parallel import ShardedTransform3d, make_mesh
+    for name in HW_NAMES:
+        for dtype in (torch.float32, torch.bfloat16):
+            worst = 0.0
+            for shape in HW_SHAPES[name]:
+                kern, plain, _ = hw_case(name, shape, dtype, dev)
+                got = kern()
+                torch.cuda.synchronize()
+                want = plain()
+                worst = max(worst, rel_err(got, want))
+                if dtype == torch.float32:
+                    report[name]["max_abs_err"] = max(
+                        report[name]["max_abs_err"], abs_err(got, want))
+                del got, want
+            check(worst <= TOL[dtype], "kernel %s shards %s %s: worst rel err"
+                  " %.3g (tol %g)" % (name, HW_SHAPES[name], dtype, worst,
+                                      TOL[dtype]))
+    # float64 at shapes the JAX envelope refuses (H or W off its 8 x 128
+    # grid, above 512, shorter than the filter), every family
+    small = [(3, 12, 20), (2, 2, 8, 132), (1, 520, 8), (2, 4, 4)]
+    for name in HW_NAMES:
+        fams = (("antonini", "near_sym_a", "near_sym_b")
+                if name in ("filter_hw22", "filter_sum_hw22") else QSHIFTS)
+        worst = 0.0
+        for fam in fams:
+            for seed, shape in enumerate(small):
+                kern, plain, _ = hw_case(name, shape, torch.float64, dev,
+                                         fam, seed)
+                got = kern()
+                torch.cuda.synchronize()
+                worst = max(worst, rel_err(got, plain()))
+        check(worst <= TOL[torch.float64], "kernel %s float64, families %s, "
+              "shapes %s: worst rel err %.3g (tol %g)" % (
+                  name, ",".join(fams), small, worst, TOL[torch.float64]))
+
+    mesh = make_mesh((1, SHARDS), ("data", "depth"), ["cuda"] * SHARDS)
+    st, t3 = ShardedTransform3d(mesh), dt.Transform3d()
+    x32 = rand((1,) + (VOL,) * 3, 31, dev, torch.float32)
+    launches = {}
+    for label, dtype, layout in LAYOUTS:
+        x = x32.to(dtype)
+        _build.reset_launches()
+        with patched(sharded_no_plain()):
+            pyr = st.forward(x, NLEVELS, layout=layout)
+            rec = st.inverse(pyr)
+            torch.cuda.synchronize()
+        counts = dict(_build.launches)
+        if not launches:
+            launches = counts
+        check(counts == LAUNCHES_SHARDED, "main path sharded 3-D %s: "
+              "launches %s" % (label, counts))
+        lv = leaves(pyr)
+        shapes_ok = (tuple(rec.shape) == (1,) + (VOL,) * 3
+                     and rec.dtype == dtype and len(lv) == 1 + NLEVELS * (
+                         1 if layout == "interleaved" else 2)
+                     and tuple(pyr.lowpass.shape) == (1,) + (VOL // 4,) * 3)
+        finite = all(bool(torch.isfinite(torch.view_as_real(h) if
+                                         h.is_complex() else h.float()).all())
+                     for h in lv + [rec])
+        err = float((rec.float() - x.float()).abs().max())
+        check(shapes_ok and finite and err <= REC_TOL_3D[dtype],
+              "main path sharded 3-D %s: %d^3 %d-level round trip on the "
+              "(1, %d) card mesh, reconstruction max abs err %.3g (tol %g), "
+              "shapes %s, finite %s" % (label, VOL, NLEVELS, SHARDS, err,
+                                        REC_TOL_3D[dtype], shapes_ok, finite))
+        p3 = t3.forward(x, NLEVELS, layout=layout)
+        e = max([rel_err(a, b) for a, b in zip(lv, leaves(p3))]
+                + [rel_err(rec, t3.inverse(p3))])
+        check(e <= TOL[dtype], "main path sharded 3-D %s: against "
+              "Transform3d on the card, every leaf and the reconstruction, "
+              "rel err %.3g (tol %g)" % (label, e, TOL[dtype]))
+        del p3
+        with patched(sharded_plain_path()):
+            pp = st.forward(x, NLEVELS, layout=layout)
+            rec_plain = st.inverse(pp)
+        e = max([rel_err(a, b) for a, b in zip(lv, leaves(pp))]
+                + [rel_err(rec, rec_plain)])
+        check(e <= TOL[dtype] * 10, "main path sharded 3-D %s: kernels vs "
+              "plain path on the card, every leaf and the reconstruction, rel"
+              " err %.3g (tol %g)" % (label, e, TOL[dtype] * 10))
+        del pyr, rec, pp, rec_plain
+    del x32
+
+    # levels 2-3 gathered: JAX's transform3d_dist.py:557 route
+    xg = rand((1, 32, VOL, VOL), 32, dev, torch.float32)
+    _build.reset_launches()
+    with patched(sharded_no_plain()):
+        pg = st.forward(xg, NLEVELS)
+        rg = st.inverse(pg)
+        torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    p3 = t3.forward(xg, NLEVELS)
+    e = max(rel_err(a, b) for a, b in zip(leaves(pg), leaves(p3)))
+    rec_e = float((rg - xg).abs().max())
+    check(counts == LAUNCHES_DEGRADE and e <= TOL[torch.float32]
+          and rec_e <= REC_TOL_3D[torch.float32],
+          "sharded 3-D 1x32x%dx%d (levels 2-3 gathered): launches %s, "
+          "against Transform3d rel err %.3g, reconstruction max abs err %.3g"
+          % (VOL, VOL, counts, e, rec_e))
+    del xg, pg, rg, p3
+    # a (1, 2, 2) rows mesh: each axis alone on the dual kernels
+    mr = make_mesh((1, 2, 2), ("data", "depth", "rows"), ["cuda"] * 4)
+    sr = ShardedTransform3d(mr, rows_axis="rows")
+    xr = rand((1,) + (VOL // 2,) * 3, 33, dev, torch.float32)
+    _build.reset_launches()
+    with patched(sharded_no_plain()):
+        pr = sr.forward(xr, NLEVELS)
+        rr = sr.inverse(pr)
+        torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    p3 = t3.forward(xr, NLEVELS)
+    e = max(rel_err(a, b) for a, b in zip(leaves(pr), leaves(p3)))
+    rec_e = float((rr - xr).abs().max())
+    check(e <= TOL[torch.float32] and rec_e <= REC_TOL_3D[torch.float32]
+          and set(counts) == set(DUAL_NAMES),
+          "sharded 3-D %d^3 on the (1, 2, 2) rows mesh: launches %s, against"
+          " Transform3d rel err %.3g, reconstruction max abs err %.3g" % (
+              VOL // 2, counts, e, rec_e))
+    del xr, pr, rr, p3
+    # float64: card mesh against CPU mesh, every leaf, both layouts
+    v = np.random.RandomState(34).rand(2, 32, 32, 16)
+    e = 0.0
+    for shape, names, rows in (((2, 2), ("data", "depth"), None),
+                               ((1, 2, 2), ("data", "depth", "rows"),
+                                "rows")):
+        n = int(np.prod(shape))
+        sg = ShardedTransform3d(make_mesh(shape, names, ["cuda"] * n),
+                                rows_axis=rows)
+        sc = ShardedTransform3d(make_mesh(shape, names, ["cpu"] * n),
+                                rows_axis=rows)
+        for layout in ("interleaved", "planes"):
+            pg = sg.forward(v, NLEVELS, layout=layout, include_scale=True)
+            pc = sc.forward(torch.from_numpy(v), NLEVELS, layout=layout,
+                            include_scale=True)
+            e = max([e, rel_err(sg.inverse(pg).cpu(), sc.inverse(pc))]
+                    + [rel_err(a.cpu(), b) for a, b in zip(leaves(pg),
+                                                            leaves(pc))])
+    check(e <= TOL[torch.float64], "sharded 3-D float64 2x32x32x16 on (2, 2)"
+          " and (1, 2, 2) card meshes, both layouts: card vs CPU, every leaf,"
+          " rel err %.3g (tol %g)" % (e, TOL[torch.float64]))
+    return launches
+
+
+def time_sharded(dev, report) -> None:
+    """Phase 5 for the sharded path: the round trip on the card mesh against
+    Transform3d and the plain path in three layouts with a profiler trace
+    (f32 interleaved), and each hw kernel alone (device time, stream held)
+    against its plain version, its bound and one einsum over the dense
+    operators; per round trip, one launch per shard at each of its
+    shapes."""
+    import dtcwt_tpu_torch as dt
+    from dtcwt_tpu_torch.parallel import ShardedTransform3d, make_mesh
+    mesh = make_mesh((1, SHARDS), ("data", "depth"), ["cuda"] * SHARDS)
+    st, t3 = ShardedTransform3d(mesh), dt.Transform3d()
+    x = rand((1,) + (VOL,) * 3, 31, dev, torch.float32)
+    for label, dtype, layout in LAYOUTS:
+        xd = x.to(dtype)
+        run = lambda: st.inverse(st.forward(xd, NLEVELS, layout=layout))
+        ms = cuda_ms(run)
+        single_ms = cuda_ms(lambda: t3.inverse(t3.forward(
+            xd, NLEVELS, layout=layout)))
+        with patched(sharded_plain_path()):
+            pms = cuda_ms(run, reps=3, warmup=1)
+        print("time round trip sharded 3-D %d^3 %d levels on the (1, %d) "
+              "card mesh %s: kernels %.3f ms, Transform3d %.3f ms, plain "
+              "%.3f ms" % (VOL, NLEVELS, SHARDS, label, ms, single_ms, pms),
+              flush=True)
+        if dtype == torch.float32 and layout == "interleaved":
+            print_trace("round trip sharded 3-D %s" % label, run)
+    del x
+    for name in HW_NAMES:
+        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+               "bound_by": "bytes", "library_ms": 0.0}
+        for shape in HW_SHAPES[name]:
+            kern, plain, xs = hw_case(name, shape, torch.float32, dev)
+            outs = kern()
+            bms, by = bound(SHARDS * (nbytes(xs) + nbytes(outs)),
+                            SHARDS * hw_macs(name, shape))
+            shards = lambda fn: (lambda: [fn() for _ in range(SHARDS)])
+            ms = cuda_ms(shards(kern), hold=True)
+            pms = cuda_ms(shards(plain), hold=True, reps=3, warmup=1)
+            lib, as_outs = hw_einsum(name, xs)
+            lms = cuda_ms(shards(lib), hold=True)
+            lerr = rel_err(as_outs(lib()), outs)
+            for k, v in (("ms", ms), ("plain_ms", pms), ("bound_ms", bms),
+                         ("library_ms", lms)):
+                tot[k] += v
+            if by != "bytes":
+                tot["bound_by"] = by
+            print("time %s %s x %d shards f32: kernel %.4f ms, plain %.4f ms,"
+                  " bound %.4f ms (%s), library einsum (TF32 off) %.4f ms "
+                  "(rel err against the kernel %.3g)" % (
+                      name, "x".join(map(str, shape)), SHARDS, ms, pms, bms,
+                      by, lms, lerr), flush=True)
+            del outs, xs, lib
+        print("time %s, its %d launches of one sharded round trip: kernel "
+              "%.4f ms, plain %.4f ms, bound %.4f ms, einsum %.4f ms" % (
+                  name, SHARDS * len(HW_SHAPES[name]), tot["ms"],
+                  tot["plain_ms"], tot["bound_ms"], tot["library_ms"]),
+              flush=True)
+        report[name].update(tot)
+
+
 def main() -> int:
     # --- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1360,6 +1731,7 @@ def main() -> int:
 
     launches_3d = check_3d(dev, report)
     launches_discard, launches_low = check_single(dev, report)
+    launches_sharded = check_sharded(dev, report)
 
     # --- 5. timing -----------------------------------------------------------
     print("timing on %s: CUDA events, median of 10 runs after 2 warm-up runs"
@@ -1473,13 +1845,15 @@ def main() -> int:
 
     time_3d(dev, report)
     time_single(dev, report)
+    time_sharded(dev, report)
 
     # the dual kernels report the 1-D path's launches, the level kernels
     # their own path's, filter the discard_level_1 round trip's, dfilt and
-    # ifilt the low-level path's
+    # ifilt the low-level path's, the hw kernels the sharded round trip's
     counts = dict(launches_3d, **launches, **launches_1d,
                   filter=launches_discard["filter"],
-                  dfilt=launches_low["dfilt"], ifilt=launches_low["ifilt"])
+                  dfilt=launches_low["dfilt"], ifilt=launches_low["ifilt"],
+                  **{n: launches_sharded[n] for n in HW_NAMES})
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": counts.get(name, 0),
                 **report[name]}
@@ -1489,9 +1863,11 @@ def main() -> int:
           "256^3 interleaved; a 3-D level kernel alone, after its depth "
           "stage; filter: the 6 passes of the 256^3 discard_level_1 round "
           "trip; dfilt, ifilt: the col and row calls of the 4096^2 "
-          "low-level path); max_abs_err: f32 at the main-path shapes; "
-          "library_ms: one F.conv2d per call at the main-path shapes, "
-          "where one call computes it")
+          "low-level path; the hw kernels: one launch per shard at each "
+          "shape of the 256^3 sharded round trip on the (1, 4) card mesh); "
+          "max_abs_err: f32 at the main-path shapes; library_ms: one "
+          "F.conv2d (hw kernels: one einsum over the dense operators) per "
+          "call at the main-path shapes, where one call computes it")
     if failures:
         print("FAILED %d check(s):" % len(failures))
         for f in failures:

@@ -32,17 +32,12 @@
 // c2cube while staging them, and writes, per depth branch i and parity c,
 // U_i[2u + c] = sum_{j,k} F_H(g_j) F_W(g_k) octant(i, j, k)[2u + c].
 //
-// Every filter is a set of P output streams (host plans, ops/pack3d.py),
-//
-//   Y[P g + s] = sum_{k < len[b][s]} t[b][s][k] x[D g + c[b][s] + S k]
-//
-//   level-1 filter (P, D, S) = (1, 1, 1), c = -(m/2), t = reversed taps
-//   level-2 dfilt            = (2, 4, 2), level2.dfilt_streams
-//   level-2 ifilt            = (4, 2, 2), ilevel2.ifilt_streams
-//
-// applied along W and along H, so the kernels hold no parity logic.  x is
-// read at symmetric reflection (reflect() of common.cuh, folded as often as
-// needed, so H or W shorter than the filter works).
+// Every filter is a set of P output streams (host plans, ops/pack3d.py)
+// applied along W and along H, as hwstage.cuh sets out (the stream plan,
+// the FIR and the tile fitting live there, shared with hw.cu), so the
+// kernels hold no parity logic.  x is read at symmetric reflection
+// (reflect() of common.cuh, folded as often as needed, so H or W shorter
+// than the filter works).
 //
 // Layouts: the subbands are band-major planes [B, 28, Dn/2, Hb, Wb] of the
 // storage type (float, bfloat16 or double), or interleaved complex
@@ -63,54 +58,14 @@
 // The tile shrinks on the host until the shared memory fits (long filters,
 // float64).  Tuning (coalesced interleaved stores, fewer shared-memory
 // passes) is later work; the times are in PERF.md.
-#include <climits>
-
-#include "common.cuh"
+#include "hwstage.cuh"
 
 namespace dtcwt {
-
-constexpr int PACK_THREADS = 256;
-constexpr int PACK_TILE = 32;                   // largest output tile side
-constexpr size_t PACK_SMEM_MAX = 220 * 1024;    // dynamic shared memory cap
-
-// The two branch filters of one axis stage as P streams each.
-template <typename A, int P> struct PackPlan {
-  int len[2][P];
-  int off[2][P];  // first input sample of stream s, relative to cmin
-  A t[2][P][MAX_TAPS];
-};
 
 // octants (depth branch i, H branch j, W branch k) in band order
 __device__ __forceinline__ int oct_i(int n) { return (0x66 >> n) & 1; }
 __device__ __forceinline__ int oct_j(int n) { return (0x55 >> n) & 1; }
 __device__ __forceinline__ int oct_k(int n) { return n >= 3; }
-
-template <typename A, int P>
-__device__ __forceinline__ void stage_plan(const PackPlan<A, P>& plan,
-                                           PackPlan<A, P>* sp) {
-  const int tid = threadIdx.x;
-  const int n_t = 2 * P * MAX_TAPS;
-  for (int i = tid; i < n_t; i += PACK_THREADS)
-    (&sp->t[0][0][0])[i] = (&plan.t[0][0][0])[i];
-  if (tid < 2 * P) {
-    (&sp->len[0][0])[tid] = (&plan.len[0][0])[tid];
-    (&sp->off[0][0])[tid] = (&plan.off[0][0])[tid];
-  }
-}
-
-// Stream sum at output o (local) of filter b over a shared image whose rows
-// (or columns) are `step` apart: sum_k t[b][s][k] img[(D g + off + S k) step].
-template <typename A, int P, int D, int S>
-__device__ __forceinline__ A fir(const PackPlan<A, P>& p, int b, int o,
-                                    const A* img, int step) {
-  const int g = o / P, s = o - g * P;
-  const A* x = img + static_cast<int64_t>(D * g + p.off[b][s]) * step;
-  const A* t = p.t[b][s];
-  const int len = p.len[b][s];
-  A acc = 0;
-  for (int k = 0; k < len; ++k) acc += t[k] * x[S * k * step];
-  return acc;
-}
 
 // ---------------------------------------------------------------------------
 // analysis: lo, hi [B, Dn, H, W] (compute type) -> lll [B, Dn, Ho, Wo] and
@@ -370,60 +325,6 @@ __global__ void __launch_bounds__(PACK_THREADS)
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-
-// taps: host [2][P][MAX_TAPS]; lens, offs: host [2][P].  Fills *plan and
-// the offsets' span; false if a stream is empty or too long.
-template <typename A, int P, int S>
-bool make_pack_plan(PackPlan<A, P>* plan, const double* taps,
-                    const int* lens, const int* offs, int* cmin, int* span) {
-  int lo = INT_MAX, hi = INT_MIN;
-  for (int b = 0; b < 2; ++b)
-    for (int s = 0; s < P; ++s) {
-      const int len = lens[b * P + s], c = offs[b * P + s];
-      if (len < 1 || len > MAX_TAPS) return false;
-      lo = c < lo ? c : lo;
-      hi = c + S * (len - 1) > hi ? c + S * (len - 1) : hi;
-    }
-  for (int b = 0; b < 2; ++b)
-    for (int s = 0; s < P; ++s) {
-      plan->len[b][s] = lens[b * P + s];
-      plan->off[b][s] = offs[b * P + s] - lo;
-      for (int k = 0; k < MAX_TAPS; ++k)
-        plan->t[b][s][k] = static_cast<A>(taps[(b * P + s) * MAX_TAPS + k]);
-    }
-  *cmin = lo;
-  *span = hi - lo + 1;
-  return true;
-}
-
-// The largest output tile (OH x OW, each a power of two <= PACK_TILE and a
-// multiple of `mult`) whose shared memory fits: n_x staged images of
-// XR x XC and n_v W-stage images of XR x OW.
-template <typename A, int P, int D>
-bool pick_tile(int span, int n_x, int n_v, int mult, int* OH, int* OW,
-               int* XR, int* XC, size_t* smem) {
-  int oh = PACK_TILE, ow = PACK_TILE;
-  for (;;) {
-    const int xr = D * (oh / P - 1) + span, xc = D * (ow / P - 1) + span;
-    const size_t bytes = sizeof(A) * (static_cast<size_t>(n_x) * xr * xc +
-                                      static_cast<size_t>(n_v) * xr * ow);
-    if (bytes <= PACK_SMEM_MAX) {
-      *OH = oh;
-      *OW = ow;
-      *XR = xr;
-      *XC = xc;
-      *smem = bytes;
-      return true;
-    }
-    if (oh >= ow && oh > mult) {
-      oh /= 2;
-    } else if (ow > mult) {
-      ow /= 2;
-    } else {
-      return false;
-    }
-  }
-}
 
 template <typename T, bool PLANES, int P, int D, int S, bool FWD>
 cudaError_t run_pack(const void* in_a, const void* in_b, const void* bands_a,

@@ -85,31 +85,34 @@ def analysis_octants(x: torch.Tensor, split):
 
 def pack_octants(octs, planes: bool, dtype=None):
     """The 7 highpass octants packed into one 28-band level: ``(re, im)``
-    band-major planes cast to *dtype*, or the complex band-minor tensor."""
+    band-major planes cast to *dtype*, or the complex band-minor tensor.
+    The seven octants go through one batched ``cube2c``, which keeps the
+    host's operation count per level small."""
+    y = torch.stack([octs[o] for o in _OCTANTS])    # [7, ..., 2P, 2Q, 2R]
     if planes:
-        parts = [cube2c_planes(octs[o]) for o in _OCTANTS]
-        re = torch.cat([r for r, _ in parts], dim=-4)
-        im = torch.cat([i for _, i in parts], dim=-4)
+        # [7, ..., 4, P, Q, R] -> [..., 28, P, Q, R]
+        re, im = (a.movedim(0, -5).flatten(-5, -4)
+                  for a in cube2c_planes(y))
         if dtype is not None:
             re, im = re.to(dtype), im.to(dtype)
-        return re, im
-    return torch.cat([cube2c(octs[o]) for o in _OCTANTS], dim=-1)
+        return re.contiguous(), im.contiguous()
+    # [7, ..., P, Q, R, 4] -> [..., P, Q, R, 28]
+    return cube2c(y).movedim(0, -2).flatten(-2).contiguous()
 
 
 def unpack_octants(bands):
     """The 7 highpass octant volumes of a 28-band level given as ``(re,
     im)`` planes (computed at float32 for bfloat16) or as the complex
-    band-minor tensor."""
-    octs = {}
+    band-minor tensor, through one batched ``c2cube``."""
     if isinstance(bands, tuple):
-        re, im = (compute_view(a) for a in bands)
-        for n, o in enumerate(_OCTANTS):
-            octs[o] = c2cube_planes(re[..., 4 * n:4 * n + 4, :, :, :],
-                                    im[..., 4 * n:4 * n + 4, :, :, :])
+        # [..., 28, P, Q, R] -> [7, ..., 4, P, Q, R]
+        re, im = (compute_view(a).unflatten(-4, (7, 4)).movedim(-5, 0)
+                  for a in bands)
+        y = c2cube_planes(re, im)
     else:
-        for n, o in enumerate(_OCTANTS):
-            octs[o] = c2cube(bands[..., 4 * n:4 * n + 4])
-    return octs
+        # [..., P, Q, R, 28] -> [7, ..., P, Q, R, 4]
+        y = c2cube(bands.unflatten(-1, (7, 4)).movedim(-2, 0))
+    return dict(zip(_OCTANTS, y.unbind(0)))
 
 
 def synthesis(octs, merge):

@@ -24,15 +24,21 @@ the JAX package's low-level API, on these entries.
 An entry takes its route from the input's device: a CPU tensor runs the
 plain version, a CUDA tensor launches the kernel (``csrc/single.cu``, the
 one-branch instance of the stream kernel that :mod:`dual` runs with two) or
-raises.  The kernels take any axis of a contiguous tensor, float32,
-bfloat16 or float64, filters of up to 32 taps per stream of any length and
-parity, and signals shorter than the filter; the host plans
+raises.  The nine names of the low-level API (``filter_axis``,
+``dfilt_axis``, ``ifilt_axis`` and the column / row aliases) also take a
+non-tensor input, a numpy array or a list, as the JAX package's do, and a
+keyword *device*: a tensor stays on its device unless *device* is given, a
+non-tensor input goes to *device*, the card (``"cuda"``) by default.  The
+kernels take any axis of a contiguous tensor, float32, bfloat16 or
+float64, filters of up to 32 taps per stream of any length and parity, and
+signals shorter than the filter; the host plans
 (:func:`dual._filter_plan`, :func:`level2.dfilt_streams`,
 :func:`ilevel2.ifilt_streams`) hold every parity rule.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from dtcwt_tpu_torch.ops import fb
@@ -64,16 +70,29 @@ def _pair(ha, hb):
     return ha, hb
 
 
+def _input(x, device) -> torch.Tensor:
+    """The input of a low-level name as a floating tensor: a tensor moves
+    only when *device* is given; anything else goes to *device*, the card
+    by default, and raises where there is none."""
+    if isinstance(x, torch.Tensor):
+        return fb._asfloat(x if device is None else x.to(device))
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device for a %s input: pass device='cpu' "
+                           "for the plain version" % type(x).__name__)
+    return fb._asfloat(torch.as_tensor(np.asarray(x), device=device))
+
+
 def _filter(x, h, axis, n, side=None):
     plan = _filter_plan(h)
     g = n + 1 - plan[0].shape[1] % 2
     return _launch("filter", [x], [plan], [g], axis, side)[0]
 
 
-def filter_axis(x: torch.Tensor, h, axis: int) -> torch.Tensor:
+def filter_axis(x, h, axis: int, device=None) -> torch.Tensor:
     """Non-decimating filter along *axis* with symmetric extension: as many
     samples as the input for odd-length *h*, one more for even-length."""
-    x = fb._asfloat(x)
+    x = _input(x, device)
     if _on_cpu(x, "filter_axis"):
         return filter_axis_reference(x, h, axis)
     return _filter(x, h, axis, x.shape[axis])
@@ -94,11 +113,11 @@ def _dfilt(x, ha, hb, axis, n, side=None):
                    side)[0]
 
 
-def dfilt_axis(x: torch.Tensor, ha, hb, axis: int) -> torch.Tensor:
+def dfilt_axis(x, ha, hb, axis: int, device=None) -> torch.Tensor:
     """Dual-tree decimate-by-2 filter along *axis*: *ha* on one polyphase
     branch, *hb* on the other, interleaved in the order given by the sign
     of ``sum(ha*hb)``.  The axis length must be a multiple of 4."""
-    x = fb._asfloat(x)
+    x = _input(x, device)
     if x.shape[axis] % 4:
         raise ValueError("Length of axis %d must be a multiple of 4" % axis)
     ha, hb = _pair(ha, hb)
@@ -123,10 +142,10 @@ def _ifilt(x, ha, hb, axis, n, side=None):
                    side)[0]
 
 
-def ifilt_axis(x: torch.Tensor, ha, hb, axis: int) -> torch.Tensor:
+def ifilt_axis(x, ha, hb, axis: int, device=None) -> torch.Tensor:
     """Dual-tree interpolate-by-2 filter along *axis* (twice the input
     length).  The axis length must be even."""
-    x = fb._asfloat(x)
+    x = _input(x, device)
     if x.shape[axis] % 2:
         raise ValueError("Length of axis %d must be a multiple of 2" % axis)
     ha, hb = _pair(ha, hb)
@@ -151,31 +170,34 @@ def ifilt_fromext_axis(ext: torch.Tensor, side: int, ha, hb,
 # and 2-D inputs filter axis 0, as fb._col_axis says)
 # ---------------------------------------------------------------------------
 
-def colfilter(X, h):
+def colfilter(X, h, device=None):
     """Filter image columns with *h*, no decimation."""
+    X = _input(X, device)
     return filter_axis(X, h, fb._col_axis(X))
 
 
-def rowfilter(X, h):
+def rowfilter(X, h, device=None):
     """Filter image rows with *h*, no decimation."""
-    return filter_axis(X, h, -1)
+    return filter_axis(X, h, -1, device)
 
 
-def coldfilt(X, ha, hb):
+def coldfilt(X, ha, hb, device=None):
     """Decimate-by-2 dual filter on image columns."""
+    X = _input(X, device)
     return dfilt_axis(X, ha, hb, fb._col_axis(X))
 
 
-def rowdfilt(X, ha, hb):
+def rowdfilt(X, ha, hb, device=None):
     """Decimate-by-2 dual filter on image rows."""
-    return dfilt_axis(X, ha, hb, -1)
+    return dfilt_axis(X, ha, hb, -1, device)
 
 
-def colifilt(X, ha, hb):
+def colifilt(X, ha, hb, device=None):
     """Interpolate-by-2 dual filter on image columns."""
+    X = _input(X, device)
     return ifilt_axis(X, ha, hb, fb._col_axis(X))
 
 
-def rowifilt(X, ha, hb):
+def rowifilt(X, ha, hb, device=None):
     """Interpolate-by-2 dual filter on image rows."""
-    return ifilt_axis(X, ha, hb, -1)
+    return ifilt_axis(X, ha, hb, -1, device)

@@ -33,6 +33,9 @@ from dtcwt_tpu_torch.utils import compute_view
 
 __all__ = ["Transform3d"]
 
+# the octant order of the 28 subbands, reused by the sharded transform
+_OCTANTS = pack3d._OCTANTS
+
 
 def _repeat_edges(x: torch.Tensor, axis: int, n: int) -> torch.Tensor:
     """Append *n* copies of the first / last sample at each end of *axis*."""

@@ -524,3 +524,103 @@ def test_cuda_compat_matches_the_transforms(cuda):
     yl, yh = compat.dtwavexfm(s, 4)
     assert float((compat.dtwaveifm(yl, yh).cpu()
                   - torch.from_numpy(s)).abs().max()) < 1e-12
+
+
+# --- the two-sided (H, W) kernels (csrc/hw.cu) ------------------------------
+
+# [..., H, W]: H or W off the Pallas envelope's 8 x 128 grid, above its 512
+# cap, or shorter than the filter; multiples of 4 where dfilt needs them
+_HW_SHAPES = [(3, 12, 20), (2, 2, 8, 132), (1, 520, 8), (2, 4, 4),
+              (6, 32, 48)]
+
+
+def _hw_cases(kind):
+    """(family, filters) of one hw kernel for every family of its kind."""
+    if kind in ("filter", "filter_sum"):
+        out = []
+        for fam in ("antonini", "near_sym_a", "near_sym_b"):
+            b = biort(fam)
+            out.append((fam, (b[0], b[2]) if kind == "filter"
+                        else (b[1], b[3])))
+        return out
+    i = 0 if kind == "dfilt" else 2
+    return [(fam, ((q[i + 1], q[i]), (q[i + 5], q[i + 4])))
+            for fam in ("qshift_06", "qshift_a", "qshift_d", "qshift_32")
+            for q in [qshift(fam)]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("kind", ["filter", "dfilt", "filter_sum",
+                                  "ifilt_sum"])
+def test_cuda_hw_matches_plain(cuda, kind, dtype):
+    from dtcwt_tpu_torch.ops import hw
+    kern = getattr(hw, kind + "_hw22")
+    plain = getattr(hw, kind + "_hw22_reference")
+    n_in = 1 if kind in ("filter", "dfilt") else 4
+    for fam, f in _hw_cases(kind):
+        for seed, shape in enumerate(_HW_SHAPES):
+            xs = [_rand(shape, seed + i, cuda, dtype) for i in range(n_in)]
+            _build.reset_launches()
+            got = kern(*xs, *f)
+            torch.cuda.synchronize()
+            assert dict(_build.launches) == {kind + "_hw22": 1}
+            want = plain(*xs, *f)
+            if n_in == 1:
+                got = tuple(u for row in got for u in row)
+                want = tuple(u for row in want for u in row)
+            assert _kerr(got, want) < _KTOL[dtype], (fam, shape)
+
+
+@pytest.mark.cuda
+def test_cuda_sharded3d_on_a_card_mesh_matches_transform3d(cuda):
+    """ShardedTransform3d on four shards of the card against Transform3d on
+    the card: every leaf at float32 within 1e-5 of the largest value, the
+    launches of a depth-sharded 3-level round trip, a plan that gathers
+    (levels 2-3 replicated), a rows mesh, and float64 against the CPU."""
+    from dtcwt_tpu_torch.parallel import ShardedTransform3d, make_mesh
+    mesh = make_mesh((1, 4), ("data", "depth"), ["cuda"] * 4)
+    st, t = ShardedTransform3d(mesh), dt.Transform3d()
+    x = _rand((1, 128, 32, 32), 14, cuda, torch.float32)
+    _build.reset_launches()
+    ps = st.forward(x, 3)
+    rs = st.inverse(ps)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {
+        "filter_hw22": 4, "filter2": 16, "dfilt_hw22": 8, "dfilt2": 32,
+        "ifilt2_sum": 32, "ifilt_sum_hw22": 8, "filter2_sum": 16,
+        "filter_sum_hw22": 4}
+    p = t.forward(x, 3)
+    for a, b in zip((ps.lowpass,) + ps.highpasses, (p.lowpass,) + p.highpasses):
+        assert _kerr(a, b) < 1e-5
+    assert _kerr(rs, t.inverse(p)) < 1e-5
+    # levels 2-3 replicated: the inverse's (H, W) merge on ifilt_sum_hw22
+    xg = _rand((1, 32, 32, 32), 15, cuda, torch.float32)
+    _build.reset_launches()
+    rg = st.inverse(st.forward(xg, 3))
+    assert _build.launches["ifilt_sum_hw22"] == 2
+    assert _build.launches["fwd_level2_pack"] == 2
+    assert float((rg - xg).abs().max()) < 1e-4
+    # a rows mesh and float64 against the CPU
+    for shape, names, rows in (((2, 2), ("data", "depth"), None),
+                               ((1, 2, 2), ("data", "depth", "rows"),
+                                "rows")):
+        n = int(np.prod(shape))
+        sg = ShardedTransform3d(make_mesh(shape, names, ["cuda"] * n),
+                                rows_axis=rows)
+        sc = ShardedTransform3d(make_mesh(shape, names, ["cpu"] * n),
+                                rows_axis=rows)
+        v = np.random.RandomState(16).rand(2, 32, 32, 16)
+        for layout in ("interleaved", "planes"):
+            pg = sg.forward(v, 2, layout=layout, include_scale=True)
+            pc = sc.forward(torch.from_numpy(v), 2, layout=layout,
+                            include_scale=True)
+            hg = pg.highpasses if layout == "interleaved" else \
+                pg.highpasses_re + pg.highpasses_im
+            hc = pc.highpasses if layout == "interleaved" else \
+                pc.highpasses_re + pc.highpasses_im
+            for a, b in zip((pg.lowpass,) + hg + pg.scales,
+                            (pc.lowpass,) + hc + pc.scales):
+                assert _kerr(a.cpu(), b) < 1e-12
+            assert _kerr(sg.inverse(pg).cpu(), sc.inverse(pc)) < 1e-12

@@ -1,7 +1,7 @@
-"""Importing the port (its package, ``ops``, ``compat`` and every kernel
-module) pulls in neither JAX nor Triton and builds nothing, in whichever
-order the modules come, and the kernel build refuses loudly where there is
-no ``nvcc``."""
+"""Importing the port (its package, ``ops``, ``compat``, ``parallel`` and
+every kernel module) pulls in neither JAX nor Triton and builds nothing, in
+whichever order the modules come, and the kernel build refuses loudly where
+there is no ``nvcc``."""
 
 import os
 import subprocess
@@ -17,9 +17,11 @@ def test_import_loads_no_jax_or_triton_and_builds_nothing():
         "import sys, dtcwt_tpu_torch, dtcwt_tpu_torch.convert\n"
         "import dtcwt_tpu_torch.ops, dtcwt_tpu_torch.compat\n"
         "import dtcwt_tpu_torch.compat_backend\n"
-        "from dtcwt_tpu_torch.ops import _build, dual, level1, level2, "
+        "from dtcwt_tpu_torch.ops import _build, dual, hw, level1, level2, "
         "ilevel1, ilevel2, pack3d, single\n"
         "from dtcwt_tpu_torch.transforms import transform3d\n"
+        "import dtcwt_tpu_torch.parallel\n"
+        "from dtcwt_tpu_torch.parallel import halo, mesh, transform3d_dist\n"
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'triton', 'dtcwt_tpu'))\n"
         "assert not bad, bad\n"
@@ -33,7 +35,9 @@ def test_import_loads_no_jax_or_triton_and_builds_nothing():
 @pytest.mark.parametrize("first", ["dtcwt_tpu_torch.ops",
                                    "dtcwt_tpu_torch.compat",
                                    "dtcwt_tpu_torch.transforms.transform3d",
-                                   "dtcwt_tpu_torch.ops.single"])
+                                   "dtcwt_tpu_torch.ops.single",
+                                   "dtcwt_tpu_torch.parallel",
+                                   "dtcwt_tpu_torch.ops.hw"])
 def test_each_module_imports_first_without_a_cycle(first):
     """Any of the public modules can be the first one imported: ``ops``
     (which binds the filter names to ``ops.single``) and the transforms

@@ -229,3 +229,42 @@ def test_input_errors():
         single.dfilt_axis(x[:8], q[1], q[0][:8], 0)
     with pytest.raises(ValueError, match="must be even"):
         single.ifilt_axis(x, q[3][:9], q[2][:9], 0)
+
+
+# --- non-tensor inputs: a numpy array or a list, as the JAX package takes ---
+
+_NAMES = ["colfilter", "rowfilter", "coldfilt", "rowdfilt", "colifilt",
+          "rowifilt", "filter_axis", "dfilt_axis", "ifilt_axis"]
+
+
+@pytest.mark.parametrize("name", _NAMES)
+def test_numpy_input_on_the_cpu_matches_jax(name):
+    data, rest = _op_args(name)
+    with engine.engine("xla"):
+        want = np.asarray(getattr(jops, name)(data[0], *rest))
+    for x in (data[0], data[0].tolist()):
+        got = getattr(tops, name)(x, *rest, device="cpu")
+        assert got.device.type == "cpu" and got.dtype == torch.float64
+        assert got.shape == want.shape
+        assert float(np.abs(got.numpy() - want).max()) < TOL64
+
+
+def test_numpy_input_without_a_card_raises(monkeypatch):
+    """A non-tensor input goes to the card unless the caller asks for the
+    CPU: with no card it raises, and never runs the plain version."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = _rand((16, 16), 11)
+    h, q = biort("near_sym_a")[0], qshift("qshift_a")
+    for call in (lambda: tops.colfilter(x, h),
+                 lambda: tops.rowdfilt(x, q[1], q[0]),
+                 lambda: tops.ifilt_axis(x, q[3], q[2], 0)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_device_keyword_moves_a_tensor():
+    x = torch.from_numpy(_rand((8, 8), 12))
+    h = biort("near_sym_a")[0]
+    assert tops.colfilter(x, h, device="cpu").device.type == "cpu"
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        tops.rowfilter(x, h, device="meta")
