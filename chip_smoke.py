@@ -8,7 +8,10 @@ default filters (near_sym_a / qshift_a), in three layouts (interleaved
 complex float32, float32 planes, bfloat16 planes):
 
 * 2-D: ``dtcwt_tpu_torch.Transform2d()``, ``forward(x, nlevels=3)`` then
-  ``inverse``, on a 4096 x 4096 image (four level kernels);
+  ``inverse``, on a 4096 x 4096 image (four level kernels); and the same
+  with the bandpass families, ``Transform2d("near_sym_b_bp",
+  "qshift_b_bp")`` and ``compat.dtwavexfm2b`` / ``dtwaveifm2b`` (the four
+  level kernels' third filter stream);
 * 1-D: ``dtcwt_tpu_torch.Transform1d()``, ``forward(x, nlevels=8)`` then
   ``inverse``, on a ``[131072, 128]`` multichannel signal (2**24 samples;
   the four dual-stream kernels), and the single 4 194 304-sample vector at
@@ -39,8 +42,10 @@ Phases, each printing its own lines:
 2. build: every CUDA kernel from ``dtcwt_tpu_torch/csrc``, timed;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes (float32, and bfloat16) and at small odd shapes
-   in float64 for every non-bandpass family, including signals shorter than
-   the filter; the dual-stream kernels also on axes -1, -2 and -3, on one
+   in float64 for every family (the 2-D level kernels' bandpass variants
+   included), including signals shorter than the filter; each 2-D level
+   kernel's bandpass variant also at the main path's shapes in three
+   layouts; the dual-stream kernels also on axes -1, -2 and -3, on one
    signal (``inner = 1``) and in their from-extension mode; each 3-D level
    kernel as its entry (depth stage included) and alone, and at float64 in
    shapes the JAX package's kernels refuse (H or W not a multiple of 32,
@@ -56,7 +61,13 @@ Phases, each printing its own lines:
    2, ``inv_level2_pack`` 2, ``ifilt2_sum`` 2, ``inv_level1_pack`` 1,
    ``filter2_sum`` 1 per round trip), the reconstruction error and agreement
    with the plain path on the card; a 4 x 1000 x 1500 batch (pad and crop)
-   against the plain path; the 4M-sample vector; a small float64 1-D case
+   against the plain path; the bandpass 2-D round trip in three layouts
+   (launches 1/2/2/1), every leaf and the reconstruction against the plain
+   path on the card, its reconstruction error beside the plain path's (the
+   bandpass families do not reconstruct perfectly), ``compat.dtwavexfm2b``
+   / ``dtwaveifm2b`` equal to its result with the same launches, and a
+   float64 2 x 517 x 389 case (pads, crops, scales) against the CPU at
+   1e-12; the 4M-sample vector; a small float64 1-D case
    against the CPU; 3-D pads and crops in both ``ext_mode`` values; the
    discard_level_1 round trip in three layouts (launches ``filter`` 6,
    ``dfilt2`` 2, ``fwd_level2_pack`` 2, ``inv_level2_pack`` 2,
@@ -80,7 +91,10 @@ Phases, each printing its own lines:
    (``F.conv2d`` for ``filter2``, ``filter2_sum`` and ``filter``, TF32
    off), that call; the bound of each kernel (its bytes at 3.35 TB/s or its float32
    operations at 67 TFLOP/s, whichever is longer); each round trip against
-   the plain path; for the f32 interleaved round trips (3-D: both f32
+   the plain path (the bandpass 2-D round trip too, and each level kernel's
+   bandpass variant at its main-path shapes against its bound, its plain
+   version and the same kernel without the third stream on near_sym_b /
+   qshift_b); for the f32 interleaved round trips (3-D: both f32
    layouts; the discard round trip: interleaved), a ``torch.profiler``
    trace: device time by kernel, the
    device's idle share and the host's time to enqueue.  A 3-D level kernel
@@ -331,6 +345,270 @@ def patched(pairs):
 
 def refuse(*_a, **_k):
     raise RuntimeError("a plain version ran on the CUDA path")
+
+
+# --- the 2-D level kernels and the bandpass families' path -----------------
+
+LEVEL_NAMES = ("level1", "level2", "ilevel2", "ilevel1")
+# the shapes each 2-D level kernel sees in one 4096^2 3-level round trip: x
+# [R, C] (forward) or the lowpass z [H, W] (inverse)
+MAIN_SHAPES_2D = {"level1": [(N, N)], "level2": [(N, N), (N // 2, N // 2)],
+                  "ilevel2": [(N // 4, N // 4), (N // 2, N // 2)],
+                  "ilevel1": [(N, N)]}
+BP_FAMS = ("near_sym_b_bp", "qshift_b_bp")
+BP_SHAPE_64 = (2, 517, 389)    # odd: pads before levels 2-3, crops after
+
+
+def level_inputs(name, shape, dtype, planes, dev, seed=0):
+    """Random inputs of 2-D level kernel *name*: x [..., R, C] (forward),
+    or the lowpass z [..., H, W] and the level's subbands (inverse)."""
+    if name in ("level1", "level2"):
+        return rand(shape, seed, dev, dtype)
+    z = rand(shape, seed, dev, dtype)
+    return (z, rand_bands(tuple(shape[:-2]) + (shape[-2] // 2,
+                                               shape[-1] // 2),
+                          seed + 1, dev, dtype, planes))
+
+
+def level_call(name, inp, planes, bb, qq):
+    """(kernel wrapper, plain version) of 2-D level kernel *name* on *inp*
+    with the biort filters *bb* and qshift filters *qq* in the transform's
+    call order, the third stream included where the family has one (a 6- or
+    12-tuple)."""
+    from dtcwt_tpu_torch.ops import ilevel1, ilevel2, level1, level2
+    if name == "level1":
+        kw = {"planes": planes, "h2o": bb[4] if len(bb) == 6 else None}
+        return ((lambda: level1.fwd_level1(inp, bb[0], bb[2], **kw)),
+                (lambda: level1.fwd_level1_reference(inp, bb[0], bb[2],
+                                                     **kw)))
+    if name == "level2":
+        f = (qq[0], qq[1], qq[4], qq[5])
+        kw = {"planes": planes}
+        if len(qq) == 12:
+            kw.update(h2a=qq[8], h2b=qq[9])
+        return ((lambda: level2.fwd_level2(inp, *f, **kw)),
+                (lambda: level2.fwd_level2_reference(inp, *f, **kw)))
+    z, band = inp
+    if name == "ilevel2":
+        kw = dict(g0a=qq[2], g0b=qq[3], g1a=qq[6], g1b=qq[7], **band)
+        if len(qq) == 12:
+            kw.update(g2a=qq[10], g2b=qq[11])
+        return ((lambda: ilevel2.inv_level2(z, **kw)),
+                (lambda: ilevel2.inv_level2_reference(z, **kw)))
+    kw = dict(g0o=bb[1], g1o=bb[3], **band)
+    if len(bb) == 6:
+        kw["g2o"] = bb[5]
+    return ((lambda: ilevel1.inv_level1(z, **kw)),
+            (lambda: ilevel1.inv_level1_reference(z, **kw)))
+
+
+def level_macs(name, inp, bb, qq) -> int:
+    """Multiply-adds of one call of 2-D level kernel *name* on *inp*.  With
+    filters m0, m1 (and the third stream's m2), per input (forward) or
+    output (inverse) pixel of a level-1 kernel: 3 (m0 + m1), or 3 m0 +
+    2 m1 + 2 m2 (the third stream replaces a row stage and adds a column
+    stage); per R x C input of level 2: 2 m (2.5 m), per H x W lowpass of
+    its inverse: 8 m (10 m)."""
+    n = (inp if name in ("level1", "level2") else inp[0]).numel()
+    if name in ("level1", "ilevel1"):
+        m0, m1 = (bb[0].size, bb[2].size) if name == "level1" else (
+            bb[1].size, bb[3].size)
+        if len(bb) == 4:
+            return 3 * n * (m0 + m1)
+        m2 = bb[4 if name == "level1" else 5].size
+        return n * (3 * m0 + 2 * m1 + 2 * m2)
+    bp = len(qq) == 12
+    if name == "level2":
+        return n * qq[0].size * (5 if bp else 4) // 2
+    return n * qq[2].size * (10 if bp else 8)
+
+
+def level_no_plain():
+    """Patches that make the four level modules' plain versions raise."""
+    from dtcwt_tpu_torch.ops import ilevel1, ilevel2, level1, level2
+    return [(level1, "fwd_level1_reference", refuse),
+            (level2, "fwd_level2_reference", refuse),
+            (ilevel2, "inv_level2_reference", refuse),
+            (ilevel1, "inv_level1_reference", refuse)]
+
+
+def level_plain_path():
+    """Patches that route the four level wrappers to their plain versions."""
+    from dtcwt_tpu_torch.ops import ilevel1, ilevel2, level1, level2
+    return [(level1, "fwd_level1", level1.fwd_level1_reference),
+            (level2, "fwd_level2", level2.fwd_level2_reference),
+            (ilevel2, "inv_level2", ilevel2.inv_level2_reference),
+            (ilevel1, "inv_level1", ilevel1.inv_level1_reference)]
+
+
+def leaves(p):
+    """Every tensor leaf of a pyramid: lowpass, subbands, scales."""
+    from dtcwt_tpu_torch.transforms.pyramid import PlanePyramid
+    hp = (p.highpasses_re + p.highpasses_im if isinstance(p, PlanePyramid)
+          else p.highpasses)
+    return [p.lowpass] + [h for h in hp if h is not None] + list(
+        p.scales or ())
+
+
+def check_bandpass(dev) -> None:
+    """Phases 3 and 4 for the bandpass families (near_sym_b_bp /
+    qshift_b_bp): each level kernel's third-stream variant against its
+    plain version at the main path's shapes, then the 4096^2 round trip in
+    three layouts with the plain versions patched to raise, compat.
+    dtwavexfm2b / dtwaveifm2b, and a float64 case against the CPU."""
+    import dtcwt_tpu_torch as dt
+    from dtcwt_tpu_torch import compat
+    from dtcwt_tpu_torch.ops import _build
+    bb, qq = dt.biort(BP_FAMS[0]), dt.qshift(BP_FAMS[1])
+    for name, shapes in MAIN_SHAPES_2D.items():
+        for label, dtype, layout in LAYOUTS:
+            pl = layout == "planes"
+            worst = 0.0
+            for shape in shapes:
+                kern, plain = level_call(
+                    name, level_inputs(name, shape, dtype, pl, dev), pl, bb,
+                    qq)
+                got = kern()
+                torch.cuda.synchronize()
+                want = plain()
+                worst = max(worst, rel_err(got, want))
+                del got, want, kern, plain
+            check(worst <= TOL[dtype], "kernel %s bandpass (%s) %s %s: worst "
+                  "rel err %.3g (tol %g)" % (
+                      name, "/".join(BP_FAMS), shapes, label, worst,
+                      TOL[dtype]))
+
+    t = dt.Transform2d(*BP_FAMS)
+    x32 = torch.from_numpy(np.random.RandomState(0).rand(N, N).astype(
+        np.float32)).to(dev)
+    pyr_f32 = None
+    for label, dtype, layout in LAYOUTS:
+        x = x32.to(dtype)
+        _build.reset_launches()
+        with patched(level_no_plain()):
+            pyr = t.forward(x, nlevels=NLEVELS, layout=layout)
+            rec = t.inverse(pyr)
+            torch.cuda.synchronize()
+        counts = dict(_build.launches)
+        check(counts == LAUNCHES_2D, "main path 2-D bandpass %s: launches %s"
+              % (label, counts))
+        hp = pyr.highpasses if layout == "interleaved" else pyr.highpasses_re
+        shapes_ok = (tuple(rec.shape) == (N, N) and rec.dtype == dtype
+                     and tuple(pyr.lowpass.shape) == (N // 4, N // 4)
+                     and len(hp) == NLEVELS)
+        finite = all(bool(torch.isfinite(
+            torch.view_as_real(a) if a.is_complex() else a.float()).all())
+            for a in leaves(pyr) + [rec])
+        with patched(level_plain_path()):
+            pp = t.forward(x, nlevels=NLEVELS, layout=layout)
+            rp = t.inverse(pp)
+        e = max(rel_err(a, c) for a, c in zip(
+            leaves(pyr) + [rec], leaves(pp) + [rp]))
+        err = float((rec.float() - x.float()).abs().max())
+        err_plain = float((rp.float() - x.float()).abs().max())
+        check(shapes_ok and finite and e <= TOL[dtype] * 10,
+              "main path 2-D bandpass %s: 4096x4096 %d-level round trip, "
+              "kernel vs plain path on the card, every leaf and the "
+              "reconstruction: worst rel err %.3g (tol %g), shapes %s, "
+              "finite %s; reconstruction max abs err %.4f (plain path %.4f; "
+              "the bandpass families do not reconstruct perfectly)" % (
+                  label, NLEVELS, e, TOL[dtype] * 10, shapes_ok, finite, err,
+                  err_plain))
+        if label == "f32 interleaved":
+            pyr_f32 = pyr
+        del pyr, rec, pp, rp
+
+    # compat: the MATLAB-style bandpass entries give Transform2d's result
+    fams = {"biort": BP_FAMS[0], "qshift": BP_FAMS[1]}
+    _build.reset_launches()
+    with patched(level_no_plain()):
+        yl, yh = compat.dtwavexfm2b(x32, NLEVELS, **fams)
+        rc = compat.dtwaveifm2b(yl, yh, **fams)
+        torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    same = torch.equal(yl, pyr_f32.lowpass) and all(
+        torch.equal(a, c) for a, c in zip(yh, pyr_f32.highpasses))
+    same = same and torch.equal(rc, t.inverse(pyr_f32))
+    check(same and counts == LAUNCHES_2D,
+          "compat.dtwavexfm2b / dtwaveifm2b (%s) 4096x4096: equal to "
+          "Transform2d's f32 result %s, launches %s" % (
+              "/".join(BP_FAMS), same, counts))
+    del x32, pyr_f32, yl, yh, rc
+
+    # float64 against the CPU: odd sizes (pad and crop), include_scale
+    x64 = np.random.RandomState(5).rand(*BP_SHAPE_64)
+    tc = dt.Transform2d(*BP_FAMS, device="cpu")
+    # the reconstruction of an odd-sized image keeps the duplicated edge
+    rec_err = lambda r, x: float((r[..., :x.shape[-2], :x.shape[-1]]
+                                  - torch.from_numpy(x)).abs().max())
+    for layout in ("interleaved", "planes"):
+        pg = t.forward(x64, NLEVELS, include_scale=True, layout=layout)
+        rg = t.inverse(pg)
+        pc = tc.forward(torch.from_numpy(x64), NLEVELS, include_scale=True,
+                        layout=layout)
+        rcpu = tc.inverse(pc)
+        e = max(rel_err(a.cpu(), c) for a, c in zip(
+            leaves(pg) + [rg], leaves(pc) + [rcpu]))
+        check(e <= TOL[torch.float64],
+              "2-D bandpass float64 %s %s, %d levels (pads and crops, "
+              "include_scale): card vs CPU, every leaf and the "
+              "reconstruction, rel err %.3g (tol %g); reconstruction max abs "
+              "err card %.4f, CPU %.4f" % (
+                  "x".join(map(str, BP_SHAPE_64)), layout, NLEVELS, e,
+                  TOL[torch.float64],
+                  rec_err(rg.cpu(), x64), rec_err(rcpu, x64)))
+
+
+def time_bandpass(dev) -> None:
+    """Phase 5 for the bandpass families: the round trip against the plain
+    path with a trace (f32 interleaved), and each level kernel's bandpass
+    variant at its main-path shapes against its bound, its plain version
+    and the same kernel without the third stream on near_sym_b / qshift_b
+    (the same filter lengths)."""
+    import dtcwt_tpu_torch as dt
+    t = dt.Transform2d(*BP_FAMS)
+    x = torch.from_numpy(np.random.RandomState(0).rand(N, N).astype(
+        np.float32)).to(dev)
+    for label, dtype, layout in LAYOUTS:
+        xd = x.to(dtype)
+        ms = cuda_ms(lambda: t.inverse(t.forward(xd, NLEVELS, layout=layout)))
+        with patched(level_plain_path()):
+            pms = cuda_ms(lambda: t.inverse(t.forward(xd, NLEVELS,
+                                                      layout=layout)))
+        print("time round trip 2-D bandpass 4096x4096 %d levels %s: kernels "
+              "%.3f ms, plain %.3f ms" % (NLEVELS, label, ms, pms),
+              flush=True)
+        if layout == "interleaved":
+            print_trace("round trip 2-D bandpass %s" % label,
+                        lambda: t.inverse(t.forward(xd, NLEVELS)))
+    del x, xd
+    bp = (dt.biort(BP_FAMS[0]), dt.qshift(BP_FAMS[1]))
+    nobp = (dt.biort("near_sym_b"), dt.qshift("qshift_b"))
+    for name, shapes in MAIN_SHAPES_2D.items():
+        tot = collections.Counter()
+        for shape in shapes:
+            for label, dtype, layout in LAYOUTS:
+                pl = layout == "planes"
+                inp = level_inputs(name, shape, dtype, pl, dev)
+                kern, plain = level_call(name, inp, pl, *bp)
+                ms = cuda_ms(kern, hold=True)
+                pms = cuda_ms(plain, hold=True)
+                nms = cuda_ms(level_call(name, inp, pl, *nobp)[0], hold=True)
+                bms, by = bound(nbytes(inp) + nbytes(kern()),
+                                level_macs(name, inp, *bp))
+                if dtype == torch.float32 and not pl:
+                    tot.update(ms=ms, plain_ms=pms, nobp_ms=nms, bound_ms=bms)
+                print("time %s bandpass %s %s: kernel %.4f ms, without the "
+                      "third stream (near_sym_b / qshift_b) %.4f ms, plain "
+                      "%.4f ms, bound %.4f ms (%s)" % (
+                          name, "x".join(map(str, shape)), label, ms, nms,
+                          pms, bms, by), flush=True)
+                del inp, kern, plain
+        print("time %s bandpass, f32 interleaved, its %d launch(es) of one "
+              "round trip: kernel %.4f ms, without the third stream %.4f ms, "
+              "plain %.4f ms, bound %.4f ms" % (
+                  name, len(shapes), tot["ms"], tot["nobp_ms"],
+                  tot["plain_ms"], tot["bound_ms"]), flush=True)
 
 
 # --- the 3-D main path ------------------------------------------------------
@@ -1179,15 +1457,6 @@ def sharded_plain_path():
                for n in PACK_NAMES])
 
 
-def leaves(p):
-    """Every tensor leaf of a pyramid: lowpass, subbands, scales."""
-    from dtcwt_tpu_torch.transforms.pyramid import PlanePyramid
-    hp = (p.highpasses_re + p.highpasses_im if isinstance(p, PlanePyramid)
-          else p.highpasses)
-    return [p.lowpass] + [h for h in hp if h is not None] + list(
-        p.scales or ())
-
-
 def check_sharded(dev, report) -> dict:
     """Phase 3 and 4 for the sharded 3-D path: each hw kernel against its
     plain version, then the 256^3 3-level round trip on the (1, 4) card
@@ -1405,8 +1674,7 @@ def main() -> int:
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
                          " is false)")
     import dtcwt_tpu_torch as dt
-    from dtcwt_tpu_torch.ops import (
-        _build, dual, fb, ilevel1, ilevel2, level1, level2)
+    from dtcwt_tpu_torch.ops import _build, dual, fb
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -1429,46 +1697,6 @@ def main() -> int:
 
     t = dt.Transform2d()
     b, q = t.biort, t.qshift
-    mods = {"level1": level1, "level2": level2, "ilevel2": ilevel2,
-            "ilevel1": ilevel1}
-    calls = {   # the kernel's wrapper and plain version on one input set
-        "level1": lambda x, pl, bb=b: (
-            (lambda: level1.fwd_level1(x, bb[0], bb[2], planes=pl)),
-            (lambda: level1.fwd_level1_reference(x, bb[0], bb[2],
-                                                 planes=pl))),
-        "level2": lambda x, pl, qq=q: (
-            (lambda: level2.fwd_level2(x, qq[0], qq[1], qq[4], qq[5],
-                                       planes=pl)),
-            (lambda: level2.fwd_level2_reference(x, qq[0], qq[1], qq[4],
-                                                 qq[5], planes=pl))),
-        "ilevel2": lambda zb, pl, qq=q: (
-            (lambda: ilevel2.inv_level2(zb[0], g0a=qq[2], g0b=qq[3],
-                                        g1a=qq[6], g1b=qq[7], **zb[1])),
-            (lambda: ilevel2.inv_level2_reference(
-                zb[0], g0a=qq[2], g0b=qq[3], g1a=qq[6], g1b=qq[7],
-                **zb[1]))),
-        "ilevel1": lambda zb, pl, bb=b: (
-            (lambda: ilevel1.inv_level1(zb[0], g0o=bb[1], g1o=bb[3],
-                                        **zb[1])),
-            (lambda: ilevel1.inv_level1_reference(zb[0], g0o=bb[1],
-                                                  g1o=bb[3], **zb[1]))),
-    }
-    # multiply-adds of one call of each 2-D level kernel: x [.., R, C]
-    # (forward) or the lowpass z [.., H, W] (inverse)
-    macs_2d = {
-        "level1": lambda x: 3 * x.numel() * (b[0].size + b[2].size),
-        "level2": lambda x: 2 * x.numel() * q[0].size,
-        "ilevel2": lambda zb: 8 * zb[0].numel() * q[2].size,
-        "ilevel1": lambda zb: 3 * zb[0].numel() * (b[1].size + b[3].size),
-    }
-
-    def inputs(name, shape, dtype, planes, seed=0):
-        if name in ("level1", "level2"):
-            return rand(shape, seed, dev, dtype)
-        z = rand(shape, seed, dev, dtype)
-        return (z, rand_bands(tuple(shape[:-2]) + (shape[-2] // 2,
-                                                   shape[-1] // 2),
-                              seed + 1, dev, dtype, planes))
 
     # the 1-D main path's filters, in the transform's call order
     t1 = dt.Transform1d()
@@ -1506,9 +1734,7 @@ def main() -> int:
                 for i in range(n_inputs[name])]
 
     # --- 3. kernels against their plain versions ---------------------------
-    main_shapes = {"level1": [(N, N)], "level2": [(N, N), (N // 2, N // 2)],
-                   "ilevel2": [(N // 4, N // 4), (N // 2, N // 2)],
-                   "ilevel1": [(N, N)]}
+    main_shapes = MAIN_SHAPES_2D
     report = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                   "bound_ms": 0.0, "bound_by": "bytes", "library_ms": None}
               for k in KERNELS}
@@ -1516,7 +1742,9 @@ def main() -> int:
         for shape in shapes:
             for label, dtype, layout in LAYOUTS:
                 pl = layout == "planes"
-                kern, plain = calls[name](inputs(name, shape, dtype, pl), pl)
+                kern, plain = level_call(
+                    name, level_inputs(name, shape, dtype, pl, dev), pl, b,
+                    q)
                 got = kern()
                 torch.cuda.synchronize()
                 want = plain()
@@ -1533,15 +1761,17 @@ def main() -> int:
              "ilevel2": [(2, 20, 28), (2, 4, 6)],
              "ilevel1": [(2, 36, 52), (2, 4, 6)]}
     for name, shapes in small.items():
-        fams = BIORTS if name in ("level1", "ilevel1") else QSHIFTS
+        # every family, the bandpass ones with their third stream
+        biorts = name in ("level1", "ilevel1")
+        fams = BIORTS + BP_FAMS[:1] if biorts else QSHIFTS + BP_FAMS[1:]
         worst = 0.0
         for fam in fams:
-            taps = dt.biort(fam) if fam in BIORTS else dt.qshift(fam)
+            bb = dt.biort(fam) if biorts else b
+            qq = q if biorts else dt.qshift(fam)
             for shape in shapes:
                 for pl in (False, True):
-                    x = inputs(name, shape, torch.float64, pl)
-                    key = "bb" if fam in BIORTS else "qq"
-                    kern, plain = calls[name](x, pl, **{key: taps})
+                    x = level_inputs(name, shape, torch.float64, pl, dev)
+                    kern, plain = level_call(name, x, pl, bb, qq)
                     got = kern()
                     torch.cuda.synchronize()
                     worst = max(worst, rel_err(got, plain()))
@@ -1613,14 +1843,7 @@ def main() -> int:
     x32 = torch.from_numpy(np.random.RandomState(0).rand(N, N).astype(
         np.float32)).to(dev)
 
-    no_plain = [(mods[k], f, refuse) for k, f in (
-        ("level1", "fwd_level1_reference"), ("level2", "fwd_level2_reference"),
-        ("ilevel2", "inv_level2_reference"),
-        ("ilevel1", "inv_level1_reference"))]
-    plain_path = [(level1, "fwd_level1", level1.fwd_level1_reference),
-                  (level2, "fwd_level2", level2.fwd_level2_reference),
-                  (ilevel2, "inv_level2", ilevel2.inv_level2_reference),
-                  (ilevel1, "inv_level1", ilevel1.inv_level1_reference)]
+    no_plain, plain_path = level_no_plain(), level_plain_path()
     launches = {}
     for label, dtype, layout in LAYOUTS:
         x = x32.to(dtype)
@@ -1668,6 +1891,7 @@ def main() -> int:
           "batch 4x1000x1500 (pad + crop): kernel vs plain rel err %.3g, "
           "reconstruction max abs err %.3g" % (e, rec_e))
     del xb, pk, rk, pp, rp, x32
+    check_bandpass(dev)
 
     dual_names = ("filter2", "dfilt2", "ifilt2_sum", "filter2_sum")
     no_plain_1d = [(dual, n + "_axis_reference", refuse) for n in dual_names]
@@ -1754,13 +1978,13 @@ def main() -> int:
         for shape in shapes:
             for label, dtype, layout in LAYOUTS:
                 pl = layout == "planes"
-                inp = inputs(name, shape, dtype, pl)
-                kern, plain = calls[name](inp, pl)
+                inp = level_inputs(name, shape, dtype, pl, dev)
+                kern, plain = level_call(name, inp, pl, b, q)
                 ms = cuda_ms(kern, hold=True)
                 pms = cuda_ms(plain, hold=True)
                 if dtype == torch.float32 and not pl:
                     bms, by = bound(nbytes(inp) + nbytes(kern()),
-                                    macs_2d[name](inp))
+                                    level_macs(name, inp, b, q))
                     report[name]["ms"] += ms
                     report[name]["plain_ms"] += pms
                     report[name]["bound_ms"] += bms
@@ -1843,6 +2067,7 @@ def main() -> int:
                   rel_err(got, want)), flush=True)
         del ins, ext, got, want
 
+    time_bandpass(dev)
     time_3d(dev, report)
     time_single(dev, report)
     time_sharded(dev, report)

@@ -81,6 +81,16 @@ inline bool make_fir(Fir<A>* f, const double* taps, int m) {
   return true;
 }
 
+// Halo of the level-1 kernels: the largest half-length of f0, f1 and, with
+// the bandpass third stream (bp), f2.
+template <typename A>
+__host__ __device__ __forceinline__ int halo(const Fir<A>& f0,
+                                             const Fir<A>& f1,
+                                             const Fir<A>& f2, bool bp) {
+  const int p = f0.p > f1.p ? f0.p : f1.p;
+  return bp && f2.p > p ? f2.p : p;
+}
+
 // taps: [2 streams][m]; offs: [2]
 template <typename A>
 inline bool make_dpair(DPair<A>* d, const double* taps, const int* offs,

@@ -9,32 +9,40 @@
 //   y2 = colfilter(hl, g0) + colfilter(hh, g1)
 //   out = rowfilter(y1, g0) + rowfilter(y2, g1)                    [H, W]
 //
+// The bandpass families (near_sym_b_bp) add a third odd synthesis filter
+// g2o, the third stream (template flag BP): hh leaves y2, which becomes
+// colfilter(hl, g0), and gets a column stage of its own,
+//   y3 = colfilter(hh, g2),  out += rowfilter(y3, g2).
+//
 // Bound on the H100: device memory bytes (per output sample it reads the
 // lowpass sample and three quarter-resolution complex values, ~4 (m0 + m1)
-// multiply-adds).  The design builds the quad images with c2q while staging
-// a 16 x 64 tile plus a reflected halo of len(g)//2 in shared memory (the
-// quad images never reach device memory), runs the column stage into shared
-// memory and the row stage into registers; one thread writes one 2 x 2
-// output quad.
+// multiply-adds, ~2 (m0 + m1) + 2 m2 more with the third stream).  The
+// design builds the quad images with c2q while staging a 16 x 64 tile plus
+// a reflected halo of the largest len(g)//2 of the two or three filters in
+// shared memory (the quad images never reach device memory), runs the
+// column stages into shared memory and the row stage into registers; one
+// thread writes one 2 x 2 output quad.
 #include "common.cuh"
 
 namespace dtcwt {
 
-template <typename T, bool PLANES>
+template <typename T, bool PLANES, bool BP>
 __global__ void __launch_bounds__(NT)
     inv_level1_kernel(const T* __restrict__ z, const void* band_a,
                       const void* band_b, T* __restrict__ out, int H, int W,
                       Fir<typename AccOf<T>::type> f0,
-                      Fir<typename AccOf<T>::type> f1) {
+                      Fir<typename AccOf<T>::type> f1,
+                      Fir<typename AccOf<T>::type> f2) {
   using A = typename AccOf<T>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int TH = 2 * QY, TW = 2 * QX;  // output pixels per block
-  const int P = f0.p > f1.p ? f0.p : f1.p;
+  const int P = halo(f0, f1, f2, BP);
   const int XH = TH + 2 * P, XW = TW + 2 * P;
   const int XN = XH * XW;
   A* zs = reinterpret_cast<A*>(smem_raw);  // [4][XH][XW]: z, lh, hl, hh
   A* y1 = zs + 4 * XN;                     // [TH][XW] column stage
   A* y2 = y1 + TH * XW;
+  A* y3 = y2 + TH * XW;                    // hh's column stage (BP)
 
   const int tid = threadIdx.y * QX + threadIdx.x;
   const int b = blockIdx.z;
@@ -64,9 +72,18 @@ __global__ void __launch_bounds__(NT)
       a1 += f0.t[k] * zs[o0 + k * XW];
       a2 += f0.t[k] * zs[2 * XN + o0 + k * XW];
     }
-    for (int k = 0; k < f1.m; ++k) {
-      b1 += f1.t[k] * zs[XN + o1 + k * XW];
-      b2 += f1.t[k] * zs[3 * XN + o1 + k * XW];
+    if constexpr (BP) {
+      const int o2 = (lr + P - f2.p) * XW + lc;
+      A c3 = 0;
+      for (int k = 0; k < f1.m; ++k) b1 += f1.t[k] * zs[XN + o1 + k * XW];
+      for (int k = 0; k < f2.m; ++k)
+        c3 += f2.t[k] * zs[3 * XN + o2 + k * XW];
+      y3[idx] = c3;
+    } else {
+      for (int k = 0; k < f1.m; ++k) {
+        b1 += f1.t[k] * zs[XN + o1 + k * XW];
+        b2 += f1.t[k] * zs[3 * XN + o1 + k * XW];
+      }
     }
     y1[idx] = a1 + b1;
     y2[idx] = a2 + b2;
@@ -87,61 +104,85 @@ __global__ void __launch_bounds__(NT)
       A v1 = 0, v2 = 0;
       for (int k = 0; k < f0.m; ++k) v1 += f0.t[k] * q1[k];
       for (int k = 0; k < f1.m; ++k) v2 += f1.t[k] * q2[k];
+      if constexpr (BP) {
+        const A* q3 = y3 + o - f2.p;
+        for (int k = 0; k < f2.m; ++k) v2 += f2.t[k] * q3[k];
+      }
       store(ob + static_cast<int64_t>(2 * i + dr) * W + 2 * j + dc, v1 + v2);
     }
   }
 }
 
-template <typename T, bool PLANES>
+template <typename T, bool PLANES, bool BP>
 cudaError_t run_ilevel1(const void* z, const void* band_a, const void* band_b,
                         void* out, int B, int H, int W, const double* t0,
-                        int m0, const double* t1, int m1,
-                        cudaStream_t stream) {
+                        int m0, const double* t1, int m1, const double* t2,
+                        int m2, cudaStream_t stream) {
   using A = typename AccOf<T>::type;
-  Fir<A> f0, f1;
-  if (!make_fir(&f0, t0, m0) || !make_fir(&f1, t1, m1))
+  Fir<A> f0, f1, f2{};
+  if (!make_fir(&f0, t0, m0) || !make_fir(&f1, t1, m1) ||
+      (BP && !make_fir(&f2, t2, m2)))
     return cudaErrorInvalidValue;
-  const int P = f0.p > f1.p ? f0.p : f1.p;
+  const int P = halo(f0, f1, f2, BP);
   const int XH = 2 * QY + 2 * P, XW = 2 * QX + 2 * P;
-  const size_t smem =
-      sizeof(A) * (4 * static_cast<size_t>(XH) + 2 * (2 * QY)) * XW;
+  const size_t smem = sizeof(A) *
+                      (4 * static_cast<size_t>(XH) + (BP ? 3 : 2) * (2 * QY)) *
+                      XW;
   const dim3 grid((W / 2 + QX - 1) / QX, (H / 2 + QY - 1) / QY, B);
-  return launch(inv_level1_kernel<T, PLANES>, grid, smem, stream,
+  return launch(inv_level1_kernel<T, PLANES, BP>, grid, smem, stream,
                 static_cast<const T*>(z), band_a, band_b, static_cast<T*>(out),
-                H, W, f0, f1);
+                H, W, f0, f1, f2);
+}
+
+template <bool BP>
+cudaError_t ilevel1_dtype(const void* z, const void* band_a,
+                          const void* band_b, void* out, int B, int H, int W,
+                          const double* t0, int m0, const double* t1, int m1,
+                          const double* t2, int m2, int dtype, int planes,
+                          cudaStream_t s) {
+  switch (dtype) {
+    case DT_F32:
+      return planes ? run_ilevel1<float, true, BP>(z, band_a, band_b, out, B,
+                                                   H, W, t0, m0, t1, m1, t2,
+                                                   m2, s)
+                    : run_ilevel1<float, false, BP>(z, band_a, band_b, out,
+                                                    B, H, W, t0, m0, t1, m1,
+                                                    t2, m2, s);
+    case DT_BF16:
+      if (!planes) return cudaErrorInvalidValue;
+      return run_ilevel1<__nv_bfloat16, true, BP>(z, band_a, band_b, out, B,
+                                                  H, W, t0, m0, t1, m1, t2,
+                                                  m2, s);
+    case DT_F64:
+      return planes ? run_ilevel1<double, true, BP>(z, band_a, band_b, out,
+                                                    B, H, W, t0, m0, t1, m1,
+                                                    t2, m2, s)
+                    : run_ilevel1<double, false, BP>(z, band_a, band_b, out,
+                                                     B, H, W, t0, m0, t1, m1,
+                                                     t2, m2, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace dtcwt
 
 // z, out: [B, H, W]; planes = 0: band_a is the interleaved complex
 // [B, H/2, W/2, 6] as real pairs; planes = 1: band_a / band_b are the re /
-// im planes [B, 6, H/2, W/2].  t0, t1: reversed taps of g0o, g1o.
+// im planes [B, 6, H/2, W/2].  t0, t1, t2: reversed taps of g0o, g1o and
+// the bandpass families' g2o (t2 null: no third stream).
 extern "C" int dtcwt_ilevel1(const void* z, const void* band_a,
                              const void* band_b, void* out, int B, int H,
                              int W, const double* t0, int m0,
-                             const double* t1, int m1, int dtype, int planes,
-                             void* stream) {
+                             const double* t1, int m1, const double* t2,
+                             int m2, int dtype, int planes, void* stream) {
   using namespace dtcwt;
   if (H % 2 || W % 2 || H < 2 || W < 2 || B < 1 || B > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case DT_F32:
-      return planes ? run_ilevel1<float, true>(z, band_a, band_b, out, B, H,
-                                               W, t0, m0, t1, m1, s)
-                    : run_ilevel1<float, false>(z, band_a, band_b, out, B, H,
-                                                W, t0, m0, t1, m1, s);
-    case DT_BF16:
-      if (!planes) return cudaErrorInvalidValue;
-      return run_ilevel1<__nv_bfloat16, true>(z, band_a, band_b, out, B, H, W,
-                                              t0, m0, t1, m1, s);
-    case DT_F64:
-      return planes ? run_ilevel1<double, true>(z, band_a, band_b, out, B, H,
-                                                W, t0, m0, t1, m1, s)
-                    : run_ilevel1<double, false>(z, band_a, band_b, out, B,
-                                                 H, W, t0, m0, t1, m1, s);
-  }
-  return cudaErrorInvalidValue;
+  return t2 ? ilevel1_dtype<true>(z, band_a, band_b, out, B, H, W, t0, m0,
+                                  t1, m1, t2, m2, dtype, planes, s)
+            : ilevel1_dtype<false>(z, band_a, band_b, out, B, H, W, t0, m0,
+                                   t1, m1, t2, m2, dtype, planes, s);
 }
 
 // Message of a CUDA error code returned by the functions above.

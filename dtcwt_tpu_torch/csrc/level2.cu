@@ -12,10 +12,16 @@
 //   q2c(rowdfilt(lo, h1b, h1a)) -> bands 2, 3                 -> [R/4, C/4, 6]
 //   q2c(rowdfilt(hi, h1b, h1a)) -> bands 1, 4
 //
+// The bandpass families (qshift_b_bp) add a third pair h2a/h2b of the same
+// even length, the third stream (template flag BP): bands 1, 4 become
+// q2c(rowdfilt(coldfilt(x, h2b, h2a), h2b, h2a)), from a third decimated
+// column stage; the host orders its streams as it does the main pairs'.
+//
 // Bound on the H100: device memory bytes (one read of the input, half of it
-// written back as lowpass and subbands, ~m multiply-adds per output).  The
-// design reads a 32 x 128 input tile plus a reflected halo of len(h) once
-// into shared memory, keeps the decimated column stage there, and computes
+// written back as lowpass and subbands, ~m multiply-adds per output, a
+// quarter more with the third stream).  The design reads a 32 x 128 input
+// tile plus a reflected halo of len(h) (one length for every pair) once
+// into shared memory, keeps the decimated column stages there, and computes
 // the row stage and the quad pack in registers; one thread owns one
 // output quad, whose corners are exactly the (row stream, column stream)
 // pairs of the decimator, so no strided access reaches device memory.
@@ -23,12 +29,13 @@
 
 namespace dtcwt {
 
-template <typename T, bool PLANES>
+template <typename T, bool PLANES, bool BP>
 __global__ void __launch_bounds__(NT)
     fwd_level2_kernel(const T* __restrict__ x, T* __restrict__ lolo,
                       void* out_a, void* out_b, int R, int C,
                       DPair<typename AccOf<T>::type> p0,
-                      DPair<typename AccOf<T>::type> p1) {
+                      DPair<typename AccOf<T>::type> p1,
+                      DPair<typename AccOf<T>::type> p2) {
   using A = typename AccOf<T>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int TH = 4 * QY, TW = 4 * QX;  // input pixels per block
@@ -37,6 +44,7 @@ __global__ void __launch_bounds__(NT)
   A* xs = reinterpret_cast<A*>(smem_raw);  // [XH][XW] input + halo
   A* lo = xs + XH * XW;                    // [2 QY][XW] column stage, h0
   A* hi = lo + 2 * QY * XW;                // [2 QY][XW] column stage, h1
+  A* bq = hi + 2 * QY * XW;                // [2 QY][XW] column stage, h2 (BP)
 
   const int tid = threadIdx.y * QX + threadIdx.x;
   const int b = blockIdx.z;
@@ -63,6 +71,12 @@ __global__ void __launch_bounds__(NT)
     }
     lo[idx] = a0;
     hi[idx] = a1;
+    if constexpr (BP) {
+      const A* s2 = xs + (4 * li + p2.c[s] + m) * XW + lc;
+      A a2 = 0;
+      for (int k = 0; k < m; ++k) a2 += p2.t[s][k] * s2[2 * k * XW];
+      bq[idx] = a2;
+    }
   }
   __syncthreads();
 
@@ -81,12 +95,16 @@ __global__ void __launch_bounds__(NT)
       const A* g0 = hi + row + p0.c[t];
       const A* l1 = lo + row + p1.c[t];
       const A* g1 = hi + row + p1.c[t];
+      const A* b2 = bq + row + p2.c[t];
       A a = 0, bb = 0, c = 0, d = 0;
       for (int k = 0; k < m; ++k) {
         a += p0.t[t][k] * l0[2 * k];
         bb += p0.t[t][k] * g0[2 * k];
         c += p1.t[t][k] * l1[2 * k];
-        d += p1.t[t][k] * g1[2 * k];
+        if constexpr (BP)
+          d += p2.t[t][k] * b2[2 * k];
+        else
+          d += p1.t[t][k] * g1[2 * k];
       }
       ll[s][t] = a;
       y05[s][t] = bb;
@@ -113,51 +131,75 @@ __global__ void __launch_bounds__(NT)
   store_bands<T, PLANES>(out_a, out_b, b, i, j, h, w, re, im);
 }
 
-template <typename T, bool PLANES>
+template <typename T, bool PLANES, bool BP>
 cudaError_t run_level2(const void* x, void* lolo, void* out_a, void* out_b,
                        int B, int R, int C, const double* taps,
-                       const int* offs, int m, cudaStream_t stream) {
+                       const int* offs, const double* taps2,
+                       const int* offs2, int m, cudaStream_t stream) {
   using A = typename AccOf<T>::type;
-  DPair<A> p0, p1;
+  DPair<A> p0, p1, p2{};
   if (!make_dpair(&p0, taps, offs, m) ||
-      !make_dpair(&p1, taps + 2 * m, offs + 2, m))
+      !make_dpair(&p1, taps + 2 * m, offs + 2, m) ||
+      (BP && !make_dpair(&p2, taps2, offs2, m)))
     return cudaErrorInvalidValue;
   const int XH = 4 * QY + 2 * m, XW = 4 * QX + 2 * m;
-  const size_t smem = sizeof(A) * static_cast<size_t>(XH + 4 * QY) * XW;
+  const size_t smem =
+      sizeof(A) * static_cast<size_t>(XH + (BP ? 6 : 4) * QY) * XW;
   const dim3 grid((C / 4 + QX - 1) / QX, (R / 4 + QY - 1) / QY, B);
-  return launch(fwd_level2_kernel<T, PLANES>, grid, smem, stream,
+  return launch(fwd_level2_kernel<T, PLANES, BP>, grid, smem, stream,
                 static_cast<const T*>(x), static_cast<T*>(lolo), out_a,
-                out_b, R, C, p0, p1);
+                out_b, R, C, p0, p1, p2);
+}
+
+template <bool BP>
+cudaError_t level2_dtype(const void* x, void* lolo, void* out_a, void* out_b,
+                         int B, int R, int C, const double* taps,
+                         const int* offs, const double* taps2,
+                         const int* offs2, int m, int dtype, int planes,
+                         cudaStream_t s) {
+  switch (dtype) {
+    case DT_F32:
+      return planes ? run_level2<float, true, BP>(x, lolo, out_a, out_b, B,
+                                                  R, C, taps, offs, taps2,
+                                                  offs2, m, s)
+                    : run_level2<float, false, BP>(x, lolo, out_a, out_b, B,
+                                                   R, C, taps, offs, taps2,
+                                                   offs2, m, s);
+    case DT_BF16:
+      if (!planes) return cudaErrorInvalidValue;
+      return run_level2<__nv_bfloat16, true, BP>(x, lolo, out_a, out_b, B, R,
+                                                 C, taps, offs, taps2, offs2,
+                                                 m, s);
+    case DT_F64:
+      return planes ? run_level2<double, true, BP>(x, lolo, out_a, out_b, B,
+                                                   R, C, taps, offs, taps2,
+                                                   offs2, m, s)
+                    : run_level2<double, false, BP>(x, lolo, out_a, out_b, B,
+                                                    R, C, taps, offs, taps2,
+                                                    offs2, m, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace dtcwt
 
 // taps: [pair (h0b/h0a, h1b/h1a)][stream][m]; offs: [pair][stream].
-// planes = 0: out_a is the interleaved complex [B, R/4, C/4, 6] as real
-// pairs; planes = 1: out_a / out_b are the re / im planes [B, 6, R/4, C/4].
+// taps2 / offs2: the bandpass families' third pair (h2b/h2a) as
+// [stream][m] / [stream]; null for no third stream.  planes = 0: out_a is
+// the interleaved complex [B, R/4, C/4, 6] as real pairs; planes = 1:
+// out_a / out_b are the re / im planes [B, 6, R/4, C/4].
 extern "C" int dtcwt_level2(const void* x, void* lolo, void* out_a,
                             void* out_b, int B, int R, int C,
-                            const double* taps, const int* offs, int m,
+                            const double* taps, const int* offs,
+                            const double* taps2, const int* offs2, int m,
                             int dtype, int planes, void* stream) {
   using namespace dtcwt;
-  if (R % 4 || C % 4 || R < 4 || C < 4 || B < 1 || B > 65535)
+  if (R % 4 || C % 4 || R < 4 || C < 4 || B < 1 || B > 65535 ||
+      (taps2 == nullptr) != (offs2 == nullptr))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case DT_F32:
-      return planes ? run_level2<float, true>(x, lolo, out_a, out_b, B, R, C,
-                                              taps, offs, m, s)
-                    : run_level2<float, false>(x, lolo, out_a, out_b, B, R, C,
-                                               taps, offs, m, s);
-    case DT_BF16:
-      if (!planes) return cudaErrorInvalidValue;
-      return run_level2<__nv_bfloat16, true>(x, lolo, out_a, out_b, B, R, C,
-                                             taps, offs, m, s);
-    case DT_F64:
-      return planes ? run_level2<double, true>(x, lolo, out_a, out_b, B, R, C,
-                                               taps, offs, m, s)
-                    : run_level2<double, false>(x, lolo, out_a, out_b, B, R,
-                                                C, taps, offs, m, s);
-  }
-  return cudaErrorInvalidValue;
+  return taps2 ? level2_dtype<true>(x, lolo, out_a, out_b, B, R, C, taps,
+                                    offs, taps2, offs2, m, dtype, planes, s)
+               : level2_dtype<false>(x, lolo, out_a, out_b, B, R, C, taps,
+                                     offs, taps2, offs2, m, dtype, planes, s);
 }

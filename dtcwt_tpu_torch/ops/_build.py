@@ -30,7 +30,8 @@ import torch
 
 __all__ = ["library", "build", "launches", "reset_launches", "count",
            "flatten_batch", "dtype_code", "stream_ptr", "check", "taps_arg",
-           "ints_arg"]
+           "ints_arg", "ptr", "check_smem", "odd_filters", "pair_filters",
+           "fir_args"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -38,18 +39,29 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
+#: Block shape of the 2-D level kernels in output quads (csrc/common.cuh).
+QX, QY = 32, 8
+#: Longest filter the kernels take (csrc/common.cuh MAX_TAPS).
+MAX_TAPS = 32
+#: Dynamic shared memory one block may use on an H100 (232,448 bytes).
+SMEM_LIMIT = 232448
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# argument types of each exported function (see csrc/*.cu)
+# argument types of each exported function (see csrc/*.cu); a null third
+# tap table (t2, taps2) means no bandpass third stream
 _SIGNATURES = {
-    # x, lolo, out_a, out_b, B, R, C, t0, m0, t1, m1, dtype, planes, stream
-    "dtcwt_level1": (_P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _I, _I, _I, _P),
-    # x, lolo, out_a, out_b, B, R, C, taps, offs, m, dtype, planes, stream
-    "dtcwt_level2": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _P),
-    # z, band_a, band_b, out, B, H, W, taps, offs, m2, dtype, planes, stream
-    "dtcwt_ilevel2": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _P),
-    # z, band_a, band_b, out, B, H, W, t0, m0, t1, m1, dtype, planes, stream
-    "dtcwt_ilevel1": (_P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _I, _I, _I,
-                      _P),
+    # x, lolo, out_a, out_b, B, R, C, t0, m0, t1, m1, t2, m2, dtype, planes,
+    # stream
+    "dtcwt_level1": (_P,) * 4 + (_I,) * 3 + (_P, _I) * 3 + (_I, _I, _P),
+    # x, lolo, out_a, out_b, B, R, C, taps, offs, taps2, offs2, m, dtype,
+    # planes, stream
+    "dtcwt_level2": (_P,) * 4 + (_I,) * 3 + (_P,) * 4 + (_I,) * 3 + (_P,),
+    # z, band_a, band_b, out, B, H, W, taps, offs, taps2, offs2, m2, dtype,
+    # planes, stream
+    "dtcwt_ilevel2": (_P,) * 4 + (_I,) * 3 + (_P,) * 4 + (_I,) * 3 + (_P,),
+    # z, band_a, band_b, out, B, H, W, t0, m0, t1, m1, t2, m2, dtype, planes,
+    # stream
+    "dtcwt_ilevel1": (_P,) * 4 + (_I,) * 3 + (_P, _I) * 3 + (_I, _I, _P),
 }
 # the stream kernels of csrc/dual.cu and csrc/single.cu share one interface
 # (csrc/streams.cuh): in0, in1, out0, out1, outer, n_in, inner, g0, g1,
@@ -197,3 +209,62 @@ def taps_arg(*vectors) -> np.ndarray:
 
 def ints_arg(values) -> np.ndarray:
     return np.ascontiguousarray(np.asarray(values, np.int32).reshape(-1))
+
+
+def ptr(arr) -> int:
+    """Host address of a tap or offset table, None (a null pointer) for
+    none."""
+    return None if arr is None else arr.ctypes.data
+
+
+def check_smem(name: str, dtype: torch.dtype, tile, halo: int,
+               images: int, stages: int, stage_rows: int) -> None:
+    """Raise ValueError where a 2-D level kernel would ask for more dynamic
+    shared memory than a block may have, instead of a launch error.  The
+    block holds *images* staged tiles of ``tile`` = (rows, cols) plus
+    *halo* on each side, and *stages* column stages of *stage_rows* rows as
+    wide as a staged tile, at the accumulator's width (the sizes that
+    ``run_*`` computes in ``csrc/*level*.cu``)."""
+    acc = 8 if dtype == torch.float64 else 4
+    nbytes = acc * (images * (tile[0] + 2 * halo) + stages * stage_rows) * (
+        tile[1] + 2 * halo)
+    if nbytes > SMEM_LIMIT:
+        raise ValueError("%s: the filters need %d bytes of shared memory a "
+                         "block, over the card's %d" % (name, nbytes,
+                                                       SMEM_LIMIT))
+
+
+def odd_filters(name: str, *filters):
+    """Flat float64 taps of a level-1 kernel's filters (a None stays None),
+    held to the kernel's rule: odd lengths of at most MAX_TAPS."""
+    h = [None if f is None else np.asarray(f, np.float64).reshape(-1)
+         for f in filters]
+    lens = [f.size for f in h if f is not None]
+    if any(n % 2 == 0 or n > MAX_TAPS for n in lens):
+        raise ValueError("%s takes odd-length filters of at most %d taps, "
+                         "got lengths %s" % (name, MAX_TAPS, lens))
+    return h
+
+
+def pair_filters(name: str, *filters):
+    """Flat float64 taps of a qshift level kernel's filters (a None stays
+    None), held to the kernel's rule: one even length of at most MAX_TAPS
+    for all of them, the third pair's included."""
+    h = [None if f is None else np.asarray(f, np.float64).reshape(-1)
+         for f in filters]
+    lens = [f.size for f in h if f is not None]
+    if len(set(lens)) != 1 or lens[0] % 2 or lens[0] > MAX_TAPS:
+        raise ValueError("%s takes filters of one even length of at most %d "
+                         "taps, got lengths %s" % (name, MAX_TAPS, lens))
+    return h
+
+
+def fir_args(h):
+    """(taps, length) argument pairs of the level-1 kernels for the filters
+    *h* (None: a null table, no third stream); the tables are returned too,
+    for the caller to keep alive across the launch."""
+    tables = [None if f is None else taps_arg(f[::-1]) for f in h]
+    args = []
+    for f, t in zip(h, tables):
+        args += [ptr(t), 0 if f is None else f.size]
+    return args, tables

@@ -7,12 +7,15 @@ the quad images on chip and writes its output once.
 
 :func:`inv_level1` takes its route from the input's device: a CPU tensor
 runs :func:`inv_level1_reference`, a CUDA tensor launches the kernel or
-raises.  The subbands come as in :func:`ilevel2.inv_level2`.
+raises.  The subbands come as in :func:`ilevel2.inv_level2`.  The bandpass
+families' third filter *g2o* is the kernel's third stream: the ``hh`` quad
+image gets ``g2o`` on both axes instead of sharing the second column stage;
+like ``g0o`` and ``g1o`` it must have an odd length of at most 32 taps, and
+the largest of the three half-lengths sets the tile's halo.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from dtcwt_tpu_torch.ops import _build, fb
@@ -20,9 +23,6 @@ from dtcwt_tpu_torch.ops.ilevel2 import _band_args, _quads
 from dtcwt_tpu_torch.utils import compute_view
 
 __all__ = ["inv_level1", "inv_level1_reference"]
-
-_BP_TODO = ("the bandpass third filter stream (g2o) of the level-1 inverse "
-            "CUDA kernel is not ported yet (ROADMAP.md, Queue 2, item 4)")
 
 
 def inv_level1_reference(z: torch.Tensor, yh=None, g0o=None, g1o=None,
@@ -51,30 +51,26 @@ def inv_level1(z: torch.Tensor, yh=None, g0o=None, g1o=None, bands=None,
     if z.device.type != "cuda":
         raise ValueError("inv_level1 runs on CPU or CUDA tensors, not %s"
                          % z.device)
-    if g2o is not None:
-        raise NotImplementedError(_BP_TODO)
-    g0 = np.asarray(g0o, np.float64).reshape(-1)
-    g1 = np.asarray(g1o, np.float64).reshape(-1)
+    filt = _build.odd_filters("inv_level1", g0o, g1o, g2o)
     if z.ndim < 2 or z.shape[-2] % 2 or z.shape[-1] % 2:
         raise ValueError("inv_level1 needs [..., H, W] with H, W even, got "
                          "%s" % (tuple(z.shape),))
-    if g0.size % 2 == 0 or g1.size % 2 == 0:
-        raise ValueError("the level-1 inverse kernel takes odd-length "
-                         "filters")
     if not z.is_contiguous():
         raise ValueError("inv_level1 needs a contiguous lowpass")
     code = _build.dtype_code(z.dtype)
     band_a, band_b, planes = _band_args(z, yh, bands, "inv_level1")
+    n = [f.size for f in filt if f is not None]
+    _build.check_smem("inv_level1", z.dtype, (2 * _build.QY, 2 * _build.QX),
+                      max(n) // 2, 4, len(n), 2 * _build.QY)
     z3, lead = _build.flatten_batch(z)
     B, H, W = z3.shape
     out = torch.empty_like(z3)
-    t0, t1 = _build.taps_arg(g0[::-1]), _build.taps_arg(g1[::-1])
+    taps, _tables = _build.fir_args(filt)
     lib = _build.library()
     err = lib.dtcwt_ilevel1(
         z3.data_ptr(), band_a.data_ptr(),
         None if band_b is None else band_b.data_ptr(), out.data_ptr(),
-        B, H, W, t0.ctypes.data, g0.size, t1.ctypes.data, g1.size, code,
-        planes, _build.stream_ptr(z.device))
+        B, H, W, *taps, code, planes, _build.stream_ptr(z.device))
     _build.check("inv_level1", err)
     _build.count("ilevel1")
     return out.reshape(lead + out.shape[1:])

@@ -12,7 +12,11 @@ raises.  The subbands come either as the interleaved complex
 ``[..., H/2, W/2, 6]`` tensor or as the plane pair ``(re, im)`` of
 ``[..., 6, H/2, W/2]`` tensors in PLANE_BAND_ORDER.  Filter arguments follow
 the transform's call order ``ifilt(x, g0b, g0a)`` / ``ifilt(x, g1b, g1a)``.
-The output is uncropped: the transform crops.
+The bandpass families' third pair *g2a*/*g2b* is the kernel's third stream:
+the ``hh`` quad image gets ``ifilt(., g2b, g2a)`` on both axes instead of
+sharing the second column stage, planned on the host as the main pairs
+are; all six filters must share one even length of at most 32 taps, which
+sets the tile's halo.  The output is uncropped: the transform crops.
 """
 
 from __future__ import annotations
@@ -26,10 +30,6 @@ from dtcwt_tpu_torch.transforms.pyramid import _PLANE_POS
 from dtcwt_tpu_torch.utils import compute_view
 
 __all__ = ["inv_level2", "inv_level2_reference", "ifilt_streams"]
-
-_BP_TODO = ("the bandpass third filter stream (g2a/g2b) of the level-2 "
-            "inverse CUDA kernel is not ported yet (ROADMAP.md, Queue 2, "
-            "item 3)")
 
 
 def ifilt_streams(ha, hb):
@@ -132,18 +132,20 @@ def inv_level2(z: torch.Tensor, yh=None, g0a=None, g0b=None, g1a=None,
     if z.device.type != "cuda":
         raise ValueError("inv_level2 runs on CPU or CUDA tensors, not %s"
                          % z.device)
-    if g2a is not None:
-        raise NotImplementedError(_BP_TODO)
+    if (g2a is None) != (g2b is None):
+        raise ValueError("inv_level2 takes the third pair g2a, g2b together")
     if z.ndim < 2 or z.shape[-2] % 2 or z.shape[-1] % 2:
         raise ValueError("inv_level2 needs [..., H, W] with H, W even, got "
                          "%s" % (tuple(z.shape),))
     if not z.is_contiguous():
         raise ValueError("inv_level2 needs a contiguous lowpass")
-    t0, o0 = ifilt_streams(g0b, g0a)
-    t1, o1 = ifilt_streams(g1b, g1a)
-    if t0.shape != t1.shape:
-        raise ValueError("the level-2 inverse kernel takes four filters of "
-                         "one even length")
+    f = _build.pair_filters("inv_level2", g0b, g0a, g1b, g1a, g2b, g2a)
+    t0, o0 = ifilt_streams(f[0], f[1])
+    t1, o1 = ifilt_streams(f[2], f[3])
+    t2, o2 = (None, None) if g2a is None else ifilt_streams(f[4], f[5])
+    m2 = t0.shape[1]
+    _build.check_smem("inv_level2", z.dtype, (2 * _build.QY, 2 * _build.QX),
+                      m2, 4, 2 if t2 is None else 3, 4 * _build.QY)
     code = _build.dtype_code(z.dtype)
     band_a, band_b, planes = _band_args(z, yh, bands, "inv_level2")
     z3, lead = _build.flatten_batch(z)
@@ -151,12 +153,14 @@ def inv_level2(z: torch.Tensor, yh=None, g0a=None, g0b=None, g1a=None,
     out = torch.empty((B, 2 * H, 2 * W), dtype=z.dtype, device=z.device)
     taps = _build.taps_arg(t0, t1)
     offs = _build.ints_arg(o0 + o1)
+    taps2 = None if t2 is None else _build.taps_arg(t2)
+    offs2 = None if t2 is None else _build.ints_arg(o2)
     lib = _build.library()
     err = lib.dtcwt_ilevel2(
         z3.data_ptr(), band_a.data_ptr(),
         None if band_b is None else band_b.data_ptr(), out.data_ptr(),
-        B, H, W, taps.ctypes.data, offs.ctypes.data, t0.shape[1], code,
-        planes, _build.stream_ptr(z.device))
+        B, H, W, taps.ctypes.data, offs.ctypes.data, _build.ptr(taps2),
+        _build.ptr(offs2), m2, code, planes, _build.stream_ptr(z.device))
     _build.check("inv_level2", err)
     _build.count("ilevel2")
     return out.reshape(lead + out.shape[1:])

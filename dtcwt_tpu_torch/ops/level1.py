@@ -4,7 +4,10 @@ Replaces the Pallas kernel ``dtcwt_tpu/ops/pallas_level1.py:fwd_level1``.
 What bounds it on the H100, and what the design does about it, is in the
 kernel's source, ``csrc/level1.cu``: it is a memory-bound stencil, so the
 kernel reads its input once per tile and keeps every intermediate image on
-chip.
+chip.  The bandpass families' third filter *h2o* is the kernel's third
+stream (bands 1 and 4 from ``h2o`` on both axes); like ``h0o`` and ``h1o``
+it must have an odd length of at most 32 taps, and the largest of the three
+half-lengths sets the tile's halo.
 
 :func:`fwd_level1` takes its route from the input's device: a CPU tensor
 runs :func:`fwd_level1_reference`, a CUDA tensor launches the kernel or
@@ -13,7 +16,6 @@ raises.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from dtcwt_tpu_torch.ops import _build, fb
@@ -22,9 +24,6 @@ from dtcwt_tpu_torch.transforms.pyramid import PLANE_BAND_ORDER
 from dtcwt_tpu_torch.utils import compute_view
 
 __all__ = ["fwd_level1", "fwd_level1_reference"]
-
-_BP_TODO = ("the bandpass third filter stream (h2o) of the level-1 CUDA "
-            "kernel is not ported yet (ROADMAP.md, Queue 2, item 1)")
 
 
 def _pack(im05, im23, im14, planes: bool, dtype):
@@ -68,20 +67,18 @@ def fwd_level1(x: torch.Tensor, h0o, h1o, planes: bool = False, h2o=None):
     if x.device.type != "cuda":
         raise ValueError("fwd_level1 runs on CPU or CUDA tensors, not %s"
                          % x.device)
-    if h2o is not None:
-        raise NotImplementedError(_BP_TODO)
-    h0 = np.asarray(h0o, np.float64).reshape(-1)
-    h1 = np.asarray(h1o, np.float64).reshape(-1)
+    filt = _build.odd_filters("fwd_level1", h0o, h1o, h2o)
     if x.ndim < 2 or x.shape[-2] % 2 or x.shape[-1] % 2:
         raise ValueError("fwd_level1 needs [..., R, C] with R, C even, got %s"
                          % (tuple(x.shape),))
-    if h0.size % 2 == 0 or h1.size % 2 == 0:
-        raise ValueError("the level-1 kernel takes odd-length filters")
     if not x.is_contiguous():
         raise ValueError("fwd_level1 needs a contiguous input")
     code = _build.dtype_code(x.dtype)
     if code == 1 and not planes:
         raise TypeError("bfloat16 subbands exist only in the plane layout")
+    n = [f.size for f in filt if f is not None]
+    _build.check_smem("fwd_level1", x.dtype, (2 * _build.QY, 2 * _build.QX),
+                      max(n) // 2, 1, len(n), 2 * _build.QY)
     x3, lead = _build.flatten_batch(x)
     B, R, C = x3.shape
     lolo = torch.empty_like(x3)
@@ -95,13 +92,12 @@ def fwd_level1(x: torch.Tensor, h0o, h1o, planes: bool = False, h2o=None):
             torch.complex128
         z = torch.empty((B, h, w, 6), dtype=ctype, device=x.device)
         out_a, out_b = torch.view_as_real(z), None
-    t0, t1 = _build.taps_arg(h0[::-1]), _build.taps_arg(h1[::-1])
+    taps, _tables = _build.fir_args(filt)
     lib = _build.library()
     err = lib.dtcwt_level1(
         x3.data_ptr(), lolo.data_ptr(), out_a.data_ptr(),
-        None if out_b is None else out_b.data_ptr(), B, R, C,
-        t0.ctypes.data, h0.size, t1.ctypes.data, h1.size, code, int(planes),
-        _build.stream_ptr(x.device))
+        None if out_b is None else out_b.data_ptr(), B, R, C, *taps, code,
+        int(planes), _build.stream_ptr(x.device))
     _build.check("fwd_level1", err)
     _build.count("level1")
     lolo = lolo.reshape(lead + (R, C))

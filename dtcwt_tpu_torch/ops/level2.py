@@ -10,7 +10,11 @@ input once per tile and keeps every intermediate image on chip.
 runs :func:`fwd_level2_reference`, a CUDA tensor launches the kernel or
 raises.  Filter arguments follow the transform's call order: the level
 applies ``dfilt(x, h0b, h0a)`` and ``dfilt(x, h1b, h1a)``, so branch *a* of
-the decimator runs the *b* filter.
+the decimator runs the *b* filter.  The bandpass families' third pair
+*h2a*/*h2b* is the kernel's third stream (bands 1 and 4 from
+``dfilt(., h2b, h2a)`` on both axes), planned on the host as the main pairs
+are; all six filters must share one even length of at most 32 taps, which
+sets the tile's halo.
 """
 
 from __future__ import annotations
@@ -23,9 +27,6 @@ from dtcwt_tpu_torch.ops.level1 import _pack
 from dtcwt_tpu_torch.utils import compute_view
 
 __all__ = ["fwd_level2", "fwd_level2_reference", "dfilt_streams"]
-
-_BP_TODO = ("the bandpass third filter stream (h2a/h2b) of the level-2 CUDA "
-            "kernel is not ported yet (ROADMAP.md, Queue 2, item 2)")
 
 
 def dfilt_streams(ha, hb):
@@ -69,21 +70,23 @@ def fwd_level2(x: torch.Tensor, h0a, h0b, h1a, h1b, planes: bool = False,
     if x.device.type != "cuda":
         raise ValueError("fwd_level2 runs on CPU or CUDA tensors, not %s"
                          % x.device)
-    if h2a is not None:
-        raise NotImplementedError(_BP_TODO)
+    if (h2a is None) != (h2b is None):
+        raise ValueError("fwd_level2 takes the third pair h2a, h2b together")
     if x.ndim < 2 or x.shape[-2] % 4 or x.shape[-1] % 4:
         raise ValueError("fwd_level2 needs [..., R, C] with R, C multiples "
                          "of 4, got %s" % (tuple(x.shape),))
-    t0, o0 = dfilt_streams(h0b, h0a)
-    t1, o1 = dfilt_streams(h1b, h1a)
-    if t0.shape != t1.shape or t0.shape[1] % 2:
-        raise ValueError("the level-2 kernel takes four filters of one even"
-                         " length")
+    f = _build.pair_filters("fwd_level2", h0b, h0a, h1b, h1a, h2b, h2a)
+    t0, o0 = dfilt_streams(f[0], f[1])
+    t1, o1 = dfilt_streams(f[2], f[3])
+    t2, o2 = (None, None) if h2a is None else dfilt_streams(f[4], f[5])
     if not x.is_contiguous():
         raise ValueError("fwd_level2 needs a contiguous input")
     code = _build.dtype_code(x.dtype)
     if code == 1 and not planes:
         raise TypeError("bfloat16 subbands exist only in the plane layout")
+    m = t0.shape[1]
+    _build.check_smem("fwd_level2", x.dtype, (4 * _build.QY, 4 * _build.QX),
+                      m, 1, 2 if t2 is None else 3, 2 * _build.QY)
     x3, lead = _build.flatten_batch(x)
     B, R, C = x3.shape
     lolo = torch.empty((B, R // 2, C // 2), dtype=x.dtype, device=x.device)
@@ -99,12 +102,14 @@ def fwd_level2(x: torch.Tensor, h0a, h0b, h1a, h1b, planes: bool = False,
         out_a, out_b = torch.view_as_real(z), None
     taps = _build.taps_arg(t0, t1)
     offs = _build.ints_arg(o0 + o1)
+    taps2 = None if t2 is None else _build.taps_arg(t2)
+    offs2 = None if t2 is None else _build.ints_arg(o2)
     lib = _build.library()
     err = lib.dtcwt_level2(
         x3.data_ptr(), lolo.data_ptr(), out_a.data_ptr(),
         None if out_b is None else out_b.data_ptr(), B, R, C,
-        taps.ctypes.data, offs.ctypes.data, t0.shape[1], code, int(planes),
-        _build.stream_ptr(x.device))
+        taps.ctypes.data, offs.ctypes.data, _build.ptr(taps2),
+        _build.ptr(offs2), m, code, int(planes), _build.stream_ptr(x.device))
     _build.check("fwd_level2", err)
     _build.count("level2")
     lolo = lolo.reshape(lead + lolo.shape[1:])

@@ -93,6 +93,11 @@ def test_compat_gain_mask_matches_jax():
     jl, jh = jcompat.dtwavexfm2(x, 3)
     _same(compat.dtwaveifm2(yl, yh, gain_mask=gm, device="cpu"),
           jcompat.dtwaveifm2(jl, jh, gain_mask=gm))
+    bp = {"biort": "near_sym_b_bp", "qshift": "qshift_b_bp"}
+    yl, yh = compat.dtwavexfm2b(x, 3, device="cpu", **bp)
+    jl, jh = jcompat.dtwavexfm2b(x, 3, **bp)
+    _same(compat.dtwaveifm2b(yl, yh, gain_mask=gm, device="cpu", **bp),
+          jcompat.dtwaveifm2b(jl, jh, gain_mask=gm, **bp))
     s = _rand((64, 2), 5)
     gm1 = np.random.RandomState(6).rand(3)
     yl, yh = compat.dtwavexfm(s, 3, device="cpu")

@@ -151,11 +151,142 @@ def test_cuda_transform_matches_plain_path(cuda, layout):
         assert _kerr(a.cpu(), b) < 1e-12
 
 
+# --- the bandpass third stream of the four level kernels --------------------
+
+_BP_SHAPES = {"level1": [(2, 36, 52), (2, 4, 6), (130, 200)],
+              "level2": [(2, 40, 56), (2, 8, 12), (132, 260)],
+              "ilevel2": [(2, 20, 28), (2, 4, 6), (66, 130)],
+              "ilevel1": [(2, 36, 52), (2, 4, 6), (130, 200)]}
+
+
+def _bp_calls(level):
+    """(kernel wrapper, plain version) of one level with near_sym_b_bp's or
+    qshift_b_bp's third stream, both taking ``(x, planes)`` for a forward
+    level and ``(z, band)`` for an inverse one."""
+    b, q = biort("near_sym_b_bp"), qshift("qshift_b_bp")
+    if level == "level1":
+        k = lambda x, pl: level1.fwd_level1(x, b[0], b[2], pl, h2o=b[4])
+        p = lambda x, pl: level1.fwd_level1_reference(x, b[0], b[2], pl,
+                                                      h2o=b[4])
+    elif level == "level2":
+        f = (q[0], q[1], q[4], q[5])
+        k = lambda x, pl: level2.fwd_level2(x, *f, pl, h2a=q[8], h2b=q[9])
+        p = lambda x, pl: level2.fwd_level2_reference(x, *f, pl, h2a=q[8],
+                                                      h2b=q[9])
+    elif level == "ilevel2":
+        g = dict(g0a=q[2], g0b=q[3], g1a=q[6], g1b=q[7], g2a=q[10],
+                 g2b=q[11])
+        k = lambda z, band: ilevel2.inv_level2(z, **g, **band)
+        p = lambda z, band: ilevel2.inv_level2_reference(z, **g, **band)
+    else:
+        g = dict(g0o=b[1], g1o=b[3], g2o=b[5])
+        k = lambda z, band: ilevel1.inv_level1(z, **g, **band)
+        p = lambda z, band: ilevel1.inv_level1_reference(z, **g, **band)
+    return k, p
+
+
 @pytest.mark.cuda
-def test_cuda_bandpass_families_raise(cuda):
-    t = dt.Transform2d("near_sym_b_bp", "qshift_b_bp")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.forward(torch.zeros(16, 16, device=cuda), 2)
+@pytest.mark.parametrize("dtype,planes", _CASES)
+@pytest.mark.parametrize("level", ["level1", "level2", "ilevel2", "ilevel1"])
+def test_cuda_bandpass_kernels_match_plain(cuda, dtype, planes, level):
+    """Each level kernel's bandpass variant (near_sym_b_bp: 13/19/19 taps,
+    qshift_b_bp: 14) against its plain version, at the shapes of the tests
+    above, including shapes shorter than the filters."""
+    kern, plain = _bp_calls(level)
+    for shape in _BP_SHAPES[level]:
+        if level.startswith("i"):
+            args = _inverse_inputs(shape, dtype, planes, cuda)
+        else:
+            args = (_rand(shape, 0, cuda, dtype), planes)
+        _build.reset_launches()
+        got = kern(*args)
+        torch.cuda.synchronize()
+        assert dict(_build.launches) == {level: 1}
+        assert _kerr(got, plain(*args)) < _KTOL[dtype], shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["interleaved", "planes"])
+def test_cuda_bandpass_transform_matches_plain_path(cuda, layout):
+    """The bandpass families through the whole transform on the card against
+    the CPU at float64: odd sizes, pad and crop, include_scale, a gain
+    mask, explicit 6/12-tuples, the launch counts of a 3-level round trip,
+    the nhwc channel adapter and compat.dtwavexfm2b / dtwaveifm2b."""
+    b = tuple(np.array(h) for h in biort("near_sym_b_bp"))
+    q = tuple(np.array(h) for h in qshift("qshift_b_bp"))
+    t, tc = dt.Transform2d(b, q), dt.Transform2d(b, q, device="cpu")
+    x = np.random.RandomState(2).rand(3, 75, 98)
+    gm = np.linspace(0.2, 1.4, 18).reshape(6, 3)
+    _build.reset_launches()
+    pg = t.forward(x, 3, include_scale=True, layout=layout)
+    rg = t.inverse(pg, gm)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"level1": 1, "level2": 2, "ilevel2": 2,
+                                     "ilevel1": 1}
+    pc = tc.forward(torch.from_numpy(x), 3, include_scale=True,
+                    layout=layout)
+    assert _kerr(rg.cpu(), tc.inverse(pc, gm)) < 1e-12
+    hg = pg.highpasses if layout == "interleaved" else \
+        pg.highpasses_re + pg.highpasses_im
+    hc = pc.highpasses if layout == "interleaved" else \
+        pc.highpasses_re + pc.highpasses_im
+    for a, c in zip((pg.lowpass,) + hg + pg.scales,
+                    (pc.lowpass,) + hc + pc.scales):
+        assert _kerr(a.cpu(), c) < 1e-12
+    if layout == "planes":
+        return
+    from dtcwt_tpu_torch import compat
+    fams = {"biort": "near_sym_b_bp", "qshift": "qshift_b_bp"}
+    yl, yh = compat.dtwavexfm2b(x, 3, **fams)
+    assert _kerr(yl.cpu(), pc.lowpass) < 1e-12
+    assert all(_kerr(a.cpu(), c) < 1e-12 for a, c in zip(yh, pc.highpasses))
+    assert _kerr(compat.dtwaveifm2b(yl, yh, **fams).cpu(),
+                 tc.inverse(pc)) < 1e-12
+    xn = np.random.RandomState(3).rand(2, 40, 52, 3)
+    pn = t.forward_channels(xn, "nhwc", 3)
+    rn = t.inverse_channels(pn, "nhwc")
+    pnc = tc.forward_channels(torch.from_numpy(xn), "nhwc", 3)
+    assert _kerr(rn.cpu(), tc.inverse_channels(pnc, "nhwc")) < 1e-12
+    assert all(_kerr(a.cpu(), c) < 1e-12
+               for a, c in zip(pn.highpasses, pnc.highpasses))
+
+
+@pytest.mark.cuda
+def test_cuda_level_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    """A third filter (pair) off the kernel's length rule, and a launch that
+    would need more shared memory than a block has, raise ValueError from
+    the host, naming the lengths or the size."""
+    b, q = biort("near_sym_b_bp"), qshift("qshift_b_bp")
+    x = torch.zeros(2, 32, 32, device=cuda)
+    with pytest.raises(ValueError, match=r"odd-length .*\[13, 19, 18\]"):
+        level1.fwd_level1(x, b[0], b[2], h2o=np.ones(18))
+    with pytest.raises(ValueError, match=r"one even length .*12, 12\]"):
+        level2.fwd_level2(x, q[0], q[1], q[4], q[5], h2a=np.ones(12),
+                          h2b=np.ones(12))
+    with pytest.raises(ValueError, match="together"):
+        level2.fwd_level2(x, q[0], q[1], q[4], q[5], h2a=q[8])
+    z, band = _inverse_inputs((2, 16, 16), torch.float32, True, cuda)
+    with pytest.raises(ValueError, match=r"one even length .*10, 10\]"):
+        ilevel2.inv_level2(z, g0a=q[2], g0b=q[3], g1a=q[6], g1b=q[7],
+                           g2a=np.ones(10), g2b=np.ones(10), **band)
+    with pytest.raises(ValueError, match="together"):
+        ilevel2.inv_level2(z, g0a=q[2], g0b=q[3], g1a=q[6], g1b=q[7],
+                           g2b=q[11], **band)
+    with pytest.raises(ValueError, match=r"odd-length .*\[19, 13, 34\]"):
+        ilevel1.inv_level1(z, g0o=b[1], g1o=b[3], g2o=np.ones(34), **band)
+    old = _build.SMEM_LIMIT
+    try:
+        _build.SMEM_LIMIT = 20000
+        with pytest.raises(ValueError, match="shared memory"):
+            level1.fwd_level1(x, b[0], b[2], h2o=b[4])
+        with pytest.raises(ValueError, match="shared memory"):
+            ilevel2.inv_level2(z, g0a=q[2], g0b=q[3], g1a=q[6], g1b=q[7],
+                               g2a=q[10], g2b=q[11], **band)
+    finally:
+        _build.SMEM_LIMIT = old
+    _build.reset_launches()
+    level1.fwd_level1(x, b[0], b[2], h2o=b[4])
+    assert dict(_build.launches) == {"level1": 1}
 
 
 # --- the dual-stream kernels of the 1-D transform (csrc/dual.cu) -----------

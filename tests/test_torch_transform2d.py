@@ -106,6 +106,25 @@ def test_bandpass_family_matches_jax():
         assert _err(t.inverse(got), j.inverse(want)) < TOL
 
 
+@pytest.mark.parametrize("layout", ["interleaved", "planes"])
+def test_bandpass_odd_size_scales_and_gain_mask_match_jax(layout):
+    """The bandpass families as explicit 6- and 12-tuples on an odd-sized
+    batch (edge duplication, pads before levels 2-4, crops after their
+    inverses), with include_scale and a gain mask: every leaf and the
+    inverse against JAX at 1e-12."""
+    x = _rand((2, 37, 75), 13)
+    fams = ("near_sym_b_bp", "qshift_b_bp")
+    t = tdt.Transform2d(tuple(np.array(h) for h in jdt.biort(fams[0])),
+                        tuple(np.array(h) for h in jdt.qshift(fams[1])),
+                        device="cpu")
+    j = jdt.Transform2d(*fams)
+    got = t.forward(torch.from_numpy(x), 4, include_scale=True, layout=layout)
+    want = j.forward(x, 4, include_scale=True, layout=layout)
+    _check_pyramid(got, want)
+    gm = np.linspace(0.2, 1.4, 24).reshape(6, 4)
+    assert _err(t.inverse(got, gm), j.inverse(want, gm)) < TOL
+
+
 def test_explicit_coefficient_tuples():
     """Filters given as tuples of numpy arrays act as the named family."""
     x = torch.from_numpy(_rand((32, 32), 5))
@@ -121,25 +140,49 @@ def test_explicit_coefficient_tuples():
         tdt.Transform2d(biort=(np.ones(3),) * 3)
 
 
-def test_bf16_planes_match_jax_at_storage_grade():
-    x = _rand((2, 64, 96), 6).astype(np.float32)
-    xt = torch.from_numpy(x).to(torch.bfloat16)
-    got = tdt.Transform2d(device="cpu").forward(xt, 3, layout="planes")
+def _f32(a):
+    return a.float().numpy() if isinstance(a, torch.Tensor) \
+        else np.asarray(a, np.float32)
+
+
+def _bf16_planes(x, *fams):
+    """The port's and JAX's bfloat16 plane pyramids of *x*, the leaves held
+    to each other at storage grade (1e-2 of the larger of 1 and the leaf's
+    largest value)."""
     import jax.numpy as jnp
-    want = jdt.Transform2d().forward(jnp.asarray(x, jnp.bfloat16), 3,
-                                     layout="planes")
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    got = tdt.Transform2d(*fams, device="cpu").forward(xt, 3,
+                                                       layout="planes")
+    want = jdt.Transform2d(*fams).forward(jnp.asarray(x, jnp.bfloat16), 3,
+                                          layout="planes")
     assert got.lowpass.dtype == torch.bfloat16
     assert all(r.dtype == torch.bfloat16 for r in got.highpasses_re)
-    f32 = lambda a: a.float().numpy() if isinstance(a, torch.Tensor) \
-        else np.asarray(a, np.float32)
     for a, b in zip((got.lowpass,) + got.highpasses_re + got.highpasses_im,
                     (want.lowpass,) + want.highpasses_re
                     + want.highpasses_im):
-        scale = max(float(np.abs(f32(b)).max()), 1.0)
-        assert np.abs(f32(a) - f32(b)).max() < 1e-2 * scale
+        scale = max(float(np.abs(_f32(b)).max()), 1.0)
+        assert np.abs(_f32(a) - _f32(b)).max() < 1e-2 * scale
+    return xt, got, want
+
+
+def test_bf16_planes_match_jax_at_storage_grade():
+    x = _rand((2, 64, 96), 6).astype(np.float32)
+    xt, got, _ = _bf16_planes(x)
     rec = tdt.Transform2d(device="cpu").inverse(got)
     assert rec.dtype == torch.bfloat16
     assert float((rec.float() - xt.float()).abs().max()) < BF16_TOL_2D
+
+
+def test_bandpass_bf16_planes_match_jax_at_storage_grade():
+    """The bandpass families do not reconstruct perfectly, so the bfloat16
+    inverse is held to JAX's, at the round trip's storage grade."""
+    fams = ("near_sym_b_bp", "qshift_b_bp")
+    x = _rand((2, 64, 96), 14).astype(np.float32)
+    _, got, want = _bf16_planes(x, *fams)
+    rec = tdt.Transform2d(*fams, device="cpu").inverse(got)
+    assert rec.dtype == torch.bfloat16
+    rec_j = jdt.Transform2d(*fams).inverse(want)
+    assert np.abs(_f32(rec) - _f32(rec_j)).max() < BF16_TOL_2D
 
 
 @pytest.mark.parametrize("biort,qshift", [
