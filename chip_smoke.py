@@ -24,7 +24,8 @@ complex float32, float32 planes, bfloat16 planes):
 * the low-level API: ``dtcwt_tpu_torch.ops.colfilter`` / ``rowfilter``
   (near_sym_a's h0o and h1o), ``coldfilt`` / ``rowdfilt`` (qshift_a's
   (h0b, h0a)) and ``colifilt`` / ``rowifilt`` ((g0b, g0a)) on a 4096 x 4096
-  image, float32 and bfloat16 (the three kernels of ``csrc/single.cu``);
+  image, float32 and bfloat16 (``filter`` of ``csrc/filter.cu``, ``dfilt``
+  and ``ifilt`` of ``csrc/single.cu``);
 * ``compat``: ``dtwavexfm3(v, 3, discard_level_1=True)`` / ``dtwaveifm3``
   at 256^3, ``dtwavexfm2`` / ``dtwaveifm2`` at 4096^2 and ``dtwavexfm`` /
   ``dtwaveifm`` at ``[131072, 128]``, and ``Transform2d.forward_channels``
@@ -89,7 +90,8 @@ Phases, each printing its own lines:
    enqueues them): each kernel at its main-path shapes against its plain
    version and, where one PyTorch call computes the same function
    (``F.conv2d`` for ``filter2``, ``filter2_sum`` and ``filter``, TF32
-   off), that call; the bound of each kernel (its bytes at 3.35 TB/s or its float32
+   off; for ``filter`` beside each 256^3 pass and each 4096^2 call, f32
+   and bf16, with each pass's share of its bound), that call; the bound of each kernel (its bytes at 3.35 TB/s or its float32
    operations at 67 TFLOP/s, whichever is longer); each round trip against
    the plain path (the bandpass 2-D round trip too, and each level kernel's
    bandpass variant at its main-path shapes against its bound, its plain
@@ -146,6 +148,7 @@ F32_FLOP_PER_S = 67e12         # float32 outside the tensor cores
 _DUAL_SRC = "dtcwt_tpu_torch/csrc/dual.cu"
 _PACK_SRC = "dtcwt_tpu_torch/csrc/pack3d.cu"
 _SINGLE_SRC = "dtcwt_tpu_torch/csrc/single.cu"
+_FILTER_SRC = "dtcwt_tpu_torch/csrc/filter.cu"
 _HW_SRC = "dtcwt_tpu_torch/csrc/hw.cu"
 KERNELS = {   # name -> (CUDA source, the TPU kernel it replaces)
     "level1": ("dtcwt_tpu_torch/csrc/level1.cu",
@@ -164,7 +167,7 @@ KERNELS = {   # name -> (CUDA source, the TPU kernel it replaces)
     "inv_level1_pack": (_PACK_SRC, "dtcwt_tpu/ops/pallas_pack3d.py:647"),
     "fwd_level2_pack": (_PACK_SRC, "dtcwt_tpu/ops/pallas_pack3d.py:503"),
     "inv_level2_pack": (_PACK_SRC, "dtcwt_tpu/ops/pallas_pack3d.py:549"),
-    "filter": (_SINGLE_SRC, "dtcwt_tpu/ops/pallas_fb.py:492"),
+    "filter": (_FILTER_SRC, "dtcwt_tpu/ops/pallas_fb.py:492"),
     "dfilt": (_SINGLE_SRC, "dtcwt_tpu/ops/pallas_fb.py:642"),
     "ifilt": (_SINGLE_SRC, "dtcwt_tpu/ops/pallas_fb.py:791"),
     "filter_hw22": (_HW_SRC, "dtcwt_tpu/ops/pallas_hw.py:145"),
@@ -1234,14 +1237,15 @@ def check_single(dev, report):
 
 def conv_filter(x, h, axis):
     """One F.conv2d computing ``filter_axis(x, h, axis)`` of a [D, H, W]
-    volume from its input pre-extended by len(h)//2 a side (the extension
-    made here, outside the timed call): (call, its output as [D, H, W])."""
+    volume or an [H, W] image (axis -2 or -1) from its input pre-extended
+    by len(h)//2 a side (the extension made here, outside the timed call):
+    (call, its output in the shape of *x*)."""
     from dtcwt_tpu_torch.ops import fb
     h = np.asarray(h, np.float64).reshape(-1)
     m = h.size
     ext = fb.symmetric_extend(x, m // 2, axis).contiguous()
     w = torch.from_numpy(h[::-1].copy()).to(x.device, x.dtype)
-    D, H, W = ext.shape
+    D, H, W = ext.shape if ext.ndim == 3 else (1,) + tuple(ext.shape)
     if axis == -3:
         inp, weight = ext.reshape(1, 1, D, H * W), w.view(1, 1, m, 1)
     elif axis == -2:
@@ -1289,16 +1293,17 @@ def time_single(dev, report) -> None:
             tot[k] += v
         if by != "bytes":
             tot["bound_by"] = by
-        print("time filter %d^3 axis %d (%d taps) f32: kernel %.4f ms, plain "
-              "%.4f ms, bound %.4f ms (%s), library F.conv2d (TF32 off) %.4f"
-              " ms (rel err against the kernel %.3g)" % (
-                  VOL, axis, np.asarray(f[0]).size, ms, pms, bms, by, lms,
-                  lerr), flush=True)
+        print("time filter %d^3 axis %d (%d taps) f32: kernel %.4f ms (%.1f%%"
+              " of the bound), plain %.4f ms, bound %.4f ms (%s), library "
+              "F.conv2d (TF32 off) %.4f ms (rel err against the kernel %.3g)"
+              % (VOL, axis, np.asarray(f[0]).size, ms, 100 * bms / ms, pms,
+                 bms, by, lms, lerr), flush=True)
         del out, lib
     print("time filter, its 6 launches of one discard_level_1 round trip: "
-          "kernel %.4f ms, plain %.4f ms, bound %.4f ms, F.conv2d %.4f ms"
-          % (tot["ms"], tot["plain_ms"], tot["bound_ms"], tot["library_ms"]),
-          flush=True)
+          "kernel %.4f ms (%.1f%% of the bound), plain %.4f ms, bound %.4f "
+          "ms, F.conv2d %.4f ms" % (
+              tot["ms"], 100 * tot["bound_ms"] / tot["ms"], tot["plain_ms"],
+              tot["bound_ms"], tot["library_ms"]), flush=True)
     report["filter"].update(tot)
     del x
     # the low-level path at 4096^2; dfilt and ifilt report its f32 calls
@@ -1318,10 +1323,18 @@ def time_single(dev, report) -> None:
                 tot[name][k] += v
             if by != "bytes":
                 tot[name]["bound_by"] = by
-            print("time %s (%s) %dx%d axis %d (%d taps) %s: kernel %.4f ms, "
-                  "plain %.4f ms, bound %.4f ms (%s)" % (
-                      name, fn, N, N, axis, np.asarray(f[0]).size, dtype, ms,
-                      pms, bms, by), flush=True)
+            lib_note = ""
+            if name == "filter":
+                lib, shape = conv_filter(xd, f[0], axis)
+                lms = cuda_ms(lib, hold=True)
+                lib_note = (", library F.conv2d (TF32 off) %.4f ms (rel err "
+                            "against the kernel %.3g)" % (
+                                lms, rel_err(shape(lib()), out)))
+                del lib
+            print("time %s (%s) %dx%d axis %d (%d taps) %s: kernel %.4f ms "
+                  "(%.1f%% of the bound), plain %.4f ms, bound %.4f ms (%s)%s"
+                  % (name, fn, N, N, axis, np.asarray(f[0]).size, dtype, ms,
+                     100 * bms / ms, pms, bms, by, lib_note), flush=True)
             del out
         if dtype == torch.float32:
             for name in ("dfilt", "ifilt"):

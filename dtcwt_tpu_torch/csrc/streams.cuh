@@ -1,6 +1,7 @@
-// The stream-plan filter kernel shared by the single-stream kernels
-// (single.cu) and the dual-stream kernels (dual.cu), along any axis of a
-// contiguous tensor (CUDA C++, sm_90a).
+// The stream-plan filter kernel shared by the single-stream kernels dfilt
+// and ifilt (single.cu) and the dual-stream kernels (dual.cu), along any
+// axis of a contiguous tensor (CUDA C++, sm_90a).  The single-stream
+// non-decimating filter has a kernel of its own (filter.cu).
 //
 // A kernel instance runs NB branches (1 or 2) over NI inputs (1, or one per
 // branch) into NO outputs (one per branch, or for NB = 2 their sum).  Every
@@ -8,9 +9,10 @@
 //
 //   Y[P g + s] = sum_{k < len[s]} t[s][k] x[D g + c[s] + S k]
 //
-//   filter (P, D, S) = (1, 1, 1): c = -(m/2), t = reversed taps
-//   dfilt            = (2, 4, 2): level2.dfilt_streams
-//   ifilt            = (4, 2, 2): ilevel2.ifilt_streams
+//   filter2, filter2_sum (P, D, S) = (1, 1, 1): c = -(m/2), t = reversed
+//                                    taps
+//   dfilt, dfilt2        = (2, 4, 2): level2.dfilt_streams
+//   ifilt, ifilt2_sum    = (4, 2, 2): ilevel2.ifilt_streams
 //
 // so the kernels hold no parity logic.  Each branch has its own tap counts
 // and offsets, so filters of unequal length (near_sym_b's 13/19 taps, or

@@ -66,10 +66,14 @@ _SIGNATURES = {
 # the stream kernels of csrc/dual.cu and csrc/single.cu share one interface
 # (csrc/streams.cuh): in0, in1, out0, out1, outer, n_in, inner, g0, g1,
 # refl, taps, lens, offs, dtype, stream
-for _name in ("filter2", "dfilt2", "filter2_sum", "ifilt2_sum", "filter",
-              "dfilt", "ifilt"):
+for _name in ("filter2", "dfilt2", "filter2_sum", "ifilt2_sum", "dfilt",
+              "ifilt"):
     _SIGNATURES["dtcwt_" + _name] = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                      _P, _P, _P, _I, _P)
+# the filter kernel of csrc/filter.cu: x, y, outer, n_in, inner, g, c, refl,
+# m, taps, mt, path, v, vc, rows, seg, tx, dtype, stream
+_SIGNATURES["dtcwt_filter"] = (_P, _P) + (_I,) * 7 + (_P,) + (_I,) * 8 + (
+    _P,)
 # the 3-D level kernels of csrc/pack3d.cu: in_a, in_b, bands_a, bands_b,
 # out_a, out_b, out_c, B, Dn, H, W, Ho, Wo, taps, lens, offs, dtype, planes,
 # stream

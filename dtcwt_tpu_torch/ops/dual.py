@@ -28,10 +28,11 @@ parity, and signals shorter than the filter.  The host turns every filter
 pair into output streams (:func:`level2.dfilt_streams`,
 :func:`ilevel2.ifilt_streams`), so the kernels hold no parity logic.
 
-The same stream plans with one branch are the single-stream kernels of
-:mod:`single` (``filter``, ``dfilt``, ``ifilt``; ``csrc/single.cu``), which
-launch through :func:`_launch` here; both sources instantiate the one
-kernel of ``csrc/streams.cuh``.
+The same stream plans with one branch are the single-stream kernels
+``dfilt`` and ``ifilt`` of :mod:`single` (``csrc/single.cu``), which launch
+through :func:`_launch` here; both sources instantiate the one kernel of
+``csrc/streams.cuh``.  :mod:`single`'s ``filter`` has a kernel of its own
+(``csrc/filter.cu``).
 """
 
 from __future__ import annotations
@@ -62,8 +63,7 @@ _INT_MAX = 2 ** 31 - 1
 # branches are the plans given to _launch (two here, one in ops/single)
 _GEOM = {"filter2": (1, 2, 1, 1, 1), "dfilt2": (1, 2, 2, 4, 2),
          "filter2_sum": (2, 1, 1, 1, 1), "ifilt2_sum": (2, 1, 4, 2, 2),
-         "filter": (1, 1, 1, 1, 1), "dfilt": (1, 1, 2, 4, 2),
-         "ifilt": (1, 1, 4, 2, 2)}
+         "dfilt": (1, 1, 2, 4, 2), "ifilt": (1, 1, 4, 2, 2)}
 
 _device_taps = {}   # (taps bytes, device) -> float64 tap table on the card
 
@@ -158,13 +158,10 @@ def _tap_table(plans, device) -> torch.Tensor:
     return table
 
 
-def _launch(name: str, ins, plans, groups, axis: int, side=None):
-    """Run kernel *name* on the contiguous CUDA tensors *ins* along *axis*:
-    branch b's streams ``plans[b] = (taps [P, m_b], offsets)`` write
-    ``P * groups[b]`` samples (one or two branches, as the kernel has).
-    *side*: the inputs are extended by that many samples per side
-    (from-extension mode) instead of reflected."""
-    n_in_t, n_out, P, D, S = _GEOM[name]
+def _axis_view(name: str, ins, axis: int):
+    """(axis, outer, n_in, inner, dtype code): the kernels' [outer, n_in,
+    inner] view of the inputs *ins* along *axis*, which must be contiguous
+    and share one dtype and device."""
     x = ins[0]
     ax = fb._norm_axis(axis, x.ndim)
     code = _build.dtype_code(x.dtype)
@@ -175,9 +172,20 @@ def _launch(name: str, ins, plans, groups, axis: int, side=None):
         if not t.is_contiguous():
             raise ValueError("%s needs contiguous inputs" % name)
     shape = tuple(x.shape)
-    outer = int(np.prod(shape[:ax], dtype=np.int64))
-    n_in = shape[ax]
-    inner = int(np.prod(shape[ax + 1:], dtype=np.int64))
+    return (ax, int(np.prod(shape[:ax], dtype=np.int64)), shape[ax],
+            int(np.prod(shape[ax + 1:], dtype=np.int64)), code)
+
+
+def _launch(name: str, ins, plans, groups, axis: int, side=None):
+    """Run kernel *name* on the contiguous CUDA tensors *ins* along *axis*:
+    branch b's streams ``plans[b] = (taps [P, m_b], offsets)`` write
+    ``P * groups[b]`` samples (one or two branches, as the kernel has).
+    *side*: the inputs are extended by that many samples per side
+    (from-extension mode) instead of reflected."""
+    n_in_t, n_out, P, D, S = _GEOM[name]
+    x = ins[0]
+    ax, outer, n_in, inner, code = _axis_view(name, ins, axis)
+    shape = tuple(x.shape)
     offs = []
     for b, (taps, o_b) in enumerate(plans):
         for s in range(P):

@@ -22,9 +22,10 @@ compute.  ``colfilter`` ... ``rowifilt`` are the column and row aliases of
 the JAX package's low-level API, on these entries.
 
 An entry takes its route from the input's device: a CPU tensor runs the
-plain version, a CUDA tensor launches the kernel (``csrc/single.cu``, the
-one-branch instance of the stream kernel that :mod:`dual` runs with two) or
-raises.  The nine names of the low-level API (``filter_axis``,
+plain version, a CUDA tensor launches the kernel or raises.  ``filter``'s
+kernel is ``csrc/filter.cu``, tiled by :func:`_filter_geometry` here;
+``dfilt`` and ``ifilt`` are the one-branch instances in ``csrc/single.cu``
+of the stream kernel that :mod:`dual` runs with two.  The nine names of the low-level API (``filter_axis``,
 ``dfilt_axis``, ``ifilt_axis`` and the column / row aliases) also take a
 non-tensor input, a numpy array or a list, as the JAX package's do, and a
 keyword *device*: a tensor stays on its device unless *device* is given, a
@@ -32,18 +33,20 @@ non-tensor input goes to *device*, the card (``"cuda"``) by default.  The
 kernels take any axis of a contiguous tensor, float32, bfloat16 or
 float64, filters of up to 32 taps per stream of any length and parity, and
 signals shorter than the filter; the host plans
-(:func:`dual._filter_plan`, :func:`level2.dfilt_streams`,
-:func:`ilevel2.ifilt_streams`) hold every parity rule.
+(:func:`level2.dfilt_streams`, :func:`ilevel2.ifilt_streams`) and
+:func:`_filter` hold every parity rule.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple, Tuple
+
 import numpy as np
 import torch
 
-from dtcwt_tpu_torch.ops import fb
+from dtcwt_tpu_torch.ops import _build, fb
 from dtcwt_tpu_torch.ops.dual import (
-    _ext_len, _filter_plan, _launch, _on_cpu, _plain)
+    _INT_MAX, _MAX_TAPS, _axis_view, _ext_len, _launch, _on_cpu, _plain)
 from dtcwt_tpu_torch.ops.ilevel2 import ifilt_streams
 from dtcwt_tpu_torch.ops.level2 import dfilt_streams
 
@@ -83,10 +86,103 @@ def _input(x, device) -> torch.Tensor:
     return fb._asfloat(torch.as_tensor(np.asarray(x), device=device))
 
 
+_THREADS = 256            # csrc/filter.cu FILTER_THREADS
+_COL_ROWS = 8             # csrc/filter.cu FILTER_RV
+_STAGE_BYTES = 16384      # input a block stages on the rows path
+
+
+class FilterGeometry(NamedTuple):
+    """The tiling of one ``filter`` launch (``csrc/filter.cu``).
+
+    *path* ``"rows"`` (``inner = 1``): block ``b`` takes segment ``b %
+    grid[1]`` (outputs ``[s * seg, s * seg + seg)``) of the *rows* outer
+    rows from ``(b // grid[1]) * rows``; its threads take items of *v*
+    consecutive outputs of one row in turn.  *path* ``"cols"``: block
+    ``b`` is (outer, row tile, column tile) ``b`` in ``grid`` (the last
+    fastest); thread ``(tid % tx, tid // tx)`` owns *vc* columns from
+    ``(ct * tx + tid % tx) * vc`` and *v* output rows from ``rt * seg +
+    (tid // tx) * v``.  *mt*: the tap loop's compile-time length; *smem*:
+    dynamic shared memory bytes a block."""
+    path: str
+    mt: int
+    v: int
+    vc: int
+    rows: int
+    seg: int
+    tx: int
+    grid: Tuple[int, ...]
+    smem: int
+
+    @property
+    def blocks(self) -> int:
+        return int(np.prod(self.grid, dtype=np.int64))
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _filter_geometry(outer: int, n_in: int, inner: int, g: int, m: int,
+                     itemsize: int, x_ptr: int, y_ptr: int
+                     ) -> FilterGeometry:
+    """The tiling of ``filter`` on ``[outer, n_in, inner]`` into ``[outer,
+    g, inner]`` with *m* taps, for elements of *itemsize* bytes at device
+    addresses *x_ptr* and *y_ptr*."""
+    mt = next(t for t in (8, 16, 32) if m <= t)
+    vec = 16 // itemsize
+    if inner == 1:
+        # several whole rows of a short axis, or segments of a long one
+        tgt = _STAGE_BYTES // itemsize
+        if n_in <= tgt:
+            seg, rows = _cdiv(g, vec) * vec, max(1, min(outer, tgt // n_in))
+        else:
+            seg, rows = tgt, 1
+        smem = itemsize * (vec + (rows - 1) * n_in + min(n_in, seg + mt - 1))
+        return FilterGeometry("rows", mt, vec, 1, rows, seg, 1,
+                              (_cdiv(outer, rows), _cdiv(g, seg)), smem)
+    vc = 2 if itemsize == 8 else 4
+    if inner % vc or x_ptr % (vc * itemsize) or y_ptr % (vc * itemsize):
+        vc = 1
+    tx = min(_THREADS, 1 << (_cdiv(inner, vc) - 1).bit_length())
+    seg = _THREADS // tx * _COL_ROWS
+    return FilterGeometry("cols", mt, _COL_ROWS, vc, 1, seg, tx,
+                          (outer, _cdiv(g, seg), _cdiv(inner, tx * vc)), 0)
+
+
 def _filter(x, h, axis, n, side=None):
-    plan = _filter_plan(h)
-    g = n + 1 - plan[0].shape[1] % 2
-    return _launch("filter", [x], [plan], [g], axis, side)[0]
+    """Launch ``csrc/filter.cu``: Y[i] = sum_k rev(h)[k] x[i + c + k] for
+    the r + 1 - m % 2 outputs, c = -(m//2) reflected, or side - m//2 into
+    a buffer extended by *side*."""
+    h = fb._as_taps(h)
+    m = h.size
+    if m > _MAX_TAPS:
+        raise ValueError("filter takes at most %d taps, got %d"
+                         % (_MAX_TAPS, m))
+    ax, outer, n_in, inner, code = _axis_view("filter", [x], axis)
+    shape = tuple(x.shape)
+    g = n + 1 - m % 2
+    c = (side or 0) - m // 2
+    if side is not None and (c < 0 or c + g + m - 2 >= n_in):
+        raise ValueError("filter: an extension of %d per side does not "
+                         "cover the filters' reach" % side)
+    if max(outer, n_in, inner, g) > _INT_MAX:
+        raise ValueError("filter: the axis view [%d, %d, %d] exceeds the "
+                         "kernel's 32-bit sizes" % (outer, n_in, inner))
+    out = torch.empty(shape[:ax] + (g,) + shape[ax + 1:], dtype=x.dtype,
+                      device=x.device)
+    if outer * inner == 0:
+        return out
+    geo = _filter_geometry(outer, n_in, inner, g, m, x.element_size(),
+                           x.data_ptr(), out.data_ptr())
+    taps = np.ascontiguousarray(h[::-1])
+    err = _build.library().dtcwt_filter(
+        x.data_ptr(), out.data_ptr(), outer, n_in, inner, g, c,
+        int(side is None), m, taps.ctypes.data, geo.mt,
+        int(geo.path == "cols"), geo.v, geo.vc, geo.rows, geo.seg, geo.tx,
+        code, _build.stream_ptr(x.device))
+    _build.check("filter", err)
+    _build.count("filter")
+    return out
 
 
 def filter_axis(x, h, axis: int, device=None) -> torch.Tensor:

@@ -568,6 +568,23 @@ def _single_cases(kind):
     return out
 
 
+# filter's tiles (csrc/filter.cu): rows longer than one staged segment
+# (4097 and 8192 in float32 and float64, 20000 in every type), several
+# short rows to a block ([300, 256], [7, 5], odd n for the even filters),
+# and columns at inner 2, 3 and 33 (scalar columns)
+_FILTER_SHAPES = [((3, 4097), (-1,)), ((2, 8192), (-1,)),
+                  ((2, 20000), (-1,)), ((300, 256), (-1,)),
+                  ((7, 5), (-1, -2)), ((5, 40, 2), (-2,)),
+                  ((5, 40, 3), (-2,)), ((3, 50, 33), (-2,))]
+
+
+def _at_odd_offset(t):
+    """*t* as a contiguous view one element into its storage, so that its
+    rows leave 16-byte alignment."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
                                    torch.bfloat16])
@@ -576,23 +593,30 @@ def test_cuda_single_matches_plain(cuda, kind, dtype):
     """Every single-stream kernel in its axis and from-extension modes, for
     every family's filters (bandpass included, both tap orders of each
     pair, so both signs of sum(ha*hb)), on axes -1, -2 and -3, inner 1 and
-    signals shorter than the filter."""
+    signals shorter than the filter, the extension a contiguous view at an
+    odd storage offset; ``filter`` also on the shapes of its tiles.  Each
+    call makes one launch."""
     kern = getattr(single, kind + "_axis")
     plain = getattr(single, kind + "_axis_reference")
     kern_x = getattr(single, kind + "_fromext_axis")
     plain_x = getattr(single, kind + "_fromext_axis_reference")
     side = 32       # covers qshift_32's 32-tap decimator
+    shapes = _DUAL_SHAPES + (_FILTER_SHAPES if kind == "filter" else [])
     for label, f in _single_cases(kind):
-        for seed, (shape, axes) in enumerate(_DUAL_SHAPES):
+        for seed, (shape, axes) in enumerate(shapes):
             x = _rand(shape, seed, cuda, dtype)
             for axis in axes:
+                _build.reset_launches()
                 got = kern(x, *f, axis)
                 torch.cuda.synchronize()
+                assert dict(_build.launches) == {kind: 1}
                 assert _kerr(got, plain(x, *f, axis)) < _KTOL[dtype], \
                     (label, shape, axis)
-                e = fb.symmetric_extend(x, side, axis).contiguous()
+                e = _at_odd_offset(fb.symmetric_extend(x, side, axis))
+                _build.reset_launches()
                 got = kern_x(e, side, *f, axis)
                 torch.cuda.synchronize()
+                assert dict(_build.launches) == {kind: 1}
                 assert _kerr(got, plain_x(e, side, *f, axis)) < \
                     _KTOL[dtype], (label, shape, axis, side)
 
@@ -629,6 +653,11 @@ def test_cuda_single_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(TypeError, match="float32, bfloat16 or float64"):
         single.filter_axis(torch.zeros(16, 8, device=cuda,
                                        dtype=torch.float16), b[0], 0)
+    with pytest.raises(ValueError, match="at most 32 taps"):
+        single.filter_axis(torch.zeros(16, 8, device=cuda), np.ones(33), 0)
+    with pytest.raises(ValueError, match="reach"):
+        single.filter_fromext_axis(torch.zeros(16, 8, device=cuda), 2, b[1],
+                                   0)
     q = qshift("qshift_a")
     with pytest.raises(ValueError, match="reach"):
         single.dfilt_fromext_axis(torch.zeros(24, 8, device=cuda), 4, q[1],

@@ -268,3 +268,185 @@ def test_device_keyword_moves_a_tensor():
     assert tops.colfilter(x, h, device="cpu").device.type == "cpu"
     with pytest.raises(ValueError, match="CPU or CUDA"):
         tops.rowfilter(x, h, device="meta")
+
+
+# --- the tiling of the filter kernel (csrc/filter.cu), replayed in numpy ----
+
+def _source(j, n_in, refl):
+    """csrc/filter.cu source(): in-axis index of sample j, -1 for zero."""
+    j = np.asarray(j)
+    r = 2 * n_in
+    t = j % r
+    t = np.where(t < n_in, t, r - 1 - t)
+    inside = (j >= 0) & (j < n_in)
+    return np.where(inside, j, t if refl else -1)
+
+
+def _windows(w, m, count):
+    """[items, count, ...rest, m]: the m samples from each of the first
+    *count* positions of axis 1 of *w* (a thread's register window)."""
+    return np.lib.stride_tricks.sliding_window_view(w, m, axis=1)[:, :count]
+
+
+def _replay_rows(geo, xf, taps, outer, n_in, g, c, refl, isz, x_ptr):
+    """Every block and thread item of the rows path: (flat output index,
+    value) of each store, with the staging and window reads checked."""
+    m, V, mt = taps.size, geo.v, geo.mt
+    vec = 16 // isz
+    assert geo.smem % isz == 0
+    n_seg = geo.grid[1]
+    idx, val = [], []
+    for blk in range(geo.blocks):
+        s0 = (blk % n_seg) * geo.seg
+        o0 = (blk // n_seg) * geo.rows
+        rows = min(geo.rows, outer - o0)
+        lr = min(geo.seg, g - s0)
+        a = max(0, s0 + c)
+        b = min(n_in, s0 + c + geo.seg + mt - 1)
+        f0 = o0 * n_in + a
+        ln = (rows - 1) * n_in + (b - a)
+        pad = ((x_ptr + f0 * isz) % 16) // isz
+        assert 0 < ln and pad < vec and pad + ln <= geo.smem // isz
+        staged = np.full(geo.smem // isz, np.nan)
+        staged[pad:pad + ln] = xf[f0:f0 + ln]
+        # the interior chunks [q_lo, q_hi) first, then the row ends
+        chunks = -(-lr // V)
+        reach = V + m - 1
+        lo, hi = -(s0 + c), n_in - reach - s0 - c
+        q_lo = min(chunks, -(-lo // V)) if lo > 0 else 0
+        q_hi = max(q_lo, min(chunks, 0 if hi < 0 else hi // V + 1))
+        ni, ne = q_hi - q_lo, chunks - (q_hi - q_lo)
+        it, ie = np.arange(rows * ni), np.arange(rows * ne)
+        k = ie % max(ne, 1)
+        r = np.concatenate([it // max(ni, 1), ie // max(ne, 1)])
+        q = np.concatenate([q_lo + it % max(ni, 1),
+                            np.where(k < q_lo, k, q_hi + k - q_lo)])
+        fast = np.arange(r.size) < it.size
+        i0 = s0 + q * V
+        j0 = i0 + c
+        rbase = r * n_in - a + pad
+        t = np.arange(V + mt - 1)
+        assert ((j0 >= 0) & (j0 + reach <= n_in))[fast].all()
+        jj = np.where(fast[:, None], j0[:, None] + t,
+                      _source(j0[:, None] + t, n_in, refl))
+        s = rbase[:, None] + np.maximum(jj, 0)
+        used = (t < reach) & (jj >= 0)
+        nv = np.minimum(V, s0 + lr - i0)
+        # a sample that a real tap of a stored output reads lies in the
+        # staged range, unclamped
+        need = used & (t < (nv + m - 1)[:, None])
+        assert ((s >= pad) & (s < pad + ln))[need].all()
+        w = np.where(used, staged[np.clip(s, pad, pad + ln - 1)], 0.0)
+        acc = _windows(w, m, V) @ taps
+        v = np.arange(V)
+        ok = v[None, :] < nv[:, None]
+        flat = (o0 + r)[:, None] * g + i0[:, None] + v
+        idx.append(flat[ok])
+        val.append(acc[ok])
+    return np.concatenate(idx), np.concatenate(val)
+
+
+def _replay_cols(geo, xf, taps, outer, n_in, inner, g, c, refl):
+    """Every thread of the columns path: (flat output index, value) of
+    each store, with every read checked to lie in the input."""
+    m, RV, vc, mt, tx = taps.size, geo.v, geo.vc, geo.mt, geo.tx
+    n_rt, n_ct = geo.grid[1], geo.grid[2]
+    blk = np.arange(geo.blocks)[:, None]
+    tid = np.arange(256)[None, :]
+    ct, rt = blk % n_ct, (blk // n_ct) % n_rt
+    o = blk // (n_ct * n_rt)
+    col = (ct * tx + tid % tx) * vc
+    i0 = (rt * (256 // tx) + tid // tx) * RV
+    live = (col < inner) & (i0 < g)
+    col, i0, o = col[live], i0[live], np.broadcast_to(o, live.shape)[live]
+    r = np.arange(RV + mt - 1)
+    jj = _source(i0[:, None] + c + r, n_in, refl)
+    u = np.arange(vc)
+    src = ((o * n_in)[:, None, None] + np.maximum(jj, 0)[:, :, None]) \
+        * inner + col[:, None, None] + u
+    assert src.min() >= 0 and src.max() < xf.size
+    win = np.where(jj[:, :, None] >= 0, xf[src], 0.0)
+    acc = _windows(win, m, RV) @ taps
+    v = np.arange(RV)
+    ok = np.broadcast_to((i0[:, None] + v < g)[:, :, None], acc.shape)
+    flat = ((o * g)[:, None, None] + i0[:, None, None] + v[:, None]) \
+        * inner + col[:, None, None] + u
+    return flat[ok], acc[ok]
+
+
+# (itemsize, storage offset of the input in elements).  Rows: float32
+# aligned and not, bfloat16 three elements off, float64 one element off.
+# Columns: vector columns (float32 aligned, float64) and scalar ones
+# (float32 one element off).
+_ALIGN = {"rows": [(4, 0), (4, 1), (2, 3), (8, 1)],
+          "cols": [(4, 0), (4, 1), (8, 0)]}
+
+
+@pytest.mark.parametrize("inner", [1, 2, 3, 4, 33, 64, 65])
+@pytest.mark.parametrize("n", [1, 2, 5, 31, 255, 256, 257, 1500, 4097])
+def test_filter_tiling_replay(n, inner):
+    """Replay ``single._filter_geometry``'s tiles as ``csrc/filter.cu``
+    walks them, at float64: which input samples each block and thread
+    reads (staged or direct, reflected or from the extension) and which
+    outputs it writes.  Every output is written exactly once and equals
+    ``fb.filter_axis`` / ``fb.filter_from_wide_ext`` at 1e-12, for 1 to
+    32 taps, both modes, and inputs at offsets that break 16-byte
+    alignment (the rows path's scalar head and tail, the columns path's
+    scalar columns)."""
+    outer = 5 if inner == 1 else 2
+    path = "rows" if inner == 1 else "cols"
+    rng = np.random.RandomState(n * 100 + inner)
+    x = torch.from_numpy(rng.rand(outer, n, inner))
+    for m in range(1, 33):
+        h = rng.rand(m) - 0.5
+        taps = h[::-1].copy()
+        g = n + 1 - m % 2
+        for side in (None, m // 2 + 2):
+            if side is None:
+                buf, c = x, -(m // 2)
+                want = fb.filter_axis(x, h, 1)
+            else:
+                buf, c = fb.symmetric_extend(x, side, 1), side - m // 2
+                want = fb.filter_from_wide_ext(buf, side, h, 1)
+            n_in = buf.shape[1]
+            xf = buf.reshape(-1).numpy()
+            want = want.reshape(-1).numpy()
+            for isz, off in _ALIGN[path]:
+                x_ptr, y_ptr = 1 << 20 | off * isz, 1 << 21
+                geo = single._filter_geometry(outer, n_in, inner, g, m, isz,
+                                              x_ptr, y_ptr)
+                assert geo.path == path
+                if path == "rows":
+                    idx, val = _replay_rows(geo, xf, taps, outer, n_in, g,
+                                            c, side is None, isz, x_ptr)
+                else:
+                    idx, val = _replay_cols(geo, xf, taps, outer, n_in,
+                                            inner, g, c, side is None)
+                hits = np.bincount(idx, minlength=want.size)
+                assert hits.size == want.size and (hits == 1).all(), \
+                    (m, side, isz, off)
+                got = np.empty_like(want)
+                got[idx] = val
+                assert np.abs(got - want).max() < TOL64, (m, side, isz, off)
+
+
+def test_filter_geometry_main_path_tiles():
+    """The tiles of the main path's calls: 256^3 W (rows of 256, 16 to a
+    block), H and D (8 output rows a thread, float4 columns), the 4096^2
+    row and column calls and the 4M-sample vector's segments."""
+    g = single._filter_geometry
+    w = g(65536, 256, 1, 256, 5, 4, 0, 0)
+    assert (w.path, w.rows, w.seg, w.v, w.grid) == ("rows", 16, 256, 4,
+                                                    (4096, 1))
+    assert w.smem == 4 * (4 + 15 * 256 + 256)
+    h = g(256, 256, 256, 256, 7, 4, 0, 0)
+    assert (h.path, h.vc, h.tx, h.seg, h.grid) == ("cols", 4, 64, 32,
+                                                   (256, 8, 1))
+    d = g(1, 256, 65536, 256, 7, 4, 0, 0)
+    assert (d.vc, d.tx, d.seg, d.grid) == (4, 256, 8, (1, 32, 64))
+    assert g(4096, 4096, 1, 4096, 7, 2, 0, 0).rows == 2
+    assert g(1, 4096, 4096, 4096, 7, 2, 0, 0).vc == 4
+    assert g(1, 4096, 4096, 4096, 7, 4, 4, 0).vc == 1
+    v = g(1, 4194304, 1, 4194304, 7, 4, 0, 0)
+    assert (v.rows, v.seg, v.grid, v.mt) == (1, 4096, (1, 1024), 8)
+    assert g(1, 64, 1, 65, 32, 8, 0, 0).mt == 32
