@@ -603,9 +603,11 @@ def time_bandpass(dev) -> None:
                     tot.update(ms=ms, plain_ms=pms, nobp_ms=nms, bound_ms=bms)
                 print("time %s bandpass %s %s: kernel %.4f ms, without the "
                       "third stream (near_sym_b / qshift_b) %.4f ms, plain "
-                      "%.4f ms, bound %.4f ms (%s)" % (
+                      "%.4f ms, bound %.4f ms (%s), %.1f%% of the bound "
+                      "(without the third stream %.1f%%)" % (
                           name, "x".join(map(str, shape)), label, ms, nms,
-                          pms, bms, by), flush=True)
+                          pms, bms, by, 100 * bms / ms, 100 * bms / nms),
+                      flush=True)
                 del inp, kern, plain
         print("time %s bandpass, f32 interleaved, its %d launch(es) of one "
               "round trip: kernel %.4f ms, without the third stream %.4f ms, "
@@ -1995,17 +1997,18 @@ def main() -> int:
                 kern, plain = level_call(name, inp, pl, b, q)
                 ms = cuda_ms(kern, hold=True)
                 pms = cuda_ms(plain, hold=True)
+                bms, by = bound(nbytes(inp) + nbytes(kern()),
+                                level_macs(name, inp, b, q))
                 if dtype == torch.float32 and not pl:
-                    bms, by = bound(nbytes(inp) + nbytes(kern()),
-                                    level_macs(name, inp, b, q))
                     report[name]["ms"] += ms
                     report[name]["plain_ms"] += pms
                     report[name]["bound_ms"] += bms
                     if by != "bytes":
                         report[name]["bound_by"] = by
-                print("time %s %s %s: kernel %.4f ms, plain %.4f ms" % (
-                    name, "x".join(map(str, shape)), label, ms, pms),
-                    flush=True)
+                print("time %s %s %s: kernel %.4f ms, plain %.4f ms, bound "
+                      "%.4f ms (%s), %.1f%% of the bound" % (
+                          name, "x".join(map(str, shape)), label, ms, pms,
+                          bms, by, 100 * bms / ms), flush=True)
                 del inp, kern, plain
 
     for label, x, layout in runs_1d:

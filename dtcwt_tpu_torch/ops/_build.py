@@ -30,8 +30,8 @@ import torch
 
 __all__ = ["library", "build", "launches", "reset_launches", "count",
            "flatten_batch", "dtype_code", "stream_ptr", "check", "taps_arg",
-           "ints_arg", "ptr", "check_smem", "odd_filters", "pair_filters",
-           "fir_args"]
+           "ints_arg", "ptr", "check_smem", "check_smem_bytes",
+           "odd_filters", "pair_filters", "fir_args"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -51,8 +51,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # tap table (t2, taps2) means no bandpass third stream
 _SIGNATURES = {
     # x, lolo, out_a, out_b, B, R, C, t0, m0, t1, m1, t2, m2, dtype, planes,
-    # stream
-    "dtcwt_level1": (_P,) * 4 + (_I,) * 3 + (_P, _I) * 3 + (_I, _I, _P),
+    # th, mt, vlo, vpl, stream
+    "dtcwt_level1": (_P,) * 4 + (_I,) * 3 + (_P, _I) * 3 + (_I,) * 6 + (
+        _P,),
     # x, lolo, out_a, out_b, B, R, C, taps, offs, taps2, offs2, m, dtype,
     # planes, stream
     "dtcwt_level2": (_P,) * 4 + (_I,) * 3 + (_P,) * 4 + (_I,) * 3 + (_P,),
@@ -230,8 +231,14 @@ def check_smem(name: str, dtype: torch.dtype, tile, halo: int,
     wide as a staged tile, at the accumulator's width (the sizes that
     ``run_*`` computes in ``csrc/*level*.cu``)."""
     acc = 8 if dtype == torch.float64 else 4
-    nbytes = acc * (images * (tile[0] + 2 * halo) + stages * stage_rows) * (
-        tile[1] + 2 * halo)
+    check_smem_bytes(name, acc * (
+        images * (tile[0] + 2 * halo) + stages * stage_rows) * (
+        tile[1] + 2 * halo))
+
+
+def check_smem_bytes(name: str, nbytes: int) -> None:
+    """Raise ValueError where a launch would ask for *nbytes* of dynamic
+    shared memory a block, more than a block may have."""
     if nbytes > SMEM_LIMIT:
         raise ValueError("%s: the filters need %d bytes of shared memory a "
                          "block, over the card's %d" % (name, nbytes,

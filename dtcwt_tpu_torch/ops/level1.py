@@ -2,11 +2,16 @@
 
 Replaces the Pallas kernel ``dtcwt_tpu/ops/pallas_level1.py:fwd_level1``.
 What bounds it on the H100, and what the design does about it, is in the
-kernel's source, ``csrc/level1.cu``: it is a memory-bound stencil, so the
-kernel reads its input once per tile and keeps every intermediate image on
-chip.  The bandpass families' third filter *h2o* is the kernel's third
-stream (bands 1 and 4 from ``h2o`` on both axes); like ``h0o`` and ``h1o``
-it must have an odd length of at most 32 taps, and the largest of the three
+kernel's source, ``csrc/level1.cu``: a memory-bound stencil whose blocks
+each take a tile of 32 or 64 rows by 128 columns, filter its columns from
+register windows into shared memory and its rows from 16-byte shared
+windows, and store in vectors; no intermediate image reaches device
+memory.  :func:`_level1_geometry` chooses the tiling (rows a tile, the
+compile-time tap bound, the store vectors) and the kernel refuses any
+other; the CPU tests replay it (``tests/test_torch_level1_tiling.py``).
+The bandpass families' third filter *h2o* is the kernel's third stream
+(bands 1 and 4 from ``h2o`` on both axes); like ``h0o`` and ``h1o`` it
+must have an odd length of at most 32 taps, and the largest of the three
 half-lengths sets the tile's halo.
 
 :func:`fwd_level1` takes its route from the input's device: a CPU tensor
@@ -15,6 +20,8 @@ raises.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -59,6 +66,68 @@ def fwd_level1_reference(x: torch.Tensor, h0o, h1o, planes: bool = False,
     return lolo.to(x.dtype), _pack(im05, im23, im14, planes, x.dtype)
 
 
+_THREADS = 256        # csrc/level1.cu L1_THREADS
+_TW = 128             # L1_TW: output columns a tile
+_TALL_SMEM = 73728    # 64-row tiles for bfloat16 where three blocks fit
+_RV = 16              # L1_RV: output rows a column-stage item
+_V = 4                # L1_V: output columns a row-stage item
+
+
+class Level1Geometry(NamedTuple):
+    """The tiling of one ``fwd_level1`` launch (``csrc/level1.cu``).
+
+    Block ``(bx, by, b)`` of ``grid`` owns output rows ``[by * th, by * th
+    + th)`` and columns ``[bx * tw, bx * tw + tw)`` of image ``b``.  Column
+    stage: item ``it`` (``it < th // rv * (tw + 2p)``, threads taking
+    ``it = tid, tid + threads, ...``) is staged column ``lc = it % (tw +
+    2p)`` (input column ``bx * tw - p + lc``, reflected) by tile rows ``(it
+    // (tw + 2p)) * rv ..`` + rv - 1.  Row stage: item ``it`` (``< th // 2
+    * tw // 4``) is quad row ``it // 32`` (one warp) by output columns ``4
+    * (it % 32) ..`` + 3 of the tile; in the interleaved layout the warp
+    stages its 64 quads in shared memory and stores them as 16-byte
+    pieces.  *p*: the halo (largest half-length); *mt*: the tap loops'
+    compile-time bound (>= 2p + 1); *xws*: the shared row stride; *smem*:
+    dynamic shared memory bytes a block; *vlo*: 4-wide lowpass stores;
+    *vpl*: 2-wide plane stores."""
+    th: int
+    tw: int
+    rv: int
+    p: int
+    mt: int
+    xws: int
+    smem: int
+    grid: Tuple[int, int, int]
+    vlo: bool
+    vpl: bool
+
+
+def _level1_geometry(B: int, R: int, C: int, m_max: int, dtype: torch.dtype,
+                     planes: bool, streams: int = 2,
+                     th: Optional[int] = None) -> Level1Geometry:
+    """The tiling of ``fwd_level1`` on ``[B, R, C]`` with filters of at most
+    *m_max* taps, *streams* column images (3 with the bandpass third
+    stream), for outputs of *dtype* in the plane or interleaved layout, in
+    tiles of *th* rows (32 or 64; by default 64 for bfloat16 where three
+    blocks still fit an SM, else 32: the faster of the two on an H100 for
+    each type).
+    Outputs are fresh allocations, so 16-byte aligned: the vectors depend
+    on the row and plane widths alone."""
+    p = m_max // 2
+    mt = next(t for t in (8, 16, 24, 32) if 2 * p + 1 <= t)
+    acc = 8 if dtype == torch.float64 else 4
+    xws = -(-(_TW + 2 * p) // 4) * 4
+
+    def smem_of(rows):
+        return acc * (streams * rows * xws + (0 if planes else _THREADS * 24))
+    if th is None:
+        th = 64 if (dtype == torch.bfloat16
+                    and smem_of(64) <= _TALL_SMEM) else 32
+    smem = smem_of(th)
+    return Level1Geometry(
+        th, _TW, _RV, p, mt, xws, smem, (-(-C // _TW), -(-R // th), B),
+        C % _V == 0, bool(planes) and (C // 2) % 2 == 0)
+
+
 def fwd_level1(x: torch.Tensor, h0o, h1o, planes: bool = False, h2o=None):
     """Level-1 forward of ``[..., R, C]`` (R, C even); see
     :func:`fwd_level1_reference` for the outputs."""
@@ -77,10 +146,10 @@ def fwd_level1(x: torch.Tensor, h0o, h1o, planes: bool = False, h2o=None):
     if code == 1 and not planes:
         raise TypeError("bfloat16 subbands exist only in the plane layout")
     n = [f.size for f in filt if f is not None]
-    _build.check_smem("fwd_level1", x.dtype, (2 * _build.QY, 2 * _build.QX),
-                      max(n) // 2, 1, len(n), 2 * _build.QY)
     x3, lead = _build.flatten_batch(x)
     B, R, C = x3.shape
+    geo = _level1_geometry(B, R, C, max(n), x.dtype, planes, len(n))
+    _build.check_smem_bytes("fwd_level1", geo.smem)
     lolo = torch.empty_like(x3)
     h, w = R // 2, C // 2
     if planes:
@@ -97,7 +166,8 @@ def fwd_level1(x: torch.Tensor, h0o, h1o, planes: bool = False, h2o=None):
     err = lib.dtcwt_level1(
         x3.data_ptr(), lolo.data_ptr(), out_a.data_ptr(),
         None if out_b is None else out_b.data_ptr(), B, R, C, *taps, code,
-        int(planes), _build.stream_ptr(x.device))
+        int(planes), geo.th, geo.mt, int(geo.vlo), int(geo.vpl),
+        _build.stream_ptr(x.device))
     _build.check("fwd_level1", err)
     _build.count("level1")
     lolo = lolo.reshape(lead + (R, C))

@@ -56,18 +56,28 @@ def _rand(shape, seed, device, dtype):
         device, dtype)
 
 
+# fwd_level1's tiles are 32 or 64 rows by 128 columns: shapes that cross
+# tile edges both ways, tall and wide images, rows too short or odd for
+# its vector stores (C = 6, 202, 518, 4098), images shorter than the filters
+_L1_SHAPES = [(2, 36, 52), (2, 4, 6), (130, 200), (4100, 4098),
+              (3, 130, 200), (4096, 2), (2, 4096), (2, 38, 6), (6, 202),
+              (4, 518)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,planes", _CASES)
 @pytest.mark.parametrize("fam", ["near_sym_a", "near_sym_b", "legall"])
 def test_cuda_level1_matches_plain(cuda, dtype, planes, fam):
     h0o, _, h1o, _ = biort(fam)
-    for shape in [(2, 36, 52), (2, 4, 6), (130, 200)]:
+    for shape in _L1_SHAPES:
         x = _rand(shape, 0, cuda, dtype)
+        _build.reset_launches()
         got = level1.fwd_level1(x, h0o, h1o, planes=planes)
         torch.cuda.synchronize()
+        assert dict(_build.launches) == {"level1": 1}
         want = level1.fwd_level1_reference(x, h0o, h1o, planes=planes)
-        assert _kerr(got[0], want[0]) < _KTOL[dtype]
-        assert _kerr(got[1], want[1]) < _KTOL[dtype]
+        assert _kerr(got[0], want[0]) < _KTOL[dtype], shape
+        assert _kerr(got[1], want[1]) < _KTOL[dtype], shape
 
 
 @pytest.mark.cuda
@@ -153,7 +163,7 @@ def test_cuda_transform_matches_plain_path(cuda, layout):
 
 # --- the bandpass third stream of the four level kernels --------------------
 
-_BP_SHAPES = {"level1": [(2, 36, 52), (2, 4, 6), (130, 200)],
+_BP_SHAPES = {"level1": _L1_SHAPES,
               "level2": [(2, 40, 56), (2, 8, 12), (132, 260)],
               "ilevel2": [(2, 20, 28), (2, 4, 6), (66, 130)],
               "ilevel1": [(2, 36, 52), (2, 4, 6), (130, 200)]}
