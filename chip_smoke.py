@@ -44,7 +44,9 @@ Phases, each printing its own lines:
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes (float32, and bfloat16) and at small odd shapes
    in float64 for every family (the 2-D level kernels' bandpass variants
-   included), including signals shorter than the filter; each 2-D level
+   included), including signals shorter than the filter (``inv_level1``
+   at shapes that cross its tiles both ways, and at the main path's shape
+   with its inputs at a storage offset); each 2-D level
    kernel's bandpass variant also at the main path's shapes in three
    layouts; the dual-stream kernels also on axes -1, -2 and -3, on one
    signal (``inner = 1``) and in their from-extension mode; each 3-D level
@@ -92,8 +94,10 @@ Phases, each printing its own lines:
    (``F.conv2d`` for ``filter2``, ``filter2_sum`` and ``filter``, TF32
    off; for ``filter`` beside each 256^3 pass and each 4096^2 call, f32
    and bf16, with each pass's share of its bound), that call; the bound of each kernel (its bytes at 3.35 TB/s or its float32
-   operations at 67 TFLOP/s, whichever is longer); each round trip against
-   the plain path (the bandpass 2-D round trip too, and each level kernel's
+   operations at 67 TFLOP/s, whichever is longer); ``inv_level1`` also
+   for near_sym_b, antonini and legall in each layout against its bound;
+   each round trip against the plain path (the bandpass 2-D round trip
+   too, and each level kernel's
    bandpass variant at its main-path shapes against its bound, its plain
    version and the same kernel without the third stream on near_sym_b /
    qshift_b); for the f32 interleaved round trips (3-D: both f32
@@ -442,6 +446,62 @@ def level_plain_path():
             (level2, "fwd_level2", level2.fwd_level2_reference),
             (ilevel2, "inv_level2", ilevel2.inv_level2_reference),
             (ilevel1, "inv_level1", ilevel1.inv_level1_reference)]
+
+
+# inv_level1's tiles are 16 (float64: 8) rows by 128 columns: shapes that
+# cross tile edges both ways, tall and wide images, rows too short or odd
+# for its 4-wide stores, images shorter than the filters
+ILEVEL1_SHAPES = [(2, 36, 52), (2, 4, 6), (130, 200), (3, 130, 200),
+                  (4096, 2), (2, 4096), (2, 38, 6), (6, 202), (4, 518)]
+
+
+def at_offset(t):
+    """A copy of *t* (or of each tensor of a tuple) stored one element past
+    the start of its buffer, as a caller's tensor at a storage offset."""
+    if isinstance(t, tuple):
+        return tuple(at_offset(u) for u in t)
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    v = buf[1:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+def check_ilevel1_offsets(dev, bb, qq) -> None:
+    """Phase 3: inv_level1 at the main path's shape with the lowpass and the
+    subbands at a storage offset (no 16-byte alignment), each layout."""
+    for label, dtype, layout in LAYOUTS:
+        pl = layout == "planes"
+        z, band = level_inputs("ilevel1", (N, N), dtype, pl, dev, seed=7)
+        inp = (at_offset(z), {k: at_offset(v) for k, v in band.items()})
+        kern, plain = level_call("ilevel1", inp, pl, bb, qq)
+        got = kern()
+        torch.cuda.synchronize()
+        err = rel_err(got, plain())
+        check(err <= TOL[dtype], "kernel ilevel1 %dx%d %s, lowpass and "
+              "subbands at a storage offset: rel err %.3g (tol %g)" % (
+                  N, N, label, err, TOL[dtype]))
+        del z, band, inp, got
+
+
+def time_ilevel1_families(dev, qq) -> None:
+    """Phase 5: inv_level1 at the main path's shape for each biorthogonal
+    family beside near_sym_a (timed with the main path) and near_sym_b_bp
+    (timed with the bandpass path), in each layout, against its bound."""
+    import dtcwt_tpu_torch as dt
+    for label, dtype, layout in LAYOUTS:
+        pl = layout == "planes"
+        inp = level_inputs("ilevel1", (N, N), dtype, pl, dev)
+        for fam in ("near_sym_b", "antonini", "legall"):
+            bb = dt.biort(fam)
+            kern = level_call("ilevel1", inp, pl, bb, qq)[0]
+            ms = cuda_ms(kern, hold=True)
+            bms, by = bound(nbytes(inp) + nbytes(kern()),
+                            level_macs("ilevel1", inp, bb, qq))
+            print("time inv_level1 %s %dx%d %s: kernel %.4f ms, bound %.4f "
+                  "ms (%s), %.1f%% of the bound" % (
+                      fam, N, N, label, ms, bms, by, 100 * bms / ms),
+                  flush=True)
+        del inp
 
 
 def leaves(p):
@@ -1771,10 +1831,11 @@ def main() -> int:
                       "(tol %g)" % (name, "x".join(map(str, shape)), label,
                                     err, TOL[dtype]))
                 del got, want
+    check_ilevel1_offsets(dev, b, q)
     small = {"level1": [(2, 36, 52), (2, 4, 6)],
              "level2": [(2, 40, 56), (2, 8, 12)],
              "ilevel2": [(2, 20, 28), (2, 4, 6)],
-             "ilevel1": [(2, 36, 52), (2, 4, 6)]}
+             "ilevel1": ILEVEL1_SHAPES}
     for name, shapes in small.items():
         # every family, the bandpass ones with their third stream
         biorts = name in ("level1", "ilevel1")
@@ -2010,6 +2071,8 @@ def main() -> int:
                           name, "x".join(map(str, shape)), label, ms, pms,
                           bms, by, 100 * bms / ms), flush=True)
                 del inp, kern, plain
+
+    time_ilevel1_families(dev, q)
 
     for label, x, layout in runs_1d:
         ms = cuda_ms(lambda: t1.inverse(t1.forward(x, NLEVELS1,

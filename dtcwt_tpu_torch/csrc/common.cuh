@@ -46,6 +46,20 @@ __device__ __forceinline__ int reflect(int i, int n) {
   return t < n ? t : n2 - 1 - t;
 }
 
+// In-axis index of sample j of a length-n axis, reflected symmetrically.
+// One fold costs two compares; reflect()'s modulo is left to axes shorter
+// than the reach.
+__device__ __forceinline__ int fold(int j, int n) {
+  if (j >= 0 && j < n) return j;
+  const int f = j < 0 ? -1 - j : 2 * n - 1 - j;
+  return f >= 0 && f < n ? f : reflect(j, n);
+}
+
+// N consecutive values of T as one aligned vector access.
+template <typename T, int N> struct alignas(sizeof(T) * N) Vec {
+  T v[N];
+};
+
 // Position of degree band d in PLANE_BAND_ORDER = (0, 5, 1, 4, 2, 3).
 __device__ __forceinline__ int plane_pos(int d) {
   return d == 0 ? 0 : d == 1 ? 2 : d == 2 ? 4 : d == 3 ? 5 : d == 4 ? 3 : 1;

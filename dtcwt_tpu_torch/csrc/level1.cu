@@ -53,37 +53,13 @@
 //
 // The host (ops/level1.py, _level1_geometry) chooses TH, MT and the store
 // vectors and passes them in; the kernel refuses any other combination.
-#include "common.cuh"
+// The tiling's pieces shared with the level-1 inverse are in l1tile.cuh.
+#include "l1tile.cuh"
 
 namespace dtcwt {
 namespace {
 
-constexpr int L1_THREADS = 256;
-constexpr int L1_TW = 128;  // output columns a block: 32 lanes x 4
-constexpr int L1_RV = 16;   // output rows a column-stage item
-constexpr int L1_V = 4;     // output columns a row-stage item
-
-template <typename A> struct L1Taps {
-  A t[3][MAX_TAPS];  // reversed taps of h0o, h1o, h2o centred on p
-};
-
-// N consecutive values of T as one aligned vector access.
-template <typename T, int N> struct alignas(sizeof(T) * N) Vec {
-  T v[N];
-};
-
-// In-axis index of sample j of a length-n axis, reflected symmetrically.
-// One fold costs two compares; reflect()'s modulo is left to axes shorter
-// than the reach.
-__device__ __forceinline__ int fold(int j, int n) {
-  if (j >= 0 && j < n) return j;
-  const int f = j < 0 ? -1 - j : 2 * n - 1 - j;
-  return f >= 0 && f < n ? f : reflect(j, n);
-}
-
-__host__ __device__ constexpr int l1_xws(int p) {  // shared row stride
-  return (L1_TW + 2 * p + 3) / 4 * 4;
-}
+constexpr int L1_RV = 16;  // output rows a column-stage item
 
 // Column stage: stream s's column image of tile rows 0 .. th - 1 and
 // staged columns 0 .. 128 + 2p - 1 (input column c0 - p + lc) into
@@ -94,7 +70,6 @@ __device__ __forceinline__ void col_stage(
     int r0, int c0, int th, int p,
     const L1Taps<typename AccOf<T>::type>& tp) {
   using A = typename AccOf<T>::type;
-  constexpr int S = L1_RV + MT - 1;  // samples an item can need
   const int mm = 2 * p + 1;
   const int xw = L1_TW + 2 * p, xws = l1_xws(p);
   const int items = th / L1_RV * xw;
@@ -103,34 +78,14 @@ __device__ __forceinline__ void col_stage(
     const int g = it / xw, lc = it - g * xw;
     const int gc = fold(c0 - p + lc, C);
     const int rs = r0 + g * L1_RV - p;  // input row of sample 0
-    A s[S];
-    if (rows_in) {
-      const T* q = xb + static_cast<int64_t>(rs) * C + gc;
-#pragma unroll
-      for (int t = 0; t < S; ++t)
-        s[t] = t < L1_RV + mm - 1 ? load(q + static_cast<int64_t>(t) * C)
-                                  : A(0);
-    } else {
-#pragma unroll
-      for (int t = 0; t < S; ++t)
-        s[t] = t < L1_RV + mm - 1
-                   ? load(xb + static_cast<int64_t>(fold(rs + t, R)) * C +
-                          gc)
-                   : A(0);
-    }
+    A s[L1_RV + MT - 1];
+    col_load<T, L1_RV, MT>(xb, rs, gc, R, C, mm, rows_in, s);
 #pragma unroll
     for (int si = 0; si < NS; ++si) {
       A acc[L1_RV];
 #pragma unroll
       for (int v = 0; v < L1_RV; ++v) acc[v] = 0;
-#pragma unroll
-      for (int k = 0; k < MT; ++k) {
-        if (k < mm) {
-          const A tk = tp.t[si][k];
-#pragma unroll
-          for (int v = 0; v < L1_RV; ++v) acc[v] += tk * s[v + k];
-        }
-      }
+      fir_acc<A, MT, L1_RV>(s, tp.t[si], mm, acc);
       A* o = st + (si * th + g * L1_RV) * xws + lc;
 #pragma unroll
       for (int v = 0; v < L1_RV; ++v) o[v * xws] = acc[v];
@@ -138,48 +93,13 @@ __device__ __forceinline__ void col_stage(
   }
 }
 
-// The window of four adjacent row-filter outputs: w[t] = row[t], t < 4 +
-// mm - 1, read as 16-byte vectors (row 16-byte aligned), zero past it.
-template <typename A> __host__ __device__ constexpr int l1_vn() {
-  return 16 / sizeof(A);
-}
-template <typename A, int MT> __host__ __device__ constexpr int l1_nw() {
-  return (L1_V + MT - 1 + l1_vn<A>() - 1) / l1_vn<A>() * l1_vn<A>();
-}
-
-template <typename A, int MT>
-__device__ __forceinline__ void row_window(const A* row, int mm, A w[]) {
-  constexpr int VN = l1_vn<A>();
-#pragma unroll
-  for (int q = 0; q < l1_nw<A, MT>() / VN; ++q) {
-    if (VN * q < L1_V + mm - 1) {
-      const Vec<A, VN> pk =
-          *reinterpret_cast<const Vec<A, VN>*>(row + VN * q);
-#pragma unroll
-      for (int u = 0; u < VN; ++u) w[VN * q + u] = pk.v[u];
-    } else {
-#pragma unroll
-      for (int u = 0; u < VN; ++u) w[VN * q + u] = 0;
-    }
-  }
-}
-
-// out[v] = sum_k t[k] w[v + k], k < mm.  One uniform guard for every
-// filter: a guard per filter's own taps keeps each k's predicate live and
-// doubles the registers.
+// out[v] = sum_k t[k] w[v + k], k < mm.
 template <typename A, int MT>
 __device__ __forceinline__ void fir4(const A* w, const A* t, int mm,
                                      A out[L1_V]) {
 #pragma unroll
   for (int v = 0; v < L1_V; ++v) out[v] = 0;
-#pragma unroll
-  for (int k = 0; k < MT; ++k) {
-    if (k < mm) {
-      const A tk = t[k];
-#pragma unroll
-      for (int v = 0; v < L1_V; ++v) out[v] += tk * w[v + k];
-    }
-  }
+  fir_acc<A, MT, L1_V>(w, t, mm, out);
 }
 
 template <typename T, bool PLANES, bool BP, int MT>
@@ -344,20 +264,12 @@ cudaError_t level1_mt(const void* x, void* lolo, void* out_a, void* out_b,
                       const int m[3], int th, int mt, int vlo, int vpl,
                       cudaStream_t s) {
   using A = typename AccOf<T>::type;
-  constexpr int NS = BP ? 3 : 2;
-  int p = 0;
-  for (int si = 0; si < NS; ++si) {
-    if (m[si] < 1 || m[si] > MAX_TAPS || m[si] % 2 == 0)
-      return cudaErrorInvalidValue;
-    p = m[si] / 2 > p ? m[si] / 2 : p;
-  }
+  L1Taps<A> tp;
+  int p;
+  if (!make_l1taps(&tp, &p, t, m, BP ? 3 : 2)) return cudaErrorInvalidValue;
   // the host's tiling: the least tap bound that holds 2 p + 1, 32 or 64
   // rows a tile, vectors only where rows and planes are aligned for them
-  const int want = 2 * p + 1 <= 8    ? 8
-                   : 2 * p + 1 <= 16 ? 16
-                   : 2 * p + 1 <= 24 ? 24
-                                     : 32;
-  if (mt != want || (th != 32 && th != 64) ||
+  if (mt != l1_tap_bound(2 * p + 1) || (th != 32 && th != 64) ||
       (vlo && (C % L1_V || reinterpret_cast<uintptr_t>(lolo) %
                                (L1_V * sizeof(T)))) ||
       (vpl && (!PLANES || (C / 2) % 2 ||
@@ -365,15 +277,6 @@ cudaError_t level1_mt(const void* x, void* lolo, void* out_a, void* out_b,
                reinterpret_cast<uintptr_t>(out_b) % (2 * sizeof(T)))) ||
       (!PLANES && reinterpret_cast<uintptr_t>(out_a) % 16))
     return cudaErrorInvalidValue;
-  L1Taps<A> tp;
-  for (int si = 0; si < 3; ++si) {
-    for (int k = 0; k < MAX_TAPS; ++k) {
-      const int kk = k - (p - m[si] / 2);  // index into the filter's taps
-      tp.t[si][k] = si < NS && kk >= 0 && kk < m[si]
-                        ? static_cast<A>(t[si][kk])
-                        : A(0);
-    }
-  }
   switch (mt) {
     case 8:
       return run_level1<T, PLANES, BP, 8>(x, lolo, out_a, out_b, B, R, C, tp,

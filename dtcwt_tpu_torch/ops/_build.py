@@ -31,7 +31,7 @@ import torch
 __all__ = ["library", "build", "launches", "reset_launches", "count",
            "flatten_batch", "dtype_code", "stream_ptr", "check", "taps_arg",
            "ints_arg", "ptr", "check_smem", "check_smem_bytes",
-           "odd_filters", "pair_filters", "fir_args"]
+           "odd_filters", "pair_filters", "fir_args", "check_no_grad"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -61,8 +61,9 @@ _SIGNATURES = {
     # planes, stream
     "dtcwt_ilevel2": (_P,) * 4 + (_I,) * 3 + (_P,) * 4 + (_I,) * 3 + (_P,),
     # z, band_a, band_b, out, B, H, W, t0, m0, t1, m1, t2, m2, dtype, planes,
-    # stream
-    "dtcwt_ilevel1": (_P,) * 4 + (_I,) * 3 + (_P, _I) * 3 + (_I, _I, _P),
+    # th, mt, vq, vo, stream
+    "dtcwt_ilevel1": (_P,) * 4 + (_I,) * 3 + (_P, _I) * 3 + (_I,) * 6 + (
+        _P,),
 }
 # the stream kernels of csrc/dual.cu and csrc/single.cu share one interface
 # (csrc/streams.cuh): in0, in1, out0, out1, outer, n_in, inner, g0, g1,
@@ -175,6 +176,27 @@ def library() -> ctypes.CDLL:
             lib.dtcwt_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
+
+
+def check_no_grad(name: str, *inputs) -> None:
+    """Raise RuntimeError where a launch of kernel wrapper *name* would drop
+    a gradient: grad mode is on and a tensor among *inputs* (tensors,
+    None, or tuples and lists of them) requires grad.  The kernels fill
+    fresh tensors through ctypes, so their outputs carry no ``grad_fn``;
+    until the card path has gradients it refuses such inputs."""
+    if not torch.is_grad_enabled():
+        return
+    stack = list(inputs)
+    while stack:
+        t = stack.pop()
+        if isinstance(t, (tuple, list)):
+            stack.extend(t)
+        elif isinstance(t, torch.Tensor) and t.requires_grad:
+            raise RuntimeError(
+                "%s: an input requires grad, and the CUDA kernels have no "
+                "gradients yet; run it under torch.no_grad(), or on "
+                "device=\"cpu\", the plain PyTorch path, which has them"
+                % name)
 
 
 def check(name: str, err: int) -> None:

@@ -182,6 +182,7 @@ def _launch(name: str, ins, plans, groups, axis: int, side=None):
     ``P * groups[b]`` samples (one or two branches, as the kernel has).
     *side*: the inputs are extended by that many samples per side
     (from-extension mode) instead of reflected."""
+    _build.check_no_grad(name, ins)
     n_in_t, n_out, P, D, S = _GEOM[name]
     x = ins[0]
     ax, outer, n_in, inner, code = _axis_view(name, ins, axis)

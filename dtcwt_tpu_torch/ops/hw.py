@@ -132,6 +132,7 @@ def _equal_pairs(pair0, pair1, name: str):
 def _launch(name: str, ins, plans, Ho: int, Wo: int, n_out: int):
     """Run kernel *name* on the [..., H, W] tensors *ins* (one for analysis,
     four for synthesis); returns *n_out* outputs [..., Ho, Wo]."""
+    _build.check_no_grad(name, ins)
     x = ins[0]
     lead, (H, W) = tuple(x.shape[:-2]), tuple(x.shape[-2:])
     N = int(np.prod(lead, dtype=np.int64))

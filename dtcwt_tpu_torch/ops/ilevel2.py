@@ -132,6 +132,7 @@ def inv_level2(z: torch.Tensor, yh=None, g0a=None, g0b=None, g1a=None,
     if z.device.type != "cuda":
         raise ValueError("inv_level2 runs on CPU or CUDA tensors, not %s"
                          % z.device)
+    _build.check_no_grad("inv_level2", z, yh, bands)
     if (g2a is None) != (g2b is None):
         raise ValueError("inv_level2 takes the third pair g2a, g2b together")
     if z.ndim < 2 or z.shape[-2] % 2 or z.shape[-1] % 2:

@@ -136,6 +136,7 @@ def fwd_level1(x: torch.Tensor, h0o, h1o, planes: bool = False, h2o=None):
     if x.device.type != "cuda":
         raise ValueError("fwd_level1 runs on CPU or CUDA tensors, not %s"
                          % x.device)
+    _build.check_no_grad("fwd_level1", x)
     filt = _build.odd_filters("fwd_level1", h0o, h1o, h2o)
     if x.ndim < 2 or x.shape[-2] % 2 or x.shape[-1] % 2:
         raise ValueError("fwd_level1 needs [..., R, C] with R, C even, got %s"

@@ -70,6 +70,7 @@ def fwd_level2(x: torch.Tensor, h0a, h0b, h1a, h1b, planes: bool = False,
     if x.device.type != "cuda":
         raise ValueError("fwd_level2 runs on CPU or CUDA tensors, not %s"
                          % x.device)
+    _build.check_no_grad("fwd_level2", x)
     if (h2a is None) != (h2b is None):
         raise ValueError("fwd_level2 takes the third pair h2a, h2b together")
     if x.ndim < 2 or x.shape[-2] % 4 or x.shape[-1] % 4:

@@ -242,6 +242,7 @@ def _launch(name, x, bands, plans, out_dtype, planes, Ho, Wo, fwd):
     """Run kernel *name*.  Analysis: *x* is the pair (lo, hi) of branch
     volumes [B, Dn, H, W]; returns (lll, band_a, band_b).  Synthesis: *x*
     is (lll,) and *bands* the (band_a, band_b) inputs; returns (U_0, U_1)."""
+    _build.check_no_grad(name, x, bands)
     src = x[0]
     B, Dn, H, W = src.shape
     dev = src.device

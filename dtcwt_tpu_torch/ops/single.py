@@ -153,6 +153,7 @@ def _filter(x, h, axis, n, side=None):
     """Launch ``csrc/filter.cu``: Y[i] = sum_k rev(h)[k] x[i + c + k] for
     the r + 1 - m % 2 outputs, c = -(m//2) reflected, or side - m//2 into
     a buffer extended by *side*."""
+    _build.check_no_grad("filter", x)
     h = fb._as_taps(h)
     m = h.size
     if m > _MAX_TAPS:

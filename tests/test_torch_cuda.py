@@ -19,7 +19,7 @@ import torch
 import dtcwt_tpu_torch as dt
 from dtcwt_tpu_torch.coeffs import biort, qshift
 from dtcwt_tpu_torch.ops import (
-    _build, dual, fb, ilevel1, ilevel2, level1, level2, single)
+    _build, dual, fb, hw, ilevel1, ilevel2, level1, level2, single)
 from dtcwt_tpu_torch.transforms.pyramid import PLANE_BAND_ORDER
 
 _KTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float64: 1e-12}
@@ -123,17 +123,44 @@ def test_cuda_ilevel2_matches_plain(cuda, dtype, planes, fam):
         assert _kerr(got, want) < _KTOL[dtype]
 
 
+def _at_offset(t):
+    """A copy of *t* (or of each tensor of a tuple) stored one element past
+    the start of its buffer: a caller's tensor at a storage offset, no
+    longer 16-byte aligned."""
+    if isinstance(t, tuple):
+        return tuple(_at_offset(u) for u in t)
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    v = buf[1:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+def _inverse_cases(shape, dtype, planes, device):
+    """The inputs of a level-1 inverse at *shape*: as allocated and, at
+    (130, 200), with the lowpass and the subbands at a storage offset."""
+    Z, band = _inverse_inputs(shape, dtype, planes, device)
+    yield Z, band
+    if shape == (130, 200):
+        yield _at_offset(Z), {k: _at_offset(v) for k, v in band.items()}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,planes", _CASES)
 @pytest.mark.parametrize("fam", ["near_sym_a", "near_sym_b", "antonini"])
 def test_cuda_ilevel1_matches_plain(cuda, dtype, planes, fam):
+    """inv_level1 at the shapes of fwd_level1's tests (every tile kind, rows
+    too short or odd for its 4-wide stores, images shorter than the
+    filters), and with its inputs at a storage offset, one launch each."""
     b = biort(fam)
-    for shape in [(2, 36, 52), (2, 4, 6), (130, 200)]:
-        Z, band = _inverse_inputs(shape, dtype, planes, cuda)
-        got = ilevel1.inv_level1(Z, g0o=b[1], g1o=b[3], **band)
-        torch.cuda.synchronize()
-        want = ilevel1.inv_level1_reference(Z, g0o=b[1], g1o=b[3], **band)
-        assert _kerr(got, want) < _KTOL[dtype]
+    for shape in _L1_SHAPES:
+        for Z, band in _inverse_cases(shape, dtype, planes, cuda):
+            _build.reset_launches()
+            got = ilevel1.inv_level1(Z, g0o=b[1], g1o=b[3], **band)
+            torch.cuda.synchronize()
+            assert dict(_build.launches) == {"ilevel1": 1}
+            want = ilevel1.inv_level1_reference(Z, g0o=b[1], g1o=b[3],
+                                                **band)
+            assert _kerr(got, want) < _KTOL[dtype], (shape, Z.data_ptr())
 
 
 @pytest.mark.cuda
@@ -166,7 +193,7 @@ def test_cuda_transform_matches_plain_path(cuda, layout):
 _BP_SHAPES = {"level1": _L1_SHAPES,
               "level2": [(2, 40, 56), (2, 8, 12), (132, 260)],
               "ilevel2": [(2, 20, 28), (2, 4, 6), (66, 130)],
-              "ilevel1": [(2, 36, 52), (2, 4, 6), (130, 200)]}
+              "ilevel1": _L1_SHAPES}
 
 
 def _bp_calls(level):
@@ -201,18 +228,22 @@ def _bp_calls(level):
 def test_cuda_bandpass_kernels_match_plain(cuda, dtype, planes, level):
     """Each level kernel's bandpass variant (near_sym_b_bp: 13/19/19 taps,
     qshift_b_bp: 14) against its plain version, at the shapes of the tests
-    above, including shapes shorter than the filters."""
+    above, including shapes shorter than the filters (inv_level1: also
+    its inputs at a storage offset)."""
     kern, plain = _bp_calls(level)
     for shape in _BP_SHAPES[level]:
-        if level.startswith("i"):
-            args = _inverse_inputs(shape, dtype, planes, cuda)
+        if level == "ilevel1":
+            cases = _inverse_cases(shape, dtype, planes, cuda)
+        elif level.startswith("i"):
+            cases = [_inverse_inputs(shape, dtype, planes, cuda)]
         else:
-            args = (_rand(shape, 0, cuda, dtype), planes)
-        _build.reset_launches()
-        got = kern(*args)
-        torch.cuda.synchronize()
-        assert dict(_build.launches) == {level: 1}
-        assert _kerr(got, plain(*args)) < _KTOL[dtype], shape
+            cases = [(_rand(shape, 0, cuda, dtype), planes)]
+        for args in cases:
+            _build.reset_launches()
+            got = kern(*args)
+            torch.cuda.synchronize()
+            assert dict(_build.launches) == {level: 1}
+            assert _kerr(got, plain(*args)) < _KTOL[dtype], shape
 
 
 @pytest.mark.cuda
@@ -297,6 +328,54 @@ def test_cuda_level_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     _build.reset_launches()
     level1.fwd_level1(x, b[0], b[2], h2o=b[4])
     assert dict(_build.launches) == {"level1": 1}
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_refuse_inputs_that_need_grad(cuda):
+    """The kernels have no gradients yet: Transform2d's forward and inverse,
+    and every other kernel wrapper (the 1-D and 3-D transforms, the
+    low-level filters, the hw kernels), raise on an input that requires
+    grad while grad mode is on, naming device="cpu"; under
+    torch.no_grad() the same calls run the kernels."""
+    need = r'requires grad.*device="cpu"'
+    t = dt.Transform2d()
+    x = torch.rand(2, 64, 96, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match=need):
+        t.forward(x, 3)
+    with torch.no_grad():
+        _build.reset_launches()
+        p = t.forward(x, 3)
+        rec = t.inverse(p)
+        torch.cuda.synchronize()
+    assert dict(_build.launches) == {"level1": 1, "level2": 2, "ilevel2": 2,
+                                     "ilevel1": 1}
+    assert float((rec - x).abs().max()) < 1e-4
+    p.lowpass.requires_grad_()
+    with pytest.raises(RuntimeError, match=need):
+        t.inverse(p)
+    p.lowpass.requires_grad_(False)
+    p.highpasses[0].requires_grad_()
+    with pytest.raises(RuntimeError, match=need):
+        t.inverse(p)
+    with torch.no_grad():
+        assert torch.equal(t.inverse(p), rec)
+    s = torch.rand(64, 4, device=cuda, requires_grad=True)
+    im = torch.rand(64, 96, device=cuda, requires_grad=True)
+    v = torch.rand(32, 32, 32, device=cuda, requires_grad=True)
+    b, q = biort("near_sym_a"), qshift("qshift_a")
+    calls = [lambda: dt.Transform1d().forward(s, 3),
+             lambda: dt.Transform3d().forward(v, 2),
+             lambda: dt.Transform3d().forward(v, 2, discard_level_1=True),
+             lambda: single.colfilter(im, b[0]),
+             lambda: single.coldfilt(im, q[1], q[0]),
+             lambda: single.colifilt(im, q[3], q[2]),
+             lambda: hw.filter_hw22(v, b[0], b[2])]
+    for call in calls:
+        with pytest.raises(RuntimeError, match=need):
+            call()
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()
 
 
 # --- the dual-stream kernels of the 1-D transform (csrc/dual.cu) -----------
