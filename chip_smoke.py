@@ -44,9 +44,10 @@ Phases, each printing its own lines:
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes (float32, and bfloat16) and at small odd shapes
    in float64 for every family (the 2-D level kernels' bandpass variants
-   included), including signals shorter than the filter (``inv_level1``
-   at shapes that cross its tiles both ways, and at the main path's shape
-   with its inputs at a storage offset); each 2-D level
+   included), including signals shorter than the filter (``fwd_level2``
+   and ``inv_level1`` at shapes that cross their tiles both ways, and at
+   the main path's shape with their inputs at a storage offset); each 2-D
+   level
    kernel's bandpass variant also at the main path's shapes in three
    layouts; the dual-stream kernels also on axes -1, -2 and -3, on one
    signal (``inner = 1``) and in their from-extension mode; each 3-D level
@@ -103,7 +104,9 @@ Phases, each printing its own lines:
    qshift_b); for the f32 interleaved round trips (3-D: both f32
    layouts; the discard round trip: interleaved), a ``torch.profiler``
    trace: device time by kernel, the
-   device's idle share and the host's time to enqueue.  A 3-D level kernel
+   device's idle share and the host's time to enqueue (for the 2-D round
+   trip also split into the level wrappers' calls, their ctypes launches
+   and the transform's glue).  A 3-D level kernel
    is timed alone, on its depth stage's outputs, against the plain version
    of that stage.  The sharded round trip against ``Transform3d`` and the
    plain path, with a trace (f32 interleaved); each hw kernel's launches of
@@ -310,12 +313,67 @@ def print_trace(what, fn) -> None:
               "device time not measured (the profiler saw no device "
               "activity)" % (what, wall, enqueue), flush=True)
         return
-    top = ", ".join("%s %.4f ms" % (k.split("(")[0][:60], v)
+    top = ", ".join("%s %.4f ms" % (
+        k.replace("(anonymous namespace)::", "").split("(")[0][:60], v)
                     for k, v in device.most_common(6))
     print("trace %s: wall %.3f ms, device %.3f ms (idle %.1f%%), host "
           "enqueue %.3f ms per round trip; device time by kernel: %s" % (
               what, wall, busy, 100 * (1 - busy / wall), enqueue, top),
           flush=True)
+
+
+# the C entries of the 2-D level kernels, timed by print_host_split
+LEVEL_ENTRIES = ("dtcwt_level1", "dtcwt_level2", "dtcwt_ilevel2",
+                 "dtcwt_ilevel1")
+
+
+def print_host_split(what, fn, reps: int = 20) -> None:
+    """Split the host's time to enqueue *fn* (a 2-D round trip, as trace()
+    measures it) into the level wrappers' calls, their ctypes launches (the
+    C entries, part of the wrappers' time) and the rest, the glue of
+    Transform2d; each wrapper and C entry timed with time.perf_counter."""
+    from dtcwt_tpu_torch.ops import _build, ilevel1, ilevel2, level1, level2
+    spent = collections.Counter()
+
+    def timed(f, key):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return f(*a, **k)
+            finally:
+                spent[key] += time.perf_counter() - t0
+                spent[key + " calls"] += 1
+        return run
+
+    lib = _build.library()
+
+    class Timed:
+        """The kernel library with the level kernels' C entries timed."""
+
+        def __getattr__(self, n):
+            f = getattr(lib, n)
+            return timed(f, "launches") if n in LEVEL_ENTRIES else f
+    proxy = Timed()
+    pairs = [(m, n, timed(getattr(m, n), "wrappers")) for m, n in (
+        (level1, "fwd_level1"), (level2, "fwd_level2"),
+        (ilevel2, "inv_level2"), (ilevel1, "inv_level1"))]
+    with patched(pairs + [(_build, "library", lambda: proxy)]):
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        spent.clear()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        enqueue = (time.perf_counter() - t0) * 1e3 / reps
+        torch.cuda.synchronize()
+    wrap = spent["wrappers"] * 1e3 / reps
+    launch = spent["launches"] * 1e3 / reps
+    print("host split %s: enqueue %.3f ms per round trip = level wrappers "
+          "%.3f ms (%d calls; their ctypes launches %.3f ms, the wrappers' "
+          "own work %.3f ms) + glue %.3f ms (Transform2d)" % (
+              what, enqueue, wrap, spent["wrappers calls"] // reps, launch,
+              wrap - launch, enqueue - wrap), flush=True)
 
 
 def rand(shape, seed, device, dtype):
@@ -448,6 +506,11 @@ def level_plain_path():
             (ilevel1, "inv_level1", ilevel1.inv_level1_reference)]
 
 
+# fwd_level2's tiles are 4, 8 or 16 quad rows by 64 quads: shapes that
+# cross tile edges both ways, tall and wide images, rows too short or odd
+# for its vector stores, images shorter than the filters
+LEVEL2_SHAPES = [(2, 40, 56), (2, 8, 12), (132, 260), (3, 132, 264),
+                 (4100, 8), (8, 4100), (2, 76, 264)]
 # inv_level1's tiles are 16 (float64: 8) rows by 128 columns: shapes that
 # cross tile edges both ways, tall and wide images, rows too short or odd
 # for its 4-wide stores, images shorter than the filters
@@ -466,21 +529,27 @@ def at_offset(t):
     return v
 
 
-def check_ilevel1_offsets(dev, bb, qq) -> None:
-    """Phase 3: inv_level1 at the main path's shape with the lowpass and the
-    subbands at a storage offset (no 16-byte alignment), each layout."""
+def check_offsets(name, dev, bb, qq) -> None:
+    """Phase 3: 2-D level kernel *name* at the main path's first shape with
+    its inputs at a storage offset (no 16-byte alignment), each layout:
+    fwd_level2's image, inv_level1's lowpass and subbands."""
+    shape = MAIN_SHAPES_2D[name][0]
     for label, dtype, layout in LAYOUTS:
         pl = layout == "planes"
-        z, band = level_inputs("ilevel1", (N, N), dtype, pl, dev, seed=7)
-        inp = (at_offset(z), {k: at_offset(v) for k, v in band.items()})
-        kern, plain = level_call("ilevel1", inp, pl, bb, qq)
+        inp = level_inputs(name, shape, dtype, pl, dev, seed=7)
+        if isinstance(inp, tuple):
+            z, band = inp
+            inp = (at_offset(z), {k: at_offset(v) for k, v in band.items()})
+        else:
+            inp = at_offset(inp)
+        kern, plain = level_call(name, inp, pl, bb, qq)
         got = kern()
         torch.cuda.synchronize()
         err = rel_err(got, plain())
-        check(err <= TOL[dtype], "kernel ilevel1 %dx%d %s, lowpass and "
-              "subbands at a storage offset: rel err %.3g (tol %g)" % (
-                  N, N, label, err, TOL[dtype]))
-        del z, band, inp, got
+        check(err <= TOL[dtype], "kernel %s %s %s, inputs at a storage "
+              "offset: rel err %.3g (tol %g)" % (
+                  name, "x".join(map(str, shape)), label, err, TOL[dtype]))
+        del inp, got
 
 
 def time_ilevel1_families(dev, qq) -> None:
@@ -1831,9 +1900,10 @@ def main() -> int:
                       "(tol %g)" % (name, "x".join(map(str, shape)), label,
                                     err, TOL[dtype]))
                 del got, want
-    check_ilevel1_offsets(dev, b, q)
+    check_offsets("level2", dev, b, q)
+    check_offsets("ilevel1", dev, b, q)
     small = {"level1": [(2, 36, 52), (2, 4, 6)],
-             "level2": [(2, 40, 56), (2, 8, 12)],
+             "level2": LEVEL2_SHAPES,
              "ilevel2": [(2, 20, 28), (2, 4, 6)],
              "ilevel1": ILEVEL1_SHAPES}
     for name, shapes in small.items():
@@ -2048,6 +2118,8 @@ def main() -> int:
               "plain %.3f ms" % (NLEVELS, label, ms, pms), flush=True)
         if layout == "interleaved":
             print_trace("round trip 2-D %s" % label, lambda: t.inverse(
+                t.forward(xd, NLEVELS)))
+            print_host_split("round trip 2-D %s" % label, lambda: t.inverse(
                 t.forward(xd, NLEVELS)))
     del x, xd
     for name, shapes in main_shapes.items():

@@ -1,11 +1,13 @@
 // Shared pieces of the 2-D DTCWT level kernels (CUDA C++, sm_90a).
 //
 // Every kernel works on a [B, rows, cols] batch with the batch on
-// blockIdx.z, stages its input tile plus a reflected halo in shared memory,
-// runs the column (down the rows) stage into shared memory and the row
-// stage into registers, and writes its outputs once.  Storage types are
-// float, __nv_bfloat16 and double; float and bfloat16 accumulate in float,
-// double in double.
+// blockIdx.z, runs the column (down the rows) stage into shared memory and
+// the row stage into registers, and writes its outputs once.  Storage
+// types are float, __nv_bfloat16 and double; float and bfloat16 accumulate
+// in float, double in double.  The tilings of the level-1 kernels are in
+// l1tile.cuh, of the qshift forward in l2tile.cuh; the qshift inverse
+// (ilevel2.cu) stages its input tile plus a reflected halo and uses the
+// block shape QX x QY and launch() below.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -65,58 +67,12 @@ __device__ __forceinline__ int plane_pos(int d) {
   return d == 0 ? 0 : d == 1 ? 2 : d == 2 ? 4 : d == 3 ? 5 : d == 4 ? 3 : 1;
 }
 
-// Non-decimating odd filter: Y[i] = sum_k t[k] x[i - p + k], t the reversed
-// taps, p = m / 2.
-template <typename A> struct Fir {
-  int m, p;
-  A t[MAX_TAPS];
-};
-
-// Decimating dual-tree pair: Y[2i + s] = sum_k t[s][k] x[4i + c[s] + 2k].
-template <typename A> struct DPair {
-  int m;
-  int c[2];
-  A t[2][MAX_TAPS];
-};
-
 // Interpolating dual-tree pair: Y[4i + s] = sum_{k < m2} t[s][k] x[2i + c[s] + 2k].
 template <typename A> struct IPair {
   int m2;
   int c[4];
   A t[4][MAX_TAPS / 2];
 };
-
-template <typename A>
-inline bool make_fir(Fir<A>* f, const double* taps, int m) {
-  if (m < 1 || m > MAX_TAPS || m % 2 == 0) return false;
-  f->m = m;
-  f->p = m / 2;
-  for (int k = 0; k < m; ++k) f->t[k] = static_cast<A>(taps[k]);
-  return true;
-}
-
-// Halo of the level-1 kernels: the largest half-length of f0, f1 and, with
-// the bandpass third stream (bp), f2.
-template <typename A>
-__host__ __device__ __forceinline__ int halo(const Fir<A>& f0,
-                                             const Fir<A>& f1,
-                                             const Fir<A>& f2, bool bp) {
-  const int p = f0.p > f1.p ? f0.p : f1.p;
-  return bp && f2.p > p ? f2.p : p;
-}
-
-// taps: [2 streams][m]; offs: [2]
-template <typename A>
-inline bool make_dpair(DPair<A>* d, const double* taps, const int* offs,
-                       int m) {
-  if (m < 2 || m > MAX_TAPS || m % 2) return false;
-  d->m = m;
-  for (int s = 0; s < 2; ++s) {
-    d->c[s] = offs[s];
-    for (int k = 0; k < m; ++k) d->t[s][k] = static_cast<A>(taps[s * m + k]);
-  }
-  return true;
-}
 
 // taps: [4 streams][m2]; offs: [4]
 template <typename A>
@@ -153,36 +109,9 @@ __device__ __forceinline__ A c2q(A r0, A i0, A r1, A i1, int pr, int pc) {
   return pc == 0 ? i0 * s - i1 * s : r1 * s - r0 * s;
 }
 
-// Write the six subbands (degree order) of quad (b, i, j) of an h x w
-// subband grid: interleaved complex [B, h, w, 6, 2] in the accumulator type,
-// or band-major planes [B, 6, h, w] in PLANE_BAND_ORDER in the storage type.
-template <typename T, bool PLANES, typename A>
-__device__ __forceinline__ void store_bands(void* out_a, void* out_b, int b,
-                                            int i, int j, int h, int w,
-                                            const A re[6], const A im[6]) {
-  if constexpr (PLANES) {
-    T* pr = static_cast<T*>(out_a);
-    T* pi = static_cast<T*>(out_b);
-#pragma unroll
-    for (int d = 0; d < 6; ++d) {
-      const int64_t off =
-          ((static_cast<int64_t>(b) * 6 + plane_pos(d)) * h + i) * w + j;
-      store(pr + off, re[d]);
-      store(pi + off, im[d]);
-    }
-  } else {
-    A* z = static_cast<A*>(out_a) +
-           ((static_cast<int64_t>(b) * h + i) * w + j) * 12;
-#pragma unroll
-    for (int d = 0; d < 6; ++d) {
-      z[2 * d] = re[d];
-      z[2 * d + 1] = im[d];
-    }
-  }
-}
-
-// Read the six subbands (degree order) at (b, y, x) of an h x w grid, in
-// either layout of store_bands.
+// Read the six subbands (degree order) at (b, y, x) of an h x w grid:
+// interleaved complex [B, h, w, 6, 2] in the accumulator type, or
+// band-major planes [B, 6, h, w] in PLANE_BAND_ORDER in the storage type.
 template <typename T, bool PLANES, typename A>
 __device__ __forceinline__ void load_bands(const void* in_a, const void* in_b,
                                            int b, int y, int x, int h, int w,

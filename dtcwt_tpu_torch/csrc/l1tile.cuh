@@ -8,6 +8,8 @@
 // value in the kernel's parameters (L1Taps), each filter centred on the
 // common halo p (zero outside its own reach), so every tap loop runs to a
 // compile-time bound MT >= 2 p + 1 under one uniform guard k < 2 p + 1.
+// The qshift forward (level2.cu, l2tile.cuh) uses the column loads and the
+// 16-byte window loads too.
 #pragma once
 
 #include "common.cuh"
@@ -103,12 +105,14 @@ template <typename A, int MT> __host__ __device__ constexpr int l1_nw() {
   return (L1_V + MT - 1 + l1_vn<A>() - 1) / l1_vn<A>() * l1_vn<A>();
 }
 
-template <typename A, int MT>
-__device__ __forceinline__ void row_window(const A* row, int mm, A w[]) {
+// w[t] = row[t], NW values (a multiple of the 16-byte vector), read as
+// 16-byte vectors while VN q < n, zero past them.
+template <typename A, int NW>
+__device__ __forceinline__ void vec_window(const A* row, int n, A w[NW]) {
   constexpr int VN = l1_vn<A>();
 #pragma unroll
-  for (int q = 0; q < l1_nw<A, MT>() / VN; ++q) {
-    if (VN * q < L1_V + mm - 1) {
+  for (int q = 0; q < NW / VN; ++q) {
+    if (VN * q < n) {
       const Vec<A, VN> pk =
           *reinterpret_cast<const Vec<A, VN>*>(row + VN * q);
 #pragma unroll
@@ -118,6 +122,11 @@ __device__ __forceinline__ void row_window(const A* row, int mm, A w[]) {
       for (int u = 0; u < VN; ++u) w[VN * q + u] = 0;
     }
   }
+}
+
+template <typename A, int MT>
+__device__ __forceinline__ void row_window(const A* row, int mm, A w[]) {
+  vec_window<A, l1_nw<A, MT>()>(row, L1_V + mm - 1, w);
 }
 
 }  // namespace dtcwt

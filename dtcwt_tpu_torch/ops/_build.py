@@ -55,8 +55,8 @@ _SIGNATURES = {
     "dtcwt_level1": (_P,) * 4 + (_I,) * 3 + (_P, _I) * 3 + (_I,) * 6 + (
         _P,),
     # x, lolo, out_a, out_b, B, R, C, taps, offs, taps2, offs2, m, dtype,
-    # planes, stream
-    "dtcwt_level2": (_P,) * 4 + (_I,) * 3 + (_P,) * 4 + (_I,) * 3 + (_P,),
+    # planes, qh, mt, vlo, vpl, stream
+    "dtcwt_level2": (_P,) * 4 + (_I,) * 3 + (_P,) * 4 + (_I,) * 7 + (_P,),
     # z, band_a, band_b, out, B, H, W, taps, offs, taps2, offs2, m2, dtype,
     # planes, stream
     "dtcwt_ilevel2": (_P,) * 4 + (_I,) * 3 + (_P,) * 4 + (_I,) * 3 + (_P,),

@@ -80,19 +80,63 @@ def test_cuda_level1_matches_plain(cuda, dtype, planes, fam):
         assert _kerr(got[1], want[1]) < _KTOL[dtype], shape
 
 
+# fwd_level2's tiles are 4, 8 or 16 quad rows by 64 quads: shapes that
+# cross tile edges both ways, tall and wide images, rows too short or odd
+# for its vector stores (C / 2 not a multiple of 4, C / 4 odd: C = 12, 260,
+# 1036), images shorter than the filters (8 x 12 with qshift_32), a batch
+_L2_SHAPES = [(2, 40, 56), (2, 8, 12), (132, 260), (3, 132, 264),
+              (4100, 8), (8, 4100), (1032, 1036), (2, 76, 264)]
+
+
+def _forward_cases(shape, dtype, device):
+    """The input of a forward level at *shape*: as allocated and, at (132,
+    260), at a storage offset (no 16-byte alignment)."""
+    x = _rand(shape, 0, device, dtype)
+    return [x, _at_offset(x)] if shape == (132, 260) else [x]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,planes", _CASES)
-@pytest.mark.parametrize("fam", ["qshift_a", "qshift_d", "qshift_32"])
+@pytest.mark.parametrize("fam", ["qshift_a", "qshift_b", "qshift_d",
+                                 "qshift_32"])
 def test_cuda_level2_matches_plain(cuda, dtype, planes, fam):
     q = qshift(fam)
-    for shape in [(2, 40, 56), (2, 8, 12), (132, 260)]:
-        x = _rand(shape, 0, cuda, dtype)
-        got = level2.fwd_level2(x, q[0], q[1], q[4], q[5], planes=planes)
-        torch.cuda.synchronize()
-        want = level2.fwd_level2_reference(x, q[0], q[1], q[4], q[5],
-                                           planes=planes)
-        assert _kerr(got[0], want[0]) < _KTOL[dtype]
-        assert _kerr(got[1], want[1]) < _KTOL[dtype]
+    for shape in _L2_SHAPES:
+        for x in _forward_cases(shape, dtype, cuda):
+            _build.reset_launches()
+            got = level2.fwd_level2(x, q[0], q[1], q[4], q[5], planes=planes)
+            torch.cuda.synchronize()
+            assert dict(_build.launches) == {"level2": 1}
+            want = level2.fwd_level2_reference(x, q[0], q[1], q[4], q[5],
+                                               planes=planes)
+            assert _kerr(got[0], want[0]) < _KTOL[dtype], shape
+            assert _kerr(got[1], want[1]) < _KTOL[dtype], shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qh", [4, 8, 16])
+def test_cuda_level2_tile_heights(cuda, qh):
+    """Every tile height the kernel takes (the geometry picks 8 or 4), f32
+    in both layouts and the third stream, against the plain version."""
+    geometry = level2._level2_geometry
+
+    def forced(*a, **k):
+        return geometry(*a, **dict(k, qh=qh))
+    q, bp = qshift("qshift_a"), qshift("qshift_b_bp")
+    level2._level2_geometry = forced
+    try:
+        for shape in [(2, 76, 264), (132, 260), (1032, 1036)]:
+            x = _rand(shape, 0, cuda, torch.float32)
+            for planes in (False, True):
+                for f, kw in (((q[0], q[1], q[4], q[5]), {}),
+                              ((bp[0], bp[1], bp[4], bp[5]),
+                               {"h2a": bp[8], "h2b": bp[9]})):
+                    got = level2.fwd_level2(x, *f, planes, **kw)
+                    torch.cuda.synchronize()
+                    want = level2.fwd_level2_reference(x, *f, planes, **kw)
+                    assert _kerr(got, want) < _KTOL[torch.float32], shape
+    finally:
+        level2._level2_geometry = geometry
 
 
 def _inverse_inputs(shape, dtype, planes, device):
@@ -191,7 +235,7 @@ def test_cuda_transform_matches_plain_path(cuda, layout):
 # --- the bandpass third stream of the four level kernels --------------------
 
 _BP_SHAPES = {"level1": _L1_SHAPES,
-              "level2": [(2, 40, 56), (2, 8, 12), (132, 260)],
+              "level2": _L2_SHAPES,
               "ilevel2": [(2, 20, 28), (2, 4, 6), (66, 130)],
               "ilevel1": _L1_SHAPES}
 
@@ -228,14 +272,17 @@ def _bp_calls(level):
 def test_cuda_bandpass_kernels_match_plain(cuda, dtype, planes, level):
     """Each level kernel's bandpass variant (near_sym_b_bp: 13/19/19 taps,
     qshift_b_bp: 14) against its plain version, at the shapes of the tests
-    above, including shapes shorter than the filters (inv_level1: also
-    its inputs at a storage offset)."""
+    above, including shapes shorter than the filters (fwd_level2 and
+    inv_level1: also their inputs at a storage offset)."""
     kern, plain = _bp_calls(level)
     for shape in _BP_SHAPES[level]:
         if level == "ilevel1":
             cases = _inverse_cases(shape, dtype, planes, cuda)
         elif level.startswith("i"):
             cases = [_inverse_inputs(shape, dtype, planes, cuda)]
+        elif level == "level2":
+            cases = [(x, planes)
+                     for x in _forward_cases(shape, dtype, cuda)]
         else:
             cases = [(_rand(shape, 0, cuda, dtype), planes)]
         for args in cases:

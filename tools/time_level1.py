@@ -1,92 +1,131 @@
-"""Time a 2-D level-1 kernel, the forward ``fwd_level1`` (``csrc/level1.cu``)
-or the inverse ``inv_level1`` (``csrc/ilevel1.cu``), on one NVIDIA GPU at
-the main path's shape, 4096^2, beside its byte bound and its plain version.
+"""Time a 2-D level kernel, the level-1 forward ``fwd_level1``
+(``csrc/level1.cu``), the level-1 inverse ``inv_level1``
+(``csrc/ilevel1.cu``) or the qshift forward ``fwd_level2``
+(``csrc/level2.cu``), on one NVIDIA GPU at the main path's shapes, beside
+its byte bound and its plain version.
 
     python tools/time_level1.py level1     # from the repository's root
     python tools/time_level1.py ilevel1
+    python tools/time_level1.py level2
 
 Prints the kernels' build time, then one line per layout (f32
-interleaved, f32 planes, bf16 planes) and family (near_sym_a,
-near_sym_b, near_sym_b_bp with its third stream): the kernel's device
-time (stream held), the bound, the kernel's share of it, the plain
-version's time and the error against it; for the forward and near_sym_a
-also the kernel at each tile height it takes (32 and 64 rows); then the
-default and bandpass families' 4096^2 3-level round trips in each layout
-and the traces (f32 interleaved) of the round trip, the forward and the
-inverse: device time by kernel, the device's idle share, the host's time
-to enqueue.  It uses ``chip_smoke.py``'s helpers and builds the kernels
-from ``csrc/``; run from the root of another checkout, it times that
-checkout's kernels.  Exits 1 if an error is over its tolerance.
+interleaved, f32 planes, bf16 planes), family (level 1: near_sym_a,
+near_sym_b, near_sym_b_bp with its third stream; level 2: qshift_a,
+qshift_b, qshift_b_bp) and main-path shape (4096^2; level 2 also 2048^2,
+and the sum of both launches): the kernel's device time (stream held),
+the bound, the kernel's share of it, the plain version's time and the
+error against it; for the forward kernels also the kernel at each tile
+height it takes (level 1: 32 and 64 rows; level 2: 4, 8 and 16 quad
+rows); then the default and bandpass families' 4096^2
+3-level round trips in each layout and the traces (f32 interleaved) of the
+round trip, the forward and the inverse: device time by kernel, the
+device's idle share, the host's time to enqueue, and the round trip's
+enqueue split into the level wrappers, their ctypes launches and the
+transform's glue.  The helpers come from this checkout's
+``chip_smoke.py``, the package from the working directory: run from the
+root of another checkout (``python /path/to/tools/time_level1.py
+level2``), it times that checkout's kernels.  Exits 1 if an error is over
+its tolerance.
 """
 
+import importlib.util
+import os
 import sys
 import time
 
 import torch
 
-sys.path.insert(0, ".")
-import chip_smoke as cs  # noqa: E402
+sys.path.insert(0, os.getcwd())
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py"))
+cs = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(cs)
 import dtcwt_tpu_torch as dt  # noqa: E402
-from dtcwt_tpu_torch.ops import _build, level1  # noqa: E402
+from dtcwt_tpu_torch.ops import _build, level1, level2  # noqa: E402
 
-FAMILIES = ("near_sym_a", "near_sym_b", "near_sym_b_bp")
+FAMILIES = {"level1": ("near_sym_a", "near_sym_b", "near_sym_b_bp"),
+            "ilevel1": ("near_sym_a", "near_sym_b", "near_sym_b_bp"),
+            "level2": ("qshift_a", "qshift_b", "qshift_b_bp")}
+# each forward kernel's tile heights: (module, geometry, keyword, values)
+TILES = {"level1": (level1, "_level1_geometry", "th", (32, 64)),
+         "level2": (level2, "_level2_geometry", "qh", (4, 8, 16))}
 
 
-def tile_heights(kern, plain, bms, dtype, label) -> int:
-    """Time the forward kernel at each tile height it takes; return the
+def tile_heights(name, kern, plain, bms, dtype, what) -> int:
+    """Time a forward kernel at each tile height it takes; return the
     number of errors over tolerance."""
+    mod, attr, key, values = TILES[name]
+    geometry = getattr(mod, attr, None)
+    if geometry is None:           # a checkout without this tiling
+        return 0
     bad = 0
-    geometry = level1._level1_geometry
-    for th in (32, 64):
-        def forced(*a, _th=th, **k):
-            return geometry(*a, **k, th=_th)
-        with cs.patched([(level1, "_level1_geometry", forced)]):
+    for v in values:
+        def forced(*a, _v=v, **k):
+            return geometry(*a, **dict(k, **{key: _v}))
+        with cs.patched([(mod, attr, forced)]):
             e = cs.rel_err(kern(), plain())
             bad += e > cs.TOL[dtype]
             tms = cs.cuda_ms(kern, hold=True, reps=20)
-        print("level1 near_sym_a %dx%d %s, tiles of %d rows: kernel %.4f ms, "
-              "%.1f%% of the bound, rel err %.3g" % (
-                  cs.N, cs.N, label, th, tms, 100 * bms / tms, e), flush=True)
+        print("%s %s, %s %d: kernel %.4f ms, %.1f%% of the bound, rel err "
+              "%.3g" % (name, what, key, v, tms, 100 * bms / tms, e),
+              flush=True)
     return bad
 
 
 def main() -> int:
     name = sys.argv[1] if len(sys.argv) > 1 else ""
-    if name not in ("level1", "ilevel1"):
-        raise SystemExit("usage: python tools/time_level1.py level1|ilevel1")
+    if name not in FAMILIES:
+        raise SystemExit("usage: python tools/time_level1.py "
+                         "level1|ilevel1|level2")
     if not torch.cuda.is_available():
         raise SystemExit("time_level1: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    print("package: %s" % os.path.dirname(dt.__file__), flush=True)
     t0 = time.perf_counter()
     _build.library()
     print("build: %.1f s" % (time.perf_counter() - t0), flush=True)
-    q = dt.qshift("qshift_a")
     bad = 0
+    shapes = cs.MAIN_SHAPES_2D[name] if name == "level2" else [(cs.N, cs.N)]
     for label, dtype, layout in cs.LAYOUTS:
         pl = layout == "planes"
-        inp = cs.level_inputs(name, (cs.N, cs.N), dtype, pl, dev)
-        for fam in FAMILIES:
-            bb = dt.biort(fam)
-            kern, plain = cs.level_call(name, inp, pl, bb, q)
-            got = kern()
-            torch.cuda.synchronize()
-            err = cs.rel_err(got, plain())
-            bad += err > cs.TOL[dtype]
-            bms, by = cs.bound(cs.nbytes(inp) + cs.nbytes(got),
-                               cs.level_macs(name, inp, bb, q))
-            del got
-            ms = cs.cuda_ms(kern, hold=True, reps=20)
-            pms = cs.cuda_ms(plain, hold=True, reps=5)
-            print("%s %s %dx%d %s: kernel %.4f ms, bound %.4f ms (%s), "
-                  "%.1f%% of the bound, plain %.4f ms, rel err %.3g (tol %g)"
-                  % (name, fam, cs.N, cs.N, label, ms, bms, by,
-                     100 * bms / ms, pms, err, cs.TOL[dtype]), flush=True)
-            if name == "level1" and fam == "near_sym_a":
-                bad += tile_heights(kern, plain, bms, dtype, label)
-            del kern, plain
-        del inp
+        inps = [cs.level_inputs(name, s, dtype, pl, dev) for s in shapes]
+        for fam in FAMILIES[name]:
+            if name == "level2":
+                bb, qq = dt.biort("near_sym_a"), dt.qshift(fam)
+            else:
+                bb, qq = dt.biort(fam), dt.qshift("qshift_a")
+            tot = [0.0, 0.0, 0.0]
+            for shape, inp in zip(shapes, inps):
+                kern, plain = cs.level_call(name, inp, pl, bb, qq)
+                got = kern()
+                torch.cuda.synchronize()
+                err = cs.rel_err(got, plain())
+                bad += err > cs.TOL[dtype]
+                bms, by = cs.bound(cs.nbytes(inp) + cs.nbytes(got),
+                                   cs.level_macs(name, inp, bb, qq))
+                del got
+                ms = cs.cuda_ms(kern, hold=True, reps=20)
+                pms = cs.cuda_ms(plain, hold=True, reps=5)
+                for k, v in enumerate((ms, bms, pms)):
+                    tot[k] += v
+                what = "%s %s %s" % (fam, "x".join(map(str, shape)), label)
+                print("%s %s: kernel %.4f ms, bound %.4f ms (%s), %.1f%% of "
+                      "the bound, plain %.4f ms, rel err %.3g (tol %g)" % (
+                          name, what, ms, bms, by, 100 * bms / ms, pms, err,
+                          cs.TOL[dtype]), flush=True)
+                if name in TILES:
+                    bad += tile_heights(name, kern, plain, bms, dtype, what)
+                del kern, plain
+            if len(shapes) > 1:
+                print("%s %s %s, its %d launches of one round trip: kernel "
+                      "%.4f ms, bound %.4f ms, %.1f%% of the bound, plain "
+                      "%.4f ms" % (name, fam, label, len(shapes), tot[0],
+                                   tot[1], 100 * tot[1] / tot[0], tot[2]),
+                      flush=True)
+        del inps
     x = cs.rand((cs.N, cs.N), 0, dev, torch.float32)
     for fams in ((), cs.BP_FAMS):
         t = dt.Transform2d(*fams)
@@ -100,6 +139,8 @@ def main() -> int:
                 what, cs.N, cs.N, cs.NLEVELS, label, ms), flush=True)
         cs.print_trace("round trip 2-D %sf32 interleaved" % what,
                        lambda: t.inverse(t.forward(x, cs.NLEVELS)))
+        cs.print_host_split("round trip 2-D %sf32 interleaved" % what,
+                            lambda: t.inverse(t.forward(x, cs.NLEVELS)))
         p = t.forward(x, cs.NLEVELS)
         cs.print_trace("forward 2-D %sf32 interleaved" % what,
                        lambda: t.forward(x, cs.NLEVELS))

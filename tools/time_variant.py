@@ -1,0 +1,59 @@
+"""Time a variant of one 2-D level kernel's source beside the package's
+other kernels, on one NVIDIA GPU.
+
+    python tools/time_variant.py VARIANT.cu dtcwt_level2 level2
+
+Compiles ``VARIANT.cu`` (an edited copy of a ``csrc/*.cu`` file; its
+includes are searched in its own directory first, then in ``csrc/``, so a
+varied header goes there with the headers that include it) into a shared
+library of its own with the package's nvcc flags, routes the named C
+entry (``dtcwt_level2``, ``dtcwt_level1``, ``dtcwt_ilevel1``) to it and
+every other entry to the package's library, then runs
+``tools/time_level1.py`` in the given mode.  A kernel's design is tuned
+this way without rebuilding every source for each variant.  Run from the
+repository's root.
+"""
+
+import ctypes
+import importlib.util
+import os
+import subprocess
+import sys
+import tempfile
+
+sys.path.insert(0, os.getcwd())
+from dtcwt_tpu_torch.ops import _build  # noqa: E402
+
+
+def main() -> int:
+    if len(sys.argv) != 4:
+        raise SystemExit("usage: python tools/time_variant.py VARIANT.cu "
+                         "ENTRY level1|ilevel1|level2")
+    src, entry, mode = sys.argv[1:]
+    lib = _build.library()
+    out = os.path.join(tempfile.mkdtemp(dir=_build.BUILD_DIR), "variant.so")
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+                    os.path.dirname(os.path.abspath(src)), "-I", _build.CSRC,
+                    "-shared", "-o", out, src], check=True)
+    variant = ctypes.CDLL(out)
+    fn = getattr(variant, entry)
+    fn.argtypes = list(_build._SIGNATURES[entry])
+    fn.restype = ctypes.c_int
+
+    class Routed:
+        def __getattr__(self, name):
+            return fn if name == entry else getattr(lib, name)
+    routed = Routed()
+    _build.library = lambda: routed
+    spec = importlib.util.spec_from_file_location(
+        "time_level1", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "time_level1.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    sys.argv = [sys.argv[0], mode]
+    print("variant %s for %s" % (src, entry), flush=True)
+    return tool.main()
+
+
+if __name__ == "__main__":
+    sys.exit(main())
