@@ -44,9 +44,10 @@ Phases, each printing its own lines:
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes (float32, and bfloat16) and at small odd shapes
    in float64 for every family (the 2-D level kernels' bandpass variants
-   included), including signals shorter than the filter (``fwd_level2``
-   and ``inv_level1`` at shapes that cross their tiles both ways, and at
-   the main path's shape with their inputs at a storage offset); each 2-D
+   included), including signals shorter than the filter (``fwd_level2``,
+   ``inv_level2`` and ``inv_level1`` at shapes that cross their tiles both
+   ways, and at the main path's shape with their inputs at a storage
+   offset); each 2-D
    level
    kernel's bandpass variant also at the main path's shapes in three
    layouts; the dual-stream kernels also on axes -1, -2 and -3, on one
@@ -514,6 +515,11 @@ LEVEL2_SHAPES = [(2, 40, 56), (2, 8, 12), (132, 260), (3, 132, 264),
 # inv_level1's tiles are 16 (float64: 8) rows by 128 columns: shapes that
 # cross tile edges both ways, tall and wide images, rows too short or odd
 # for its 4-wide stores, images shorter than the filters
+# inv_level2's tiles are 4, 8 or 16 band rows by 32 band columns (lowpass
+# z tiles of 8, 16 or 32 rows by 64 columns): shapes that cross tile edges
+# both ways, tall and wide images, a batch, images shorter than the filters
+ILEVEL2_SHAPES = [(2, 20, 28), (2, 4, 6), (66, 130), (3, 66, 132),
+                  (2050, 4), (4, 2050), (2, 38, 134)]
 ILEVEL1_SHAPES = [(2, 36, 52), (2, 4, 6), (130, 200), (3, 130, 200),
                   (4096, 2), (2, 4096), (2, 38, 6), (6, 202), (4, 518)]
 
@@ -532,7 +538,8 @@ def at_offset(t):
 def check_offsets(name, dev, bb, qq) -> None:
     """Phase 3: 2-D level kernel *name* at the main path's first shape with
     its inputs at a storage offset (no 16-byte alignment), each layout:
-    fwd_level2's image, inv_level1's lowpass and subbands."""
+    fwd_level2's image, inv_level2's and inv_level1's lowpass and
+    subbands."""
     shape = MAIN_SHAPES_2D[name][0]
     for label, dtype, layout in LAYOUTS:
         pl = layout == "planes"
@@ -1901,10 +1908,11 @@ def main() -> int:
                                     err, TOL[dtype]))
                 del got, want
     check_offsets("level2", dev, b, q)
+    check_offsets("ilevel2", dev, b, q)
     check_offsets("ilevel1", dev, b, q)
     small = {"level1": [(2, 36, 52), (2, 4, 6)],
              "level2": LEVEL2_SHAPES,
-             "ilevel2": [(2, 20, 28), (2, 4, 6)],
+             "ilevel2": ILEVEL2_SHAPES,
              "ilevel1": ILEVEL1_SHAPES}
     for name, shapes in small.items():
         # every family, the bandpass ones with their third stream

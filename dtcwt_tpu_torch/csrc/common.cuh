@@ -5,9 +5,8 @@
 // the row stage into registers, and writes its outputs once.  Storage
 // types are float, __nv_bfloat16 and double; float and bfloat16 accumulate
 // in float, double in double.  The tilings of the level-1 kernels are in
-// l1tile.cuh, of the qshift forward in l2tile.cuh; the qshift inverse
-// (ilevel2.cu) stages its input tile plus a reflected halo and uses the
-// block shape QX x QY and launch() below.
+// l1tile.cuh, of the qshift levels in l2tile.cuh; the two inverse kernels
+// (ilevel1.cu, ilevel2.cu) build their quad images with stage_quads below.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -17,9 +16,6 @@
 namespace dtcwt {
 
 constexpr int MAX_TAPS = 32;  // qshift_32, the longest published family
-constexpr int QX = 32;        // block width in output quads (= blockDim.x)
-constexpr int QY = 8;         // block height in output quads (= blockDim.y)
-constexpr int NT = QX * QY;   // threads per block
 
 // dtype codes of the C interface
 enum { DT_F32 = 0, DT_BF16 = 1, DT_F64 = 2 };
@@ -65,27 +61,6 @@ template <typename T, int N> struct alignas(sizeof(T) * N) Vec {
 // Position of degree band d in PLANE_BAND_ORDER = (0, 5, 1, 4, 2, 3).
 __device__ __forceinline__ int plane_pos(int d) {
   return d == 0 ? 0 : d == 1 ? 2 : d == 2 ? 4 : d == 3 ? 5 : d == 4 ? 3 : 1;
-}
-
-// Interpolating dual-tree pair: Y[4i + s] = sum_{k < m2} t[s][k] x[2i + c[s] + 2k].
-template <typename A> struct IPair {
-  int m2;
-  int c[4];
-  A t[4][MAX_TAPS / 2];
-};
-
-// taps: [4 streams][m2]; offs: [4]
-template <typename A>
-inline bool make_ipair(IPair<A>* d, const double* taps, const int* offs,
-                       int m2) {
-  if (m2 < 1 || m2 > MAX_TAPS / 2) return false;
-  d->m2 = m2;
-  for (int s = 0; s < 4; ++s) {
-    d->c[s] = offs[s];
-    for (int k = 0; k < m2; ++k)
-      d->t[s][k] = static_cast<A>(taps[s * m2 + k]);
-  }
-  return true;
 }
 
 // q2c of one quad (a b / c d), rows then columns: the band pair
@@ -137,17 +112,83 @@ __device__ __forceinline__ void load_bands(const void* in_a, const void* in_b,
   }
 }
 
-// Raise the dynamic shared memory limit to what this launch needs (beyond
-// the 48 KB default), launch, and report the launch's error code.
-template <typename Kernel, typename... Args>
-inline cudaError_t launch(Kernel kernel, dim3 grid, size_t smem,
-                          cudaStream_t stream, Args... args) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  kernel<<<grid, dim3(QX, QY, 1), smem, stream>>>(args...);
-  return cudaGetLastError();
+// The six subbands (degree order) of quad (b, i, j) of an h x w grid:
+// interleaved as 16-byte pieces (vq) or twelve values, or planes.
+template <typename T, bool PLANES, typename A>
+__device__ __forceinline__ void load_quad(const void* in_a, const void* in_b,
+                                          int b, int i, int j, int h, int w,
+                                          int vq, A re[6], A im[6]) {
+  if constexpr (!PLANES) {
+    if (vq) {
+      constexpr int VN = 16 / sizeof(A);
+      const Vec<A, VN>* z = reinterpret_cast<const Vec<A, VN>*>(
+          static_cast<const A*>(in_a) +
+          ((static_cast<int64_t>(b) * h + i) * w + j) * 12);
+      A v[12];
+#pragma unroll
+      for (int e = 0; e < 12 / VN; ++e) {
+        const Vec<A, VN> pk = z[e];
+#pragma unroll
+        for (int u = 0; u < VN; ++u) v[e * VN + u] = pk.v[u];
+      }
+#pragma unroll
+      for (int d = 0; d < 6; ++d) {
+        re[d] = v[2 * d];
+        im[d] = v[2 * d + 1];
+      }
+      return;
+    }
+  }
+  load_bands<T, PLANES>(in_a, in_b, b, i, j, h, w, re, im);
+}
+
+// The 2 x 2 pixels c2q makes of the band pair (w0, w1), written at o (row
+// stride xc) as two pairs; rows swapped where fr, columns where fc (a quad
+// reflected onto its source).
+template <typename A>
+__device__ __forceinline__ void put_quad(A* o, int xc, bool fr, bool fc,
+                                         A r0, A i0, A r1, A i1) {
+  const A a00 = c2q(r0, i0, r1, i1, 0, 0), a01 = c2q(r0, i0, r1, i1, 0, 1);
+  const A a10 = c2q(r0, i0, r1, i1, 1, 0), a11 = c2q(r0, i0, r1, i1, 1, 1);
+  const A t0 = fr ? a10 : a00, t1 = fr ? a11 : a01;  // staged row 0
+  const A u0 = fr ? a00 : a10, u1 = fr ? a01 : a11;  // staged row 1
+  Vec<A, 2> top, bot;
+  top.v[0] = fc ? t1 : t0;
+  top.v[1] = fc ? t0 : t1;
+  bot.v[0] = fc ? u1 : u0;
+  bot.v[1] = fc ? u0 : u1;
+  *reinterpret_cast<Vec<A, 2>*>(o) = top;
+  *reinterpret_cast<Vec<A, 2>*>(o + xc) = bot;
+}
+
+// The quad images lh, hl, hh of nr x nc quads from quad (i0, j0) of an
+// H x W image (pixel rows 2 i0 .. 2 (i0 + nr) - 1, columns likewise) into
+// qs[3][2 nr][xc], image after image qn apart, one quad an item of THREADS
+// threads.  H and W are even, so symmetric reflection maps a quad onto a
+// whole quad, with its parities swapped where the reflected index is odd:
+// one fold of the quad's first pixel (two compares; the modulo of
+// reflect() only for axes shorter than the reach) gives the source quad
+// and the swap.  Each quad's six complex values are read once and give
+// its 2 x 2 pixels of every image from the same registers.
+template <int THREADS, typename T, bool PLANES, typename A>
+__device__ __forceinline__ void stage_quads(const void* band_a,
+                                            const void* band_b, A* qs, int b,
+                                            int H, int W, int i0, int j0,
+                                            int nr, int nc, int xc, int qn,
+                                            int vq) {
+  const int items = nr * nc;
+  for (int it = threadIdx.x; it < items; it += THREADS) {
+    const int sr = it / nc, sc = it - sr * nc;
+    const int tr = fold(2 * (i0 + sr), H), tc = fold(2 * (j0 + sc), W);
+    A re[6], im[6];
+    load_quad<T, PLANES>(band_a, band_b, b, tr >> 1, tc >> 1, H / 2, W / 2,
+                         vq, re, im);
+    const bool fr = tr & 1, fc = tc & 1;
+    A* o = qs + 2 * sr * xc + 2 * sc;
+    put_quad(o, xc, fr, fc, re[0], im[0], re[5], im[5]);           // lh
+    put_quad(o + qn, xc, fr, fc, re[2], im[2], re[3], im[3]);      // hl
+    put_quad(o + 2 * qn, xc, fr, fc, re[1], im[1], re[4], im[4]);  // hh
+  }
 }
 
 }  // namespace dtcwt

@@ -59,7 +59,8 @@
 // The host (ops/ilevel1.py, _ilevel1_geometry) chooses TH, MT, the quad
 // loads and the store vectors and passes them in; the kernel refuses any
 // other combination.  The tiling's pieces shared with the level-1 forward
-// are in l1tile.cuh.
+// are in l1tile.cuh; the quad staging, shared with the qshift inverse
+// (ilevel2.cu), is common.cuh's stage_quads.
 #include <type_traits>
 
 #include "l1tile.cuh"
@@ -79,80 +80,6 @@ __host__ __device__ constexpr int i1_e(int p) { return (p + 1) / 2 * 2; }
 __host__ __device__ constexpr int i1_xc(int p) { return L1_TW + 2 * i1_e(p); }
 __host__ __device__ constexpr int i1_xn(int p, int th) {
   return (th + 2 * i1_e(p)) * i1_xc(p);
-}
-
-// The six subbands (degree order) of quad (b, i, j) of an h x w grid:
-// interleaved as three 16-byte pieces (vq) or twelve values, or planes.
-template <typename T, bool PLANES, typename A>
-__device__ __forceinline__ void load_quad(const void* in_a, const void* in_b,
-                                          int b, int i, int j, int h, int w,
-                                          int vq, A re[6], A im[6]) {
-  if constexpr (!PLANES) {
-    if (vq) {
-      constexpr int VN = 16 / sizeof(A);
-      const Vec<A, VN>* z = reinterpret_cast<const Vec<A, VN>*>(
-          static_cast<const A*>(in_a) +
-          ((static_cast<int64_t>(b) * h + i) * w + j) * 12);
-      A v[12];
-#pragma unroll
-      for (int e = 0; e < 12 / VN; ++e) {
-        const Vec<A, VN> pk = z[e];
-#pragma unroll
-        for (int u = 0; u < VN; ++u) v[e * VN + u] = pk.v[u];
-      }
-#pragma unroll
-      for (int d = 0; d < 6; ++d) {
-        re[d] = v[2 * d];
-        im[d] = v[2 * d + 1];
-      }
-      return;
-    }
-  }
-  load_bands<T, PLANES>(in_a, in_b, b, i, j, h, w, re, im);
-}
-
-// The 2 x 2 pixels c2q makes of the band pair (w0, w1), written at o (row
-// stride xc) as two pairs; rows swapped where fr, columns where fc (a quad
-// reflected onto its source).
-template <typename A>
-__device__ __forceinline__ void put_quad(A* o, int xc, bool fr, bool fc,
-                                         A r0, A i0, A r1, A i1) {
-  const A a00 = c2q(r0, i0, r1, i1, 0, 0), a01 = c2q(r0, i0, r1, i1, 0, 1);
-  const A a10 = c2q(r0, i0, r1, i1, 1, 0), a11 = c2q(r0, i0, r1, i1, 1, 1);
-  const A t0 = fr ? a10 : a00, t1 = fr ? a11 : a01;  // staged row 0
-  const A u0 = fr ? a00 : a10, u1 = fr ? a01 : a11;  // staged row 1
-  Vec<A, 2> top, bot;
-  top.v[0] = fc ? t1 : t0;
-  top.v[1] = fc ? t0 : t1;
-  bot.v[0] = fc ? u1 : u0;
-  bot.v[1] = fc ? u0 : u1;
-  *reinterpret_cast<Vec<A, 2>*>(o) = top;
-  *reinterpret_cast<Vec<A, 2>*>(o + xc) = bot;
-}
-
-// Staging: the quad images lh, hl, hh of staged pixel rows r0 - e ..
-// r0 + th + e - 1 and columns c0 - e .. c0 + 128 + e - 1 into qs[3][th +
-// 2e][128 + 2e], one quad an item.
-template <typename T, bool PLANES, typename A>
-__device__ __forceinline__ void stage_quads(const void* band_a,
-                                            const void* band_b, A* qs, int b,
-                                            int H, int W, int r0, int c0,
-                                            int th, int p, int vq) {
-  const int e = i1_e(p), xc = i1_xc(p), xn = i1_xn(p, th);
-  const int qc = L1_TW / 2 + e, items = (th / 2 + e) * qc;
-  const int i0 = r0 / 2 - e / 2, j0 = c0 / 2 - e / 2;
-  for (int it = threadIdx.x; it < items; it += L1_THREADS) {
-    const int sr = it / qc, sc = it - sr * qc;
-    const int tr = fold(2 * (i0 + sr), H), tc = fold(2 * (j0 + sc), W);
-    A re[6], im[6];
-    load_quad<T, PLANES>(band_a, band_b, b, tr >> 1, tc >> 1, H / 2, W / 2,
-                         vq, re, im);
-    const bool fr = tr & 1, fc = tc & 1;
-    A* o = qs + 2 * sr * xc + 2 * sc;
-    put_quad(o, xc, fr, fc, re[0], im[0], re[5], im[5]);           // lh
-    put_quad(o + xn, xc, fr, fc, re[2], im[2], re[3], im[3]);      // hl
-    put_quad(o + 2 * xn, xc, fr, fc, re[1], im[1], re[4], im[4]);  // hh
-  }
 }
 
 // s[t] = q[t * stride] for t < rv + mm - 1, zero past it.
@@ -231,7 +158,13 @@ __global__ void __launch_bounds__(L1_THREADS)
   const int r0 = blockIdx.y * th, c0 = blockIdx.x * L1_TW;
   const int mm = 2 * p + 1, xws = l1_xws(p);
 
-  stage_quads<T, PLANES>(band_a, band_b, qs, b, H, W, r0, c0, th, p, vq);
+  // the quad images of staged pixel rows r0 - e .. r0 + th + e - 1 and
+  // columns c0 - e .. c0 + 128 + e - 1 (common.cuh)
+  const int e = i1_e(p);
+  stage_quads<L1_THREADS, T, PLANES>(band_a, band_b, qs, b, H, W,
+                                     r0 / 2 - e / 2, c0 / 2 - e / 2,
+                                     th / 2 + e, L1_TW / 2 + e, i1_xc(p),
+                                     i1_xn(p, th), vq);
   __syncthreads();
   col_stage<T, MT, BP>(z + static_cast<int64_t>(b) * H * W, qs, st, H, W,
                        r0, c0, th, p, tp);

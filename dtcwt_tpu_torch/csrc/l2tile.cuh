@@ -1,4 +1,5 @@
-// Shared pieces of the 2-D qshift (level >= 2) kernels, CUDA C++, sm_90a.
+// Shared pieces of the 2-D qshift (level >= 2) kernels, the forward
+// (level2.cu) and the inverse (ilevel2.cu), CUDA C++, sm_90a.
 //
 // A qshift level works on the dual-tree decimator's two branches: branch a
 // reads x[4i + 2 - m + 2k], branch b x[4i + 3 - m + 2k] (m even taps), and
@@ -10,7 +11,8 @@
 // A window of one parity is then contiguous, lanes 16 bytes apart read it
 // as 16-byte vectors (vec_window, l1tile.cuh), and the column stage's
 // lanes, on consecutive staged columns, write the two halves in disjoint
-// banks.  The taps travel by
+// banks (l2_half; the inverse splits its column images the same way, for
+// its row stage's windows).  The taps travel by
 // value in the kernel's parameters, zero past m, and every tap loop runs
 // to a compile-time bound MT >= m with no guard: the samples past a
 // window's m taps are finite (written cells, or zeros past the loads).
@@ -60,12 +62,16 @@ template <typename A, bool BP> constexpr int l2_tap_bound(int m) {
                             : 24;
 }
 
-// Width of one parity half of a staged row of L2_TW + 2m columns: it holds
-// the half's 128 + m values, which take in the last lane's 16-byte window
-// (124 + round4(m + 2) values), and is 16 (mod 32) so that the halves sit
-// in disjoint banks.
-__host__ __device__ constexpr int l2_xh(int m) {
-  return (128 + m + 15) / 32 * 32 + 16;
+// Width of a column image's parity half that holds n values: at least n,
+// and 16 (mod 32) so that the two halves of a row sit in disjoint banks
+// for lanes on consecutive staged columns.
+__host__ __device__ constexpr int l2_half(int n) {
+  return (n + 15) / 32 * 32 + 16;
 }
+
+// The forward's half of a staged row of L2_TW + 2m columns: it holds the
+// half's 128 + m values, which take in the last lane's 16-byte window (124
+// + round4(m + 2) values).
+__host__ __device__ constexpr int l2_xh(int m) { return l2_half(128 + m); }
 
 }  // namespace dtcwt

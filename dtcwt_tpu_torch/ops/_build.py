@@ -30,7 +30,7 @@ import torch
 
 __all__ = ["library", "build", "launches", "reset_launches", "count",
            "flatten_batch", "dtype_code", "stream_ptr", "check", "taps_arg",
-           "ints_arg", "ptr", "check_smem", "check_smem_bytes",
+           "ints_arg", "ptr", "check_smem_bytes",
            "odd_filters", "pair_filters", "fir_args", "check_no_grad"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -39,8 +39,6 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
-#: Block shape of the 2-D level kernels in output quads (csrc/common.cuh).
-QX, QY = 32, 8
 #: Longest filter the kernels take (csrc/common.cuh MAX_TAPS).
 MAX_TAPS = 32
 #: Dynamic shared memory one block may use on an H100 (232,448 bytes).
@@ -58,8 +56,8 @@ _SIGNATURES = {
     # planes, qh, mt, vlo, vpl, stream
     "dtcwt_level2": (_P,) * 4 + (_I,) * 3 + (_P,) * 4 + (_I,) * 7 + (_P,),
     # z, band_a, band_b, out, B, H, W, taps, offs, taps2, offs2, m2, dtype,
-    # planes, stream
-    "dtcwt_ilevel2": (_P,) * 4 + (_I,) * 3 + (_P,) * 4 + (_I,) * 3 + (_P,),
+    # planes, qh, mt, vq, stream
+    "dtcwt_ilevel2": (_P,) * 4 + (_I,) * 3 + (_P,) * 4 + (_I,) * 6 + (_P,),
     # z, band_a, band_b, out, B, H, W, t0, m0, t1, m1, t2, m2, dtype, planes,
     # th, mt, vq, vo, stream
     "dtcwt_ilevel1": (_P,) * 4 + (_I,) * 3 + (_P, _I) * 3 + (_I,) * 6 + (
@@ -242,20 +240,6 @@ def ptr(arr) -> int:
     """Host address of a tap or offset table, None (a null pointer) for
     none."""
     return None if arr is None else arr.ctypes.data
-
-
-def check_smem(name: str, dtype: torch.dtype, tile, halo: int,
-               images: int, stages: int, stage_rows: int) -> None:
-    """Raise ValueError where a 2-D level kernel would ask for more dynamic
-    shared memory than a block may have, instead of a launch error.  The
-    block holds *images* staged tiles of ``tile`` = (rows, cols) plus
-    *halo* on each side, and *stages* column stages of *stage_rows* rows as
-    wide as a staged tile, at the accumulator's width (the sizes that
-    ``run_*`` computes in ``csrc/*level*.cu``)."""
-    acc = 8 if dtype == torch.float64 else 4
-    check_smem_bytes(name, acc * (
-        images * (tile[0] + 2 * halo) + stages * stage_rows) * (
-        tile[1] + 2 * halo))
 
 
 def check_smem_bytes(name: str, nbytes: int) -> None:

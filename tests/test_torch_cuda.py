@@ -167,6 +167,71 @@ def test_cuda_ilevel2_matches_plain(cuda, dtype, planes, fam):
         assert _kerr(got, want) < _KTOL[dtype]
 
 
+# inv_level2's tiles are 4, 8 or 16 band rows by 32 band columns (lowpass
+# tiles of 8, 16 or 32 rows by 64 columns): shapes that cross tile edges
+# both ways, tall and wide images, a batch, images shorter than the filters
+# (4 x 6 with qshift_32)
+_IL2_SHAPES = [(2, 20, 28), (2, 4, 6), (66, 130), (3, 66, 132), (2050, 4),
+               (4, 2050), (2, 38, 134), (516, 518)]
+
+
+def _ilevel2_cases(shape, dtype, planes, device):
+    """The inputs of a qshift inverse level at *shape*: as allocated and,
+    at (66, 130), with the lowpass and the subbands at a storage offset."""
+    Z, band = _inverse_inputs(shape, dtype, planes, device)
+    yield Z, band
+    if shape == (66, 130):
+        yield _at_offset(Z), {k: _at_offset(v) for k, v in band.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,planes", _CASES)
+@pytest.mark.parametrize("fam", ["qshift_a", "qshift_c", "qshift_b_bp"])
+def test_cuda_ilevel2_edge_shapes_match_plain(cuda, dtype, planes, fam):
+    """inv_level2 at shapes that cross its tiles both ways, rows too short
+    for a row item, images shorter than the filters, and with its inputs at
+    a storage offset, one launch each: qshift_a (the tap bound 5), qshift_c
+    (m/2 even) and qshift_b_bp (the third stream)."""
+    q = qshift(fam)
+    g = dict(g0a=q[2], g0b=q[3], g1a=q[6], g1b=q[7])
+    if len(q) == 12:
+        g.update(g2a=q[10], g2b=q[11])
+    for shape in _IL2_SHAPES:
+        for Z, band in _ilevel2_cases(shape, dtype, planes, cuda):
+            _build.reset_launches()
+            got = ilevel2.inv_level2(Z, **g, **band)
+            torch.cuda.synchronize()
+            assert dict(_build.launches) == {"ilevel2": 1}
+            want = ilevel2.inv_level2_reference(Z, **g, **band)
+            assert _kerr(got, want) < _KTOL[dtype], (shape, Z.data_ptr())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qh", [4, 8])
+def test_cuda_ilevel2_tile_heights(cuda, qh):
+    """Every tile height the kernel takes, f32 in both layouts and the
+    third stream, against the plain version."""
+    geometry = ilevel2._ilevel2_geometry
+
+    def forced(*a, **k):
+        return geometry(*a, **dict(k, qh=qh))
+    q, bp = qshift("qshift_a"), qshift("qshift_b_bp")
+    ilevel2._ilevel2_geometry = forced
+    try:
+        for shape in [(2, 38, 134), (66, 130), (516, 518)]:
+            for planes in (False, True):
+                Z, band = _inverse_inputs(shape, torch.float32, planes, cuda)
+                for g in (dict(g0a=q[2], g0b=q[3], g1a=q[6], g1b=q[7]),
+                          dict(g0a=bp[2], g0b=bp[3], g1a=bp[6], g1b=bp[7],
+                               g2a=bp[10], g2b=bp[11])):
+                    got = ilevel2.inv_level2(Z, **g, **band)
+                    torch.cuda.synchronize()
+                    want = ilevel2.inv_level2_reference(Z, **g, **band)
+                    assert _kerr(got, want) < _KTOL[torch.float32], shape
+    finally:
+        ilevel2._ilevel2_geometry = geometry
+
+
 def _at_offset(t):
     """A copy of *t* (or of each tensor of a tuple) stored one element past
     the start of its buffer: a caller's tensor at a storage offset, no
@@ -236,7 +301,7 @@ def test_cuda_transform_matches_plain_path(cuda, layout):
 
 _BP_SHAPES = {"level1": _L1_SHAPES,
               "level2": _L2_SHAPES,
-              "ilevel2": [(2, 20, 28), (2, 4, 6), (66, 130)],
+              "ilevel2": _IL2_SHAPES,
               "ilevel1": _L1_SHAPES}
 
 
@@ -272,12 +337,14 @@ def _bp_calls(level):
 def test_cuda_bandpass_kernels_match_plain(cuda, dtype, planes, level):
     """Each level kernel's bandpass variant (near_sym_b_bp: 13/19/19 taps,
     qshift_b_bp: 14) against its plain version, at the shapes of the tests
-    above, including shapes shorter than the filters (fwd_level2 and
-    inv_level1: also their inputs at a storage offset)."""
+    above, including shapes shorter than the filters (fwd_level2,
+    inv_level2 and inv_level1: also their inputs at a storage offset)."""
     kern, plain = _bp_calls(level)
     for shape in _BP_SHAPES[level]:
         if level == "ilevel1":
             cases = _inverse_cases(shape, dtype, planes, cuda)
+        elif level == "ilevel2":
+            cases = _ilevel2_cases(shape, dtype, planes, cuda)
         elif level.startswith("i"):
             cases = [_inverse_inputs(shape, dtype, planes, cuda)]
         elif level == "level2":

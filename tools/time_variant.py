@@ -2,14 +2,16 @@
 other kernels, on one NVIDIA GPU.
 
     python tools/time_variant.py VARIANT.cu dtcwt_level2 level2
+    python tools/time_variant.py VARIANT.cu dtcwt_ilevel2 ilevel2 kernels
 
 Compiles ``VARIANT.cu`` (an edited copy of a ``csrc/*.cu`` file; its
 includes are searched in its own directory first, then in ``csrc/``, so a
 varied header goes there with the headers that include it) into a shared
 library of its own with the package's nvcc flags, routes the named C
-entry (``dtcwt_level2``, ``dtcwt_level1``, ``dtcwt_ilevel1``) to it and
-every other entry to the package's library, then runs
-``tools/time_level1.py`` in the given mode.  A kernel's design is tuned
+entry (``dtcwt_level2``, ``dtcwt_level1``, ``dtcwt_ilevel1``,
+``dtcwt_ilevel2``) to it and every other entry to the package's library,
+then runs ``tools/time_level1.py`` in the given mode (a last argument
+``kernels`` stops it after the kernel lines).  A kernel's design is tuned
 this way without rebuilding every source for each variant.  Run from the
 repository's root.
 """
@@ -26,10 +28,10 @@ from dtcwt_tpu_torch.ops import _build  # noqa: E402
 
 
 def main() -> int:
-    if len(sys.argv) != 4:
+    if len(sys.argv) not in (4, 5):
         raise SystemExit("usage: python tools/time_variant.py VARIANT.cu "
-                         "ENTRY level1|ilevel1|level2")
-    src, entry, mode = sys.argv[1:]
+                         "ENTRY level1|ilevel1|level2|ilevel2 [kernels]")
+    src, entry, mode = sys.argv[1:4]
     lib = _build.library()
     out = os.path.join(tempfile.mkdtemp(dir=_build.BUILD_DIR), "variant.so")
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
@@ -50,7 +52,7 @@ def main() -> int:
             os.path.abspath(__file__)), "time_level1.py"))
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
-    sys.argv = [sys.argv[0], mode]
+    sys.argv = [sys.argv[0], mode] + sys.argv[4:]
     print("variant %s for %s" % (src, entry), flush=True)
     return tool.main()
 
