@@ -14,7 +14,10 @@
 // owns one OH x OW output tile of a depth slice: it stages the input tile
 // plus its reflected halo (XR x XC) in dynamic shared memory, runs the W
 // stage into shared memory (XR x OW per image) and the H stage in
-// registers.  The tile is the largest that fits (pick_tile).
+// registers.  The tile is the largest that fits: pick_tile for hw.cu and
+// the synthesis kernels of pack3d.cu; the analysis kernels of pack3d.cu
+// take theirs from the host, which applies the same rule to their own
+// shared-memory layout (pack3d.cu FwdTile).
 #pragma once
 
 #include <climits>

@@ -18,10 +18,13 @@ the octant order :data:`_OCTANTS`.  On a CUDA tensor the depth stage runs
 on the dual-stream kernels of :mod:`dual` along axis -3 (first on analysis,
 last on synthesis) and the kernel of ``csrc/pack3d.cu`` does the (H, W)
 stages and the (un)pack per depth-slice pair; what bounds it and what its
-design does about it is in that source.  On a CPU tensor each entry runs its
-``*_reference`` plain version: the dual forms of :mod:`fb` along W, H and
-D, then :func:`packing.cube2c_planes` (or :func:`packing.cube2c`) per octant,
-computed at float32 for bfloat16 storage.  Any other device raises.
+design does about it is in that source.  The analysis kernels take their
+tile from :func:`_fwd_pack_geometry` and refuse any other; the CPU tests
+replay it (``tests/test_torch_pack3d_tiling.py``).  On a CPU tensor each
+entry runs its ``*_reference`` plain version: the dual forms of :mod:`fb`
+along W, H and D, then :func:`packing.cube2c_planes` (or
+:func:`packing.cube2c`) per octant, computed at float32 for bfloat16
+storage.  Any other device raises.
 
 The subbands are band-major planes ``(re, im)`` of ``[..., 28, D', H', W']``
 in the storage dtype (``planes=True``) or one complex band-minor
@@ -34,6 +37,9 @@ kernels.  Level >= 2 pairs follow the transform's call order ``(h0b, h0a)``
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -65,6 +71,12 @@ _OCTANTS = (
 )
 
 _MAX_TAPS = 32  # csrc/common.cuh MAX_TAPS, per stream
+_THREADS = 256                  # csrc/hwstage.cuh PACK_THREADS
+_TILE = 32                      # PACK_TILE: the largest output tile side
+_SMEM_MAX = 220 * 1024          # PACK_SMEM_MAX
+_RESTAGE = 4 * _THREADS         # csrc/pack3d.cu FWD_RS: [8 warps][16][8]
+#: (P, D, S) of each analysis kernel's stream plan (csrc/hwstage.cuh)
+_FWD_PDS = {"fwd_level1_pack": (1, 1, 1), "fwd_level2_pack": (2, 4, 2)}
 
 
 # ---------------------------------------------------------------------------
@@ -238,6 +250,74 @@ def _table(plans):
     return taps, _build.ints_arg(lens), _build.ints_arg(offs)
 
 
+class FwdPackGeometry(NamedTuple):
+    """The tile of an analysis kernel (csrc/pack3d.cu FwdTile): oh x ow
+    output samples, the staged slice xr x xc with its halo, the first
+    shared region xn (the slice, or the interleaved restage of every warp
+    where that is larger), the dynamic shared memory in bytes, and the grid
+    (B, Dn / 2, tile rows, tile columns) of one block each."""
+    oh: int
+    ow: int
+    xr: int
+    xc: int
+    xn: int
+    smem: int
+    grid: Tuple[int, int, int, int]
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_pack_geometry(B: int, Dn: int, Ho: int, Wo: int, P: int, D: int,
+                       span: int, dtype: torch.dtype,
+                       planes: bool) -> FwdPackGeometry:
+    """The tile of an analysis kernel with *P* output streams of input step
+    *D* (level 1: 1, 1; level 2: 2, 4) whose plan reaches *span* input
+    samples, for the output ``[B, Dn, Ho, Wo]`` in *dtype*'s layout: the
+    largest of 32 x 32 output samples, halved (the taller side first, sides
+    powers of two and even) until the shared memory fits under 220 KB.
+    The shared memory holds the staged slice (or the interleaved restage,
+    the larger), the 8 W-stage images of xr x ow and the int row and column
+    maps.  Cached: a transform asks for the same tile at every call."""
+    acc = 8 if dtype == torch.float64 else 4
+    oh = ow = _TILE
+    while True:
+        xr, xc = D * (oh // P - 1) + span, D * (ow // P - 1) + span
+        xn = xr * xc if planes else max(xr * xc, _RESTAGE)
+        smem = acc * (xn + 8 * xr * ow) + 4 * (xr + xc)
+        if smem <= _SMEM_MAX:
+            break
+        if oh >= ow and oh > 2:
+            oh //= 2
+        elif ow > 2:
+            ow //= 2
+        else:
+            raise ValueError("the 3-D analysis kernel's filters reach %d "
+                             "samples, too far for its shared memory"
+                             % span)
+    return FwdPackGeometry(oh, ow, xr, xc, xn, smem,
+                           (B, Dn // 2, -(-Ho // oh), -(-Wo // ow)))
+
+
+def _span(plans, S: int) -> int:
+    """Input samples the plans' streams reach, first to last."""
+    first = min(o for _, offs in plans for o in offs)
+    last = max(o + S * (t.shape[1] - 1) for t, offs in plans for o in offs)
+    return last - first + 1
+
+
+def _fwd_outputs(B, Dn, Ho, Wo, dtype, planes, dev):
+    """The analysis kernel's outputs: (lll [B, Dn, Ho, Wo], re, im) planes
+    [B, 28, Dn/2, Ho/2, Wo/2] of *dtype*, or (lll, the complex band-minor
+    [B, Dn/2, Ho/2, Wo/2, 28], None)."""
+    lll = torch.empty((B, Dn, Ho, Wo), dtype=dtype, device=dev)
+    sub = (Dn // 2, Ho // 2, Wo // 2)
+    if planes:
+        ra = torch.empty((B, 28) + sub, dtype=dtype, device=dev)
+        return lll, ra, torch.empty_like(ra)
+    ctype = torch.complex128 if dtype == torch.float64 else torch.complex64
+    return lll, torch.empty((B,) + sub + (28,), dtype=ctype,
+                            device=dev), None
+
+
 def _launch(name, x, bands, plans, out_dtype, planes, Ho, Wo, fwd):
     """Run kernel *name*.  Analysis: *x* is the pair (lo, hi) of branch
     volumes [B, Dn, H, W]; returns (lll, band_a, band_b).  Synthesis: *x*
@@ -252,16 +332,7 @@ def _launch(name, x, bands, plans, out_dtype, planes, Ho, Wo, fwd):
     code = _build.dtype_code(out_dtype if fwd else src.dtype)
     acc = torch.float64 if code == 2 else torch.float32
     if fwd:
-        lll = torch.empty((B, Dn, Ho, Wo), dtype=out_dtype, device=dev)
-        sub = (B, Dn // 2, Ho // 2, Wo // 2)
-        if planes:
-            ra = torch.empty((B, 28) + sub[1:], dtype=out_dtype, device=dev)
-            outs = (lll, ra, torch.empty_like(ra))
-        else:
-            ctype = torch.complex64 if acc == torch.float32 else \
-                torch.complex128
-            outs = (lll, torch.empty(sub + (28,), dtype=ctype, device=dev),
-                    None)
+        outs = _fwd_outputs(B, Dn, Ho, Wo, out_dtype, planes, dev)
         ins = (x[0], x[1], None, None)
     else:
         outs = (torch.empty((B, Dn, Ho, Wo), dtype=acc, device=dev),
@@ -270,10 +341,16 @@ def _launch(name, x, bands, plans, out_dtype, planes, Ho, Wo, fwd):
     ptr = lambda t: None if t is None else (
         torch.view_as_real(t) if t.is_complex() else t).data_ptr()
     taps, lens, offs = _table(plans)
+    tile = ()
+    if fwd:
+        P, D, S = _FWD_PDS[name]
+        geo = _fwd_pack_geometry(B, Dn, Ho, Wo, P, D, _span(plans, S),
+                                 out_dtype, bool(planes))
+        tile = (geo.oh, geo.ow, geo.xr, geo.xc, geo.xn, geo.smem)
     fn = getattr(_build.library(), "dtcwt_" + name)
     err = fn(*(ptr(t) for t in ins), *(ptr(t) for t in outs), B, Dn, H, W,
              Ho, Wo, taps.ctypes.data, lens.ctypes.data, offs.ctypes.data,
-             code, int(planes), _build.stream_ptr(dev))
+             code, int(planes), *tile, _build.stream_ptr(dev))
     _build.check(name, err)
     _build.count(name)
     return outs

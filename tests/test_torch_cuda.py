@@ -626,6 +626,10 @@ _PACK_FAMS = {"fwd_level1_pack": ("near_sym_a", "near_sym_b", "antonini"),
 # level 2 takes multiples of 4, and its inverse reads half of each
 _PACK_SHAPES = {1: [(2, 4, 6, 10), (6, 36, 44), (2, 520, 6)],
                 2: [(4, 8, 12), (2, 8, 36, 20), (4, 516, 8)]}
+# and for the analysis kernels (32 x 32 output tiles), volumes whose last
+# tile is partial in both H and W, band rows ending inside a warp's run
+_FWD_PACK_SHAPES = {1: [(4, 36, 44), (8, 40, 72)],
+                    2: [(4, 72, 88), (8, 40, 72)]}
 
 
 def _pack_calls(kind, fam):
@@ -668,9 +672,11 @@ def _pack_inputs(kind, shape, dtype, planes, device, seed=0):
                                   "fwd_level2_pack", "inv_level2_pack"])
 def test_cuda_pack3d_matches_plain(cuda, kind, dtype, planes):
     level = 1 if "level1" in kind else 2
+    shapes = _PACK_SHAPES[level] + (_FWD_PACK_SHAPES[level]
+                                    if kind.startswith("fwd") else [])
     for fam in _PACK_FAMS[kind]:
         kern, plain = _pack_calls(kind, fam)
-        for seed, shape in enumerate(_PACK_SHAPES[level]):
+        for seed, shape in enumerate(shapes):
             x = _pack_inputs(kind, shape, dtype, planes, cuda, seed)
             got = kern(x, planes)
             torch.cuda.synchronize()
@@ -678,6 +684,55 @@ def test_cuda_pack3d_matches_plain(cuda, kind, dtype, planes):
             if kind.startswith("fwd") and planes:
                 got, want = (got[0], *got[1]), (want[0], *want[1])
             assert _kerr(got, want) < _KTOL[dtype], (fam, shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,planes", [(torch.float32, False),
+                                          (torch.float64, False),
+                                          (torch.float32, True)])
+@pytest.mark.parametrize("kind", ["fwd_level1_pack", "fwd_level2_pack"])
+def test_cuda_fwd_pack_writes_its_outputs_whole(cuda, monkeypatch, kind,
+                                                dtype, planes):
+    """The analysis kernels write every output element and nothing past
+    the end: each output is the head of a NaN-filled buffer one band row
+    (LLL: one row) longer, equal to the plain version after the launch,
+    the tail still NaN."""
+    from dtcwt_tpu_torch.ops import pack3d
+    level = 1 if "level1" in kind else 2
+    make, heads = pack3d._fwd_outputs, []
+
+    def sentinel(*args):
+        outs = []
+        for t in make(*args):
+            if t is not None:
+                # a row more: the LLL's, a plane's band row, or the 28
+                # subbands of an interleaved band row
+                extra = t.shape[-1] * (t.shape[-2] if t.is_complex() else 1)
+                nan = float("nan")
+                buf = torch.full((t.numel() + extra,),
+                                 complex(nan, nan) if t.is_complex() else nan,
+                                 dtype=t.dtype, device=t.device)
+                heads.append((buf, t.numel()))
+                t = buf[:t.numel()].view(t.shape)
+            outs.append(t)
+        return tuple(outs)
+    monkeypatch.setattr(pack3d, "_fwd_outputs", sentinel)
+    for fam in _PACK_FAMS[kind]:
+        kern, plain = _pack_calls(kind, fam)
+        for seed, shape in enumerate(_FWD_PACK_SHAPES[level]):
+            heads.clear()
+            x = _pack_inputs(kind, shape, dtype, planes, cuda, seed)
+            got = kern(x, planes)
+            torch.cuda.synchronize()
+            want = plain(x, planes)
+            if planes:
+                got, want = (got[0], *got[1]), (want[0], *want[1])
+            assert _kerr(got, want) < _KTOL[dtype], (fam, shape)
+            assert len(heads) == (3 if planes else 2)
+            for buf, n in heads:
+                v = torch.view_as_real(buf) if buf.is_complex() else buf
+                assert not torch.isnan(v[:n]).any(), (fam, shape)
+                assert torch.isnan(v[n:]).all(), (fam, shape)
 
 
 @pytest.mark.cuda

@@ -1,19 +1,24 @@
-"""Time a variant of one 2-D level kernel's source beside the package's
-other kernels, on one NVIDIA GPU.
+"""Time a variant of one level kernel's source beside the package's other
+kernels, on one NVIDIA GPU.
 
     python tools/time_variant.py VARIANT.cu dtcwt_level2 level2
     python tools/time_variant.py VARIANT.cu dtcwt_ilevel2 ilevel2 kernels
+    python tools/time_variant.py VARIANT.cu \
+        dtcwt_fwd_level1_pack,dtcwt_fwd_level2_pack pack3d kernels
 
 Compiles ``VARIANT.cu`` (an edited copy of a ``csrc/*.cu`` file; its
 includes are searched in its own directory first, then in ``csrc/``, so a
 varied header goes there with the headers that include it) into a shared
-library of its own with the package's nvcc flags, routes the named C
-entry (``dtcwt_level2``, ``dtcwt_level1``, ``dtcwt_ilevel1``,
-``dtcwt_ilevel2``) to it and every other entry to the package's library,
-then runs ``tools/time_level1.py`` in the given mode (a last argument
-``kernels`` stops it after the kernel lines).  A kernel's design is tuned
-this way without rebuilding every source for each variant.  Run from the
-repository's root.
+library of its own with the package's nvcc flags and ``-Xptxas -v``
+(its report goes to the standard error), routes the named C entries (one
+or several, comma-separated: ``dtcwt_level2``, ``dtcwt_level1``,
+``dtcwt_ilevel1``, ``dtcwt_ilevel2``, ``dtcwt_fwd_level1_pack``,
+``dtcwt_fwd_level2_pack``) to it and every other entry to the package's
+library, then runs ``tools/time_level1.py`` in the given mode, or
+``tools/time_pack3d.py`` for the mode ``pack3d`` (a last argument
+``kernels`` stops either after the kernel lines).  A kernel's design is
+tuned this way without rebuilding every source for each variant.  Run
+from the repository's root.
 """
 
 import ctypes
@@ -28,32 +33,38 @@ from dtcwt_tpu_torch.ops import _build  # noqa: E402
 
 
 def main() -> int:
-    if len(sys.argv) not in (4, 5):
+    modes = ("level1", "ilevel1", "level2", "ilevel2", "pack3d")
+    if len(sys.argv) not in (4, 5) or sys.argv[3] not in modes:
         raise SystemExit("usage: python tools/time_variant.py VARIANT.cu "
-                         "ENTRY level1|ilevel1|level2|ilevel2 [kernels]")
-    src, entry, mode = sys.argv[1:4]
+                         "ENTRY[,ENTRY...] %s [kernels]" % "|".join(modes))
+    src, entries, mode = sys.argv[1:4]
     lib = _build.library()
     out = os.path.join(tempfile.mkdtemp(dir=_build.BUILD_DIR), "variant.so")
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
-                    os.path.dirname(os.path.abspath(src)), "-I", _build.CSRC,
-                    "-shared", "-o", out, src], check=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
+                    "-I", os.path.dirname(os.path.abspath(src)), "-I",
+                    _build.CSRC, "-shared", "-o", out, src], check=True)
     variant = ctypes.CDLL(out)
-    fn = getattr(variant, entry)
-    fn.argtypes = list(_build._SIGNATURES[entry])
-    fn.restype = ctypes.c_int
+    routes = {}
+    for entry in entries.split(","):
+        fn = getattr(variant, entry)
+        fn.argtypes = list(_build._SIGNATURES[entry])
+        fn.restype = ctypes.c_int
+        routes[entry] = fn
 
     class Routed:
         def __getattr__(self, name):
-            return fn if name == entry else getattr(lib, name)
+            return routes[name] if name in routes else getattr(lib, name)
     routed = Routed()
     _build.library = lambda: routed
+    name = "time_pack3d" if mode == "pack3d" else "time_level1"
     spec = importlib.util.spec_from_file_location(
-        "time_level1", os.path.join(os.path.dirname(
-            os.path.abspath(__file__)), "time_level1.py"))
+        name, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           name + ".py"))
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
-    sys.argv = [sys.argv[0], mode] + sys.argv[4:]
-    print("variant %s for %s" % (src, entry), flush=True)
+    sys.argv = [sys.argv[0]] + ([] if mode == "pack3d" else [mode]) + \
+        sys.argv[4:]
+    print("variant %s for %s" % (src, entries), flush=True)
     return tool.main()
 
 
