@@ -155,6 +155,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12         # float32 outside the tensor cores
 _DUAL_SRC = "dtcwt_tpu_torch/csrc/dual.cu"
 _PACK_SRC = "dtcwt_tpu_torch/csrc/pack3d.cu"
+_IPACK_SRC = "dtcwt_tpu_torch/csrc/ipack.cuh"
 _SINGLE_SRC = "dtcwt_tpu_torch/csrc/single.cu"
 _FILTER_SRC = "dtcwt_tpu_torch/csrc/filter.cu"
 _HW_SRC = "dtcwt_tpu_torch/csrc/hw.cu"
@@ -172,9 +173,9 @@ KERNELS = {   # name -> (CUDA source, the TPU kernel it replaces)
     "ifilt2_sum": (_DUAL_SRC, "dtcwt_tpu/ops/pallas_dual.py:533"),
     "filter2_sum": (_DUAL_SRC, "dtcwt_tpu/ops/pallas_dual.py:409"),
     "fwd_level1_pack": (_PACK_SRC, "dtcwt_tpu/ops/pallas_pack3d.py:607"),
-    "inv_level1_pack": (_PACK_SRC, "dtcwt_tpu/ops/pallas_pack3d.py:647"),
+    "inv_level1_pack": (_IPACK_SRC, "dtcwt_tpu/ops/pallas_pack3d.py:647"),
     "fwd_level2_pack": (_PACK_SRC, "dtcwt_tpu/ops/pallas_pack3d.py:503"),
-    "inv_level2_pack": (_PACK_SRC, "dtcwt_tpu/ops/pallas_pack3d.py:549"),
+    "inv_level2_pack": (_IPACK_SRC, "dtcwt_tpu/ops/pallas_pack3d.py:549"),
     "filter": (_FILTER_SRC, "dtcwt_tpu/ops/pallas_fb.py:492"),
     "dfilt": (_SINGLE_SRC, "dtcwt_tpu/ops/pallas_fb.py:642"),
     "ifilt": (_SINGLE_SRC, "dtcwt_tpu/ops/pallas_fb.py:791"),

@@ -33,9 +33,10 @@
 // U_i[2u + c] = sum_{j,k} F_H(g_j) F_W(g_k) octant(i, j, k)[2u + c].
 //
 // Every filter is a set of P output streams (host plans, ops/pack3d.py)
-// applied along W and along H, as hwstage.cuh sets out (the stream plan,
-// the FIR and the tile fitting live there, shared with hw.cu), so the
-// kernels hold no parity logic.  x is read at symmetric reflection
+// applied along W and along H, as hwstage.cuh sets out (the analysis
+// kernel takes the stream plan and the FIR from there, shared with hw.cu;
+// the synthesis kernel takes the same plans as taps by value, ipack.cuh),
+// so the kernels hold no parity logic.  x is read at symmetric reflection
 // (reflect() of common.cuh, folded as often as needed, so H or W shorter
 // than the filter works).
 //
@@ -52,24 +53,26 @@
 // multiply-adds (m taps) against ~12 bytes moved per input sample, well
 // below the card's ~20 float32 operations per byte.  The design: one block
 // per (batch, depth pair, OH x OW output tile) stages each input slice (or
-// each octant's c2cube corners) with a reflected halo in dynamic shared
-// memory, one slice at a time, runs the W stage into shared memory and the
-// H stage plus the (un)pack in registers, and writes every output once.
+// each round's octants' c2cube corners) with a reflected halo in dynamic
+// shared memory, runs the W stage into shared memory and the H stage plus
+// the (un)pack in registers, and writes every output once.
 //
 // The analysis kernel takes its tile from the host (ops/pack3d.py
-// _fwd_pack_geometry; the largest that fits, as pick_tile chooses the
-// synthesis kernel's) and refuses any other.  It stages a slice with
-// lanes on consecutive columns, one asynchronous copy (cp.async) an item
-// so that all of a thread's loads are in flight at once, reading an
-// interior tile directly and an edge tile through row and column maps
-// folded once per block (no modulo or division per sample); it stores the
-// LLL as 2-vectors and sends the interleaved subbands through a restage in
-// each warp so that every 32-byte sector leaves whole in one store
-// (fwd_slot).  Its W and H
-// stages, and the whole synthesis kernel, are still the first port's
+// _fwd_pack_geometry; the largest that fits) and refuses any other.  It
+// stages a slice with lanes on consecutive columns, one asynchronous copy
+// (cp.async) an item so that all of a thread's loads are in flight at
+// once, reading an interior tile directly and an edge tile through row and
+// column maps folded once per block (no modulo or division per sample); it
+// stores the LLL as 2-vectors and sends the interleaved subbands through a
+// restage in each warp so that every 32-byte sector leaves whole in one
+// store (fwd_slot).  Its W and H stages are still the first port's
 // (runtime-length FIRs with their taps in shared memory); the times are in
-// PERF.md.
+// PERF.md.  The synthesis kernel, inv_pack_kernel, has a design of its own
+// (ipack.cuh: corners built once per band location, taps by value under a
+// compile-time bound, register windows) and takes its tile from the host
+// too (_inv_pack_geometry).
 #include "hwstage.cuh"
+#include "ipack.cuh"
 
 namespace dtcwt {
 
@@ -320,152 +323,6 @@ __global__ void __launch_bounds__(PACK_THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// synthesis: lll [B, Dn, H, W] and the 28 subbands [.., Dn/2, H/2, W/2] ->
-// U_0, U_1 [B, Dn, Ho, Wo] (compute type)
-// ---------------------------------------------------------------------------
-
-// The corners (c = 0, 1) at octet parities (hp, wp) of octant n at band
-// sample (b, u, y, x): c2cube of the subbands 4n .. 4n + 3.
-template <typename T, bool PLANES, typename A>
-__device__ __forceinline__ void unpack_corners(const void* band_a,
-                                               const void* band_b, int64_t b,
-                                               int u, int Dh, int y, int x,
-                                               int Hb, int Wb, int n, int hp,
-                                               int wp, A& c0, A& c1) {
-  A pr, qr, rr, sr, pi, qi, ri, si;
-  if constexpr (PLANES) {
-    const int64_t hw = static_cast<int64_t>(Hb) * Wb;
-    const int64_t plane = Dh * hw;  // one subband
-    const int64_t off = ((b * 28 + 4 * n) * Dh + u) * hw +
-                        static_cast<int64_t>(y) * Wb + x;
-    const T* ra = static_cast<const T*>(band_a) + off;
-    const T* ia = static_cast<const T*>(band_b) + off;
-    pr = load(ra);
-    qr = load(ra + plane);
-    rr = load(ra + 2 * plane);
-    sr = load(ra + 3 * plane);
-    pi = load(ia);
-    qi = load(ia + plane);
-    ri = load(ia + 2 * plane);
-    si = load(ia + 3 * plane);
-  } else {
-    const A* z = static_cast<const A*>(band_a) +
-                 (((b * Dh + u) * Hb + y) * static_cast<int64_t>(Wb) + x) *
-                     56 +
-                 8 * n;
-    pr = z[0];
-    pi = z[1];
-    qr = z[2];
-    qi = z[3];
-    rr = z[4];
-    ri = z[5];
-    sr = z[6];
-    si = z[7];
-  }
-  const A h = static_cast<A>(0.5);
-  if (hp == 0 && wp == 0) {
-    c0 = (pr + qr + rr + sr) * h;      // c000
-    c1 = (pi + qi - ri - si) * h;      // c100
-  } else if (hp == 0) {
-    c0 = (pi + qi + ri + si) * h;      // c001
-    c1 = (-pr - qr + rr + sr) * h;     // c101
-  } else if (wp == 0) {
-    c0 = (pi - qi + ri - si) * h;      // c010
-    c1 = (-pr + qr + rr - sr) * h;     // c110
-  } else {
-    c0 = (-pr + qr - rr + sr) * h;     // c011
-    c1 = (-pi + qi + ri - si) * h;     // c111
-  }
-}
-
-template <typename T, bool PLANES, int P, int D, int S>
-__global__ void __launch_bounds__(PACK_THREADS)
-    inv_pack_kernel(const T* __restrict__ lll, const void* band_a,
-                    const void* band_b, typename AccOf<T>::type* __restrict__ ulo,
-                    typename AccOf<T>::type* __restrict__ uhi, int Dn, int H,
-                    int W, int Ho, int Wo, int OH, int OW, int XR, int XC,
-                    int cmin, int n_th, int n_tw,
-                    PackPlan<typename AccOf<T>::type, P> plan) {
-  using A = typename AccOf<T>::type;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ PackPlan<A, P> sp;
-  A* xs = reinterpret_cast<A*>(smem_raw);  // [2 c][XR][XC] one octant
-  A* v = xs + 2 * XR * XC;                 // [2 i][2 j][2 c][XR][OW]
-
-  const int tid = threadIdx.x;
-  int64_t blk = blockIdx.x;
-  const int tw = static_cast<int>(blk % n_tw);
-  blk /= n_tw;
-  const int th = static_cast<int>(blk % n_th);
-  blk /= n_th;
-  const int Dh = Dn / 2;
-  const int u = static_cast<int>(blk % Dh);
-  const int64_t b = blk / Dh;
-  const int o0r = th * OH, o0c = tw * OW;
-  const int rstart = D * (o0r / P) + cmin, cstart = D * (o0c / P) + cmin;
-  const int Hb = H / 2, Wb = W / 2;
-  const int XN = XR * XC, VN = XR * OW;
-
-  stage_plan(plan, &sp);
-#pragma unroll 1
-  for (int ij = 0; ij < 4; ++ij) {
-    const int i = ij >> 1, j = ij & 1;
-#pragma unroll 1
-    for (int k = 0; k < 2; ++k) {
-      __syncthreads();  // the plan is staged / the last W stage read xs
-      const int n = k ? 3 + 2 * i + j : 2 * i + j - 1;  // -1: the LLL
-      for (int idx = tid; idx < XN; idx += PACK_THREADS) {
-        const int r = idx / XC, col = idx - r * XC;
-        const int gr = reflect(rstart + r, H), gc = reflect(cstart + col, W);
-        A c0, c1;
-        if (n < 0) {
-          const T* lp = lll + (b * Dn + 2 * u) * static_cast<int64_t>(H) * W +
-                        static_cast<int64_t>(gr) * W + gc;
-          c0 = load(lp);
-          c1 = load(lp + static_cast<int64_t>(H) * W);
-        } else {
-          unpack_corners<T, PLANES, A>(band_a, band_b, b, u, Dh, gr >> 1,
-                                       gc >> 1, Hb, Wb, n, gr & 1, gc & 1, c0,
-                                       c1);
-        }
-        xs[idx] = c0;
-        xs[XN + idx] = c1;
-      }
-      __syncthreads();
-      for (int idx = tid; idx < 2 * VN; idx += PACK_THREADS) {
-        const int c = idx / VN, rem = idx - c * VN;
-        const int r = rem / OW, ow = rem - r * OW;
-        const A y = fir<A, P, D, S>(sp, k, ow, xs + c * XN + r * XC, 1);
-        A* dst = v + ((i * 2 + j) * 2 + c) * VN + rem;
-        *dst = k ? *dst + y : y;
-      }
-    }
-  }
-  __syncthreads();
-
-  for (int idx = tid; idx < OH * OW; idx += PACK_THREADS) {
-    const int orow = idx / OW, ocol = idx - orow * OW;
-    const int gor = o0r + orow, goc = o0c + ocol;
-    if (gor >= Ho || goc >= Wo) continue;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      A* out = i ? uhi : ulo;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        A acc = 0;
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          acc += fir<A, P, D, S>(sp, j, orow,
-                                    v + ((i * 2 + j) * 2 + c) * VN + ocol,
-                                    OW);
-        out[((b * Dn + 2 * u + c) * Ho + gor) * static_cast<int64_t>(Wo) +
-            goc] = acc;
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -497,62 +354,136 @@ bool fwd_tile_ok(const FwdTile& t, int span, int mult) {
          bytes <= PACK_SMEM_MAX;
 }
 
-template <typename T, bool PLANES, int P, int D, int S, bool FWD>
-cudaError_t run_pack(const void* in_a, const void* in_b, const void* bands_a,
-                     const void* bands_b, void* out_a, void* out_b,
-                     void* out_c, int B, int Dn, int H, int W, int Ho, int Wo,
-                     const double* taps, const int* lens, const int* offs,
-                     const FwdTile& tile, cudaStream_t stream) {
+template <typename T, bool PLANES, int P, int D, int S>
+cudaError_t run_pack(const void* in_a, const void* in_b, void* out_a,
+                     void* out_b, void* out_c, int B, int Dn, int H, int W,
+                     int Ho, int Wo, const double* taps, const int* lens,
+                     const int* offs, const FwdTile& tile,
+                     cudaStream_t stream) {
   using A = typename AccOf<T>::type;
   PackPlan<A, P> plan;
-  int cmin, span, OH, OW, XR, XC;
-  size_t smem;
+  int cmin, span;
   if (!make_pack_plan<A, P, S>(&plan, taps, lens, offs, &cmin, &span))
     return cudaErrorInvalidValue;
   const int mult = P > 2 ? P : 2;
-  if constexpr (FWD) {
-    // the host's tile; the LLL's 2-vectors and the 16-byte pieces of the
-    // interleaved subbands need their outputs aligned
-    if (!fwd_tile_ok<A, PLANES, P, D>(tile, span, mult) ||
-        reinterpret_cast<uintptr_t>(out_a) % (2 * sizeof(T)) ||
-        (!PLANES && reinterpret_cast<uintptr_t>(out_b) % 16))
-      return cudaErrorInvalidValue;
-    OH = tile.oh;
-    OW = tile.ow;
-    XR = tile.xr;
-    XC = tile.xc;
-    smem = static_cast<size_t>(tile.smem);
-  } else if (!pick_tile<A, P, D>(span, 2, 8, mult, &OH, &OW, &XR, &XC,
-                                 &smem)) {
+  // the host's tile; the LLL's 2-vectors and the 16-byte pieces of the
+  // interleaved subbands need their outputs aligned
+  if (!fwd_tile_ok<A, PLANES, P, D>(tile, span, mult) ||
+      reinterpret_cast<uintptr_t>(out_a) % (2 * sizeof(T)) ||
+      (!PLANES && reinterpret_cast<uintptr_t>(out_b) % 16))
     return cudaErrorInvalidValue;
-  }
+  const int OH = tile.oh, OW = tile.ow;
+  const size_t smem = static_cast<size_t>(tile.smem);
   const int n_th = (Ho + OH - 1) / OH, n_tw = (Wo + OW - 1) / OW;
   const int64_t blocks =
       static_cast<int64_t>(B) * (Dn / 2) * n_th * static_cast<int64_t>(n_tw);
   if (blocks < 1 || blocks > INT_MAX) return cudaErrorInvalidValue;
-  cudaError_t e;
-  if constexpr (FWD) {
-    auto kernel = fwd_pack_kernel<T, PLANES, P, D, S>;
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    kernel<<<static_cast<unsigned>(blocks), PACK_THREADS, smem, stream>>>(
-        static_cast<const A*>(in_a), static_cast<const A*>(in_b),
-        static_cast<T*>(out_a), out_b, out_c, Dn, H, W, Ho, Wo, OH, OW, XR,
-        XC, tile.xn, cmin, n_th, n_tw, plan);
-  } else {
-    auto kernel = inv_pack_kernel<T, PLANES, P, D, S>;
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    kernel<<<static_cast<unsigned>(blocks), PACK_THREADS, smem, stream>>>(
-        static_cast<const T*>(in_a), bands_a, bands_b,
-        static_cast<A*>(out_a), static_cast<A*>(out_b), Dn, H, W, Ho, Wo, OH,
-        OW, XR, XC, cmin, n_th, n_tw, plan);
-  }
+  auto kernel = fwd_pack_kernel<T, PLANES, P, D, S>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  kernel<<<static_cast<unsigned>(blocks), PACK_THREADS, smem, stream>>>(
+      static_cast<const A*>(in_a), static_cast<const A*>(in_b),
+      static_cast<T*>(out_a), out_b, out_c, Dn, H, W, Ho, Wo, OH, OW,
+      tile.xr, tile.xc, tile.xn, cmin, n_th, n_tw, plan);
   return cudaGetLastError();
+}
+
+// The synthesis tile the host chose (ops/pack3d.py _inv_pack_geometry):
+// OH x OW output samples, the tap bound MT, the staged area XR x XC, the
+// dynamic shared memory in bytes, and vq = 1 for the interleaved subbands
+// read as 16-byte pieces.
+struct InvTile {
+  int oh, ow, mt, xr, xc, smem, vq;
+};
+
+template <typename T, bool PLANES, int P, int MT>
+cudaError_t run_inv_pack(const void* lll, const void* band_a,
+                         const void* band_b, void* out_a, void* out_b, int B,
+                         int Dn, int H, int W, int Ho, int Wo,
+                         const IpTaps<typename AccOf<T>::type, P>& tp,
+                         const InvTile& tile, cudaStream_t stream) {
+  using A = typename AccOf<T>::type;
+  using G = IpGeo<P, MT>;
+  constexpr size_t smem = ip_smem<A, P, MT>();
+  // the instance's tile and no other
+  if (tile.oh != IP_TILE || tile.ow != IP_TILE || tile.xr != G::X ||
+      tile.xc != G::X || static_cast<size_t>(tile.smem) != smem ||
+      smem > PACK_SMEM_MAX)
+    return cudaErrorInvalidValue;
+  const int n_th = (Ho + IP_TILE - 1) / IP_TILE;
+  const int n_tw = (Wo + IP_TILE - 1) / IP_TILE;
+  const int64_t blocks =
+      static_cast<int64_t>(B) * (Dn / 2) * n_th * static_cast<int64_t>(n_tw);
+  if (blocks < 1 || blocks > INT_MAX) return cudaErrorInvalidValue;
+  auto launch = [&](auto kernel) -> cudaError_t {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    kernel<<<static_cast<unsigned>(blocks), PACK_THREADS, smem, stream>>>(
+        static_cast<const T*>(lll), band_a, band_b, static_cast<A*>(out_a),
+        static_cast<A*>(out_b), Dn, H, W, Ho, Wo, n_th, n_tw, tile.vq, tp);
+    return cudaGetLastError();
+  };
+  if constexpr (ip_capped<T, PLANES, P>())
+    return launch(inv_pack_kernel_capped<T, PLANES, P, MT>);
+  else
+    return launch(inv_pack_kernel<T, PLANES, P, MT>);
+}
+
+// The plan's taps at the least tap bound of the instance set that holds
+// them, which must be the host's; then that instance.
+template <typename T, bool PLANES, int P>
+cudaError_t inv_pack_mt(const void* lll, const void* band_a,
+                        const void* band_b, void* out_a, void* out_b, int B,
+                        int Dn, int H, int W, int Ho, int Wo,
+                        const double* taps, const int* lens, const int* offs,
+                        const InvTile& tile, cudaStream_t st) {
+  using A = typename AccOf<T>::type;
+  IpTaps<A, P> tp{};
+  int mt = 0;
+  for (int e = 0; e < ip_bound_count<A, P>() && !mt; ++e)
+    if (make_ip_taps<A, P>(&tp, taps, lens, offs, ip_bound<A, P>(e)))
+      mt = ip_bound<A, P>(e);
+  if (!mt || tile.mt != mt ||
+      (tile.vq && (PLANES || reinterpret_cast<uintptr_t>(band_a) % 16)))
+    return cudaErrorInvalidValue;
+#define DTCWT_RUN_INV(MT_)                                                  \
+  return run_inv_pack<T, PLANES, P, MT_>(lll, band_a, band_b, out_a, out_b, \
+                                         B, Dn, H, W, Ho, Wo, tp, tile, st)
+  if constexpr (sizeof(A) == 8) {
+    DTCWT_RUN_INV((P == 1 ? IP_K1 : IP_K2));
+  } else if constexpr (P == 1) {
+    if (mt == 9) DTCWT_RUN_INV(9);
+    if (mt == 21) DTCWT_RUN_INV(21);
+    DTCWT_RUN_INV(33);
+  } else {
+    if (mt == 5) DTCWT_RUN_INV(5);
+    if (mt == 7) DTCWT_RUN_INV(7);
+    if (mt == 9) DTCWT_RUN_INV(9);
+    DTCWT_RUN_INV(17);
+  }
+#undef DTCWT_RUN_INV
+}
+
+// One kernel of the four for storage type T and layout PLANES.
+template <typename T, bool PLANES, int P, int D, int S, bool FWD>
+cudaError_t run_one(const void* in_a, const void* in_b, const void* bands_a,
+                    const void* bands_b, void* out_a, void* out_b,
+                    void* out_c, int B, int Dn, int H, int W, int Ho, int Wo,
+                    const double* taps, const int* lens, const int* offs,
+                    const FwdTile& ftile, const InvTile& itile,
+                    cudaStream_t st) {
+  if constexpr (FWD)
+    return run_pack<T, PLANES, P, D, S>(in_a, in_b, out_a, out_b, out_c, B,
+                                        Dn, H, W, Ho, Wo, taps, lens, offs,
+                                        ftile, st);
+  else
+    return inv_pack_mt<T, PLANES, P>(in_a, bands_a, bands_b, out_a, out_b, B,
+                                     Dn, H, W, Ho, Wo, taps, lens, offs,
+                                     itile, st);
 }
 
 template <int P, int D, int S, bool FWD>
@@ -560,15 +491,16 @@ int dispatch_pack(const void* in_a, const void* in_b, const void* bands_a,
                   const void* bands_b, void* out_a, void* out_b, void* out_c,
                   int B, int Dn, int H, int W, int Ho, int Wo,
                   const double* taps, const int* lens, const int* offs,
-                  int dtype, int planes, const FwdTile& tile, void* stream) {
+                  int dtype, int planes, const FwdTile& ftile,
+                  const InvTile& itile, void* stream) {
   if (B < 1 || Dn < 2 || Dn % 2 || H < 2 || W < 2 || Ho < 2 || Wo < 2 ||
-      Ho % 2 || Wo % 2)
+      Ho % 2 || Wo % 2 || (!FWD && (H % 2 || W % 2)))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define DTCWT_RUN_PACK(T, PL)                                               \
-  run_pack<T, PL, P, D, S, FWD>(in_a, in_b, bands_a, bands_b, out_a, out_b, \
-                                out_c, B, Dn, H, W, Ho, Wo, taps, lens, offs, \
-                                tile, st)
+  run_one<T, PL, P, D, S, FWD>(in_a, in_b, bands_a, bands_b, out_a, out_b,  \
+                               out_c, B, Dn, H, W, Ho, Wo, taps, lens, offs, \
+                               ftile, itile, st)
   switch (dtype) {
     case DT_F32:
       return planes ? DTCWT_RUN_PACK(float, true)
@@ -596,7 +528,9 @@ int dispatch_pack(const void* in_a, const void* in_b, const void* bands_a,
 //   synthesis: in_a = lll [B, Dn, H, W] (storage type); bands_a / bands_b =
 //              re / im planes [B, 28, Dn/2, H/2, W/2] (planes = 1) or
 //              bands_a = the interleaved complex level (planes = 0);
-//              out_a / out_b = U_0 / U_1 [B, Dn, Ho, Wo] (compute type).
+//              out_a / out_b = U_0 / U_1 [B, Dn, Ho, Wo] (compute type);
+//              oh .. vq the host's tile (InvTile), refused unless it is the
+//              kernel's.
 // taps: host float64 [2 branches][P streams][MAX_TAPS]; lens, offs: host
 // [2][P].  Returns the launch's CUDA error code.
 #define DTCWT_FWD_PACK_EXPORT(name, P, D, S)                                   \
@@ -609,17 +543,20 @@ int dispatch_pack(const void* in_a, const void* in_b, const void* bands_a,
     return dtcwt::dispatch_pack<P, D, S, true>(                               \
         in_a, in_b, bands_a, bands_b, out_a, out_b, out_c, B, Dn, H, W, Ho,   \
         Wo, taps, lens, offs, dtype, planes,                                  \
-        dtcwt::FwdTile{oh, ow, xr, xc, xn, smem}, stream);                    \
+        dtcwt::FwdTile{oh, ow, xr, xc, xn, smem}, dtcwt::InvTile{}, stream);  \
   }
 #define DTCWT_INV_PACK_EXPORT(name, P, D, S)                                   \
   extern "C" int name(const void* in_a, const void* in_b,                     \
                       const void* bands_a, const void* bands_b, void* out_a,  \
                       void* out_b, void* out_c, int B, int Dn, int H, int W,  \
                       int Ho, int Wo, const double* taps, const int* lens,    \
-                      const int* offs, int dtype, int planes, void* stream) { \
+                      const int* offs, int dtype, int planes, int oh, int ow, \
+                      int mt, int xr, int xc, int smem, int vq,               \
+                      void* stream) {                                         \
     return dtcwt::dispatch_pack<P, D, S, false>(                              \
         in_a, in_b, bands_a, bands_b, out_a, out_b, out_c, B, Dn, H, W, Ho,   \
-        Wo, taps, lens, offs, dtype, planes, dtcwt::FwdTile{}, stream);       \
+        Wo, taps, lens, offs, dtype, planes, dtcwt::FwdTile{},                \
+        dtcwt::InvTile{oh, ow, mt, xr, xc, smem, vq}, stream);                \
   }
 
 DTCWT_FWD_PACK_EXPORT(dtcwt_fwd_level1_pack, 1, 1, 1)

@@ -76,12 +76,12 @@ _SIGNATURES["dtcwt_filter"] = (_P, _P) + (_I,) * 7 + (_P,) + (_I,) * 8 + (
     _P,)
 # the 3-D level kernels of csrc/pack3d.cu: in_a, in_b, bands_a, bands_b,
 # out_a, out_b, out_c, B, Dn, H, W, Ho, Wo, taps, lens, offs, dtype, planes,
-# then for the analysis kernels their tile oh, ow, xr, xc, xn, smem, and
-# stream
+# then the tile (analysis: oh, ow, xr, xc, xn, smem; synthesis: oh, ow, mt,
+# xr, xc, smem, vq), and stream
 for _name in ("fwd_level1_pack", "inv_level1_pack", "fwd_level2_pack",
               "inv_level2_pack"):
     _SIGNATURES["dtcwt_" + _name] = (_P,) * 7 + (_I,) * 6 + (_P,) * 3 + (
-        _I, _I) + (_I,) * (6 if _name.startswith("fwd") else 0) + (_P,)
+        _I, _I) + (_I,) * (6 if _name.startswith("fwd") else 7) + (_P,)
 # the two-sided (H, W) kernels of csrc/hw.cu: in0..in3, out0..out3, N, H, W,
 # Ho, Wo, taps, lens, offs, dtype, stream
 for _name in ("filter_hw22", "dfilt_hw22", "filter_sum_hw22",

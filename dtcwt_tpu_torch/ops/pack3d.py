@@ -18,9 +18,14 @@ the octant order :data:`_OCTANTS`.  On a CUDA tensor the depth stage runs
 on the dual-stream kernels of :mod:`dual` along axis -3 (first on analysis,
 last on synthesis) and the kernel of ``csrc/pack3d.cu`` does the (H, W)
 stages and the (un)pack per depth-slice pair; what bounds it and what its
-design does about it is in that source.  The analysis kernels take their
-tile from :func:`_fwd_pack_geometry` and refuse any other; the CPU tests
-replay it (``tests/test_torch_pack3d_tiling.py``).  On a CPU tensor each
+design does about it is in that source (the synthesis kernel's in
+``csrc/ipack.cuh``).  The analysis kernels take their tile from
+:func:`_fwd_pack_geometry`, the synthesis kernels theirs (and their tap
+bound) from :func:`_inv_pack_geometry`, and each refuses any other; the
+CPU tests replay both (``tests/test_torch_pack3d_tiling.py``,
+``tests/test_torch_ipack3d_tiling.py``).  The
+synthesis kernels take qshift filters of at most 34 taps (the longest
+published family, qshift_32, has 32).  On a CPU tensor each
 entry runs its ``*_reference`` plain version: the dual forms of :mod:`fb`
 along W, H and D, then :func:`packing.cube2c_planes` (or
 :func:`packing.cube2c`) per octant, computed at float32 for bfloat16
@@ -297,6 +302,103 @@ def _fwd_pack_geometry(B: int, Dn: int, Ho: int, Wo: int, P: int, D: int,
                            (B, Dn // 2, -(-Ho // oh), -(-Wo // ow)))
 
 
+#: Tap bounds of the synthesis kernel's instances by streams a stage (1:
+#: level 1, 4: level 2), float32 / bfloat16 and float64 (csrc/ipack.cuh
+#: ip_bound)
+_INV_BOUNDS = {1: ((9, 21, 33), (33,)), 4: ((5, 7, 9, 17), (17,))}
+#: Output streams of each synthesis kernel's stage plans (csrc/hwstage.cuh)
+_INV_P = {"inv_level1_pack": 1, "inv_level2_pack": 4}
+
+
+def _inv_taps(plans, P: int, mt: int):
+    """The plans' taps centred on the halo of tap bound *mt*
+    (csrc/ipack.cuh make_ip_taps): ``(t [2][P][mt], sw [2])``, t[b][s][k]
+    multiplying window sample k of stream s of branch b (level 2: of the
+    parity ``(s & 1) ^ sw[b]``), or None where a stream does not fit."""
+    ph = (mt - 1) // 2
+    t = np.zeros((2, P, mt))
+    sw = [0, 0]
+    for b, (taps, offs) in enumerate(plans):
+        if P > 1:
+            sw[b] = (offs[0] + 2 * ph) & 1
+        for s in range(P):
+            m = taps.shape[1]
+            d = ph + offs[s] if P == 1 else offs[s] + 2 * ph
+            sh = d if P == 1 else d >> 1
+            if d < 0 or sh + m > mt or (
+                    P > 1 and (d & 1) != ((s & 1) ^ sw[b])):
+                return None
+            t[b, s, sh:sh + m] = taps[s]
+    return t, sw
+
+
+def _inv_tap_bound(plans, P: int, dtype: torch.dtype) -> int:
+    """The least tap bound of the synthesis kernel's instances that holds
+    the plans: level 1 9 (near_sym_a, antonini, legall), 21 (near_sym_b)
+    or 33; level 2 5 (qshift_a), 7 (qshift_b), 9 (qshift_c, qshift_d) or
+    17 (qshift_32); float64 only the largest."""
+    for mt in _INV_BOUNDS[P][dtype == torch.float64]:
+        if _inv_taps(plans, P, mt) is not None:
+            return mt
+    raise ValueError("the 3-D synthesis kernel's largest tap bound, %d, "
+                     "does not hold these filters"
+                     % _INV_BOUNDS[P][0][-1])
+
+
+class InvPackGeometry(NamedTuple):
+    """The tile of a synthesis kernel (csrc/pack3d.cu InvTile,
+    csrc/ipack.cuh IpGeo): oh x ow output samples of each of the four
+    outputs (U_i at depth parity c), 256 threads a block on the grid (B,
+    Dn / 2, tile rows, tile columns); the tap bound mt and its halo ph; the
+    staged area xr x xc (square) from sample (rs, cs) of the level's input
+    (level 1: the tile's first row and column less ph; level 2: half of
+    them less 2 ph), xh the parity half of a level-2 staged row (0 at level
+    1) and xs the staged row stride; smem the dynamic shared memory bytes
+    (four staged images [xr][xs], the W stage's two [xr][ow], the int row
+    and column maps); vq: the interleaved subbands read as 16-byte pieces."""
+    oh: int
+    ow: int
+    mt: int
+    ph: int
+    xr: int
+    xc: int
+    xh: int
+    xs: int
+    smem: int
+    grid: Tuple[int, int, int, int]
+    vq: bool
+
+
+@functools.lru_cache(maxsize=None)
+def _inv_pack_geometry(B: int, Dn: int, Ho: int, Wo: int, P: int, mt: int,
+                       dtype: torch.dtype, planes: bool,
+                       band_ptr: int = 0) -> InvPackGeometry:
+    """The tile of a synthesis kernel with *P* streams a stage (1: level 1,
+    4: level 2) and tap bound *mt* (:func:`_inv_tap_bound`) writing ``[B,
+    Dn, Ho, Wo]`` twice, for *dtype*'s subbands in the plane or
+    interleaved layout at address *band_ptr* (modulo 16: a pyramid may
+    hold them at a storage offset, and the 16-byte loads need 16).  The
+    tile is 32 x 32 output samples: with the largest tap bound in float64
+    its shared memory (164 KB at level 1) still fits, and at the main
+    path's bounds in float32 (36 KB at level 1, 16 KB at level 2) the
+    registers, not the shared memory, set an SM's blocks.  Cached: a
+    transform asks for the same tile at every call."""
+    acc = 8 if dtype == torch.float64 else 4
+    oh = ow = _TILE
+    ph = (mt - 1) // 2
+    if P == 1:
+        xr, xh = oh + mt - 1, 0
+        xs = xr
+    else:
+        xr = oh // 2 + 2 * mt - 2
+        xh = (xr // 2 + 3) // 8 * 8 + 4
+        xs = 2 * xh
+    smem = acc * (4 * xr * xs + 2 * xr * ow) + 4 * 2 * xr
+    return InvPackGeometry(oh, ow, mt, ph, xr, xr, xh, xs, smem,
+                           (B, Dn // 2, -(-Ho // oh), -(-Wo // ow)),
+                           not planes and band_ptr % 16 == 0)
+
+
 def _span(plans, S: int) -> int:
     """Input samples the plans' streams reach, first to last."""
     first = min(o for _, offs in plans for o in offs)
@@ -318,6 +420,13 @@ def _fwd_outputs(B, Dn, Ho, Wo, dtype, planes, dev):
                             device=dev), None
 
 
+def _inv_outputs(B, Dn, Ho, Wo, dtype, dev):
+    """The synthesis kernel's outputs: (U_0, U_1 [B, Dn, Ho, Wo] of the
+    compute *dtype*, None)."""
+    return (torch.empty((B, Dn, Ho, Wo), dtype=dtype, device=dev),
+            torch.empty((B, Dn, Ho, Wo), dtype=dtype, device=dev), None)
+
+
 def _launch(name, x, bands, plans, out_dtype, planes, Ho, Wo, fwd):
     """Run kernel *name*.  Analysis: *x* is the pair (lo, hi) of branch
     volumes [B, Dn, H, W]; returns (lll, band_a, band_b).  Synthesis: *x*
@@ -335,18 +444,23 @@ def _launch(name, x, bands, plans, out_dtype, planes, Ho, Wo, fwd):
         outs = _fwd_outputs(B, Dn, Ho, Wo, out_dtype, planes, dev)
         ins = (x[0], x[1], None, None)
     else:
-        outs = (torch.empty((B, Dn, Ho, Wo), dtype=acc, device=dev),
-                torch.empty((B, Dn, Ho, Wo), dtype=acc, device=dev), None)
+        outs = _inv_outputs(B, Dn, Ho, Wo, acc, dev)
         ins = (x[0], None) + tuple(bands)
     ptr = lambda t: None if t is None else (
         torch.view_as_real(t) if t.is_complex() else t).data_ptr()
     taps, lens, offs = _table(plans)
-    tile = ()
     if fwd:
         P, D, S = _FWD_PDS[name]
         geo = _fwd_pack_geometry(B, Dn, Ho, Wo, P, D, _span(plans, S),
                                  out_dtype, bool(planes))
         tile = (geo.oh, geo.ow, geo.xr, geo.xc, geo.xn, geo.smem)
+    else:
+        P = _INV_P[name]
+        geo = _inv_pack_geometry(
+            B, Dn, Ho, Wo, P, _inv_tap_bound(plans, P, src.dtype), src.dtype,
+            bool(planes), ptr(bands[0]) % 16)
+        tile = (geo.oh, geo.ow, geo.mt, geo.xr, geo.xc, geo.smem,
+                int(geo.vq))
     fn = getattr(_build.library(), "dtcwt_" + name)
     err = fn(*(ptr(t) for t in ins), *(ptr(t) for t in outs), B, Dn, H, W,
              Ho, Wo, taps.ctypes.data, lens.ctypes.data, offs.ctypes.data,

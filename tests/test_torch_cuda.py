@@ -630,6 +630,11 @@ _PACK_SHAPES = {1: [(2, 4, 6, 10), (6, 36, 44), (2, 520, 6)],
 # tile is partial in both H and W, band rows ending inside a warp's run
 _FWD_PACK_SHAPES = {1: [(4, 36, 44), (8, 40, 72)],
                     2: [(4, 72, 88), (8, 40, 72)]}
+# for the synthesis kernels (32 x 32 output tiles), batched output volumes
+# whose last tile is partial in both H and W, with staged halos that
+# reflect at both ends of an axis
+_INV_PACK_SHAPES = {1: [(1, 4, 36, 44), (2, 2, 66, 68)],
+                    2: [(1, 4, 72, 88), (2, 4, 36, 68)]}
 
 
 def _pack_calls(kind, fam):
@@ -673,7 +678,8 @@ def _pack_inputs(kind, shape, dtype, planes, device, seed=0):
 def test_cuda_pack3d_matches_plain(cuda, kind, dtype, planes):
     level = 1 if "level1" in kind else 2
     shapes = _PACK_SHAPES[level] + (_FWD_PACK_SHAPES[level]
-                                    if kind.startswith("fwd") else [])
+                                    if kind.startswith("fwd")
+                                    else _INV_PACK_SHAPES[level])
     for fam in _PACK_FAMS[kind]:
         kern, plain = _pack_calls(kind, fam)
         for seed, shape in enumerate(shapes):
@@ -733,6 +739,107 @@ def test_cuda_fwd_pack_writes_its_outputs_whole(cuda, monkeypatch, kind,
                 v = torch.view_as_real(buf) if buf.is_complex() else buf
                 assert not torch.isnan(v[:n]).any(), (fam, shape)
                 assert torch.isnan(v[n:]).all(), (fam, shape)
+
+
+def _inv_stage(kind, fam, x, planes):
+    """The synthesis kernel alone (its (U_0, U_1), before the depth stage)
+    and its plain version, on the inputs of :func:`_pack_inputs`."""
+    from dtcwt_tpu_torch.ops import pack3d
+    from dtcwt_tpu_torch.ops.ilevel2 import ifilt_streams
+    lll, ba, bb = x
+    H, W = lll.shape[-2:]
+    if kind == "inv_level1_pack":
+        b = biort(fam)
+        f = (b[1], b[3])
+        plans = pack3d._filter_plans(*f)
+        merge = lambda a, c, ax: fb.filter2_sum_axis(a, c, *f, ax)
+        Ho, Wo = H, W
+    else:
+        q = qshift(fam)
+        f = ((q[3], q[2]), (q[7], q[6]))
+        plans = [ifilt_streams(*p) for p in f]
+        merge = lambda a, c, ax: fb.ifilt2_sum_axis(a, c, *f, ax)
+        Ho, Wo = 2 * H, 2 * W
+
+    def plain():
+        octs = pack3d.unpack_octants((ba, bb) if planes else ba)
+        octs[(0, 0, 0)] = lll.float() if lll.dtype == torch.bfloat16 else lll
+        return tuple(merge(merge(octs[(i, 0, 0)], octs[(i, 0, 1)], -1),
+                           merge(octs[(i, 1, 0)], octs[(i, 1, 1)], -1), -2)
+                     for i in range(2))
+    return (lambda: tuple(pack3d._launch(kind, (lll,), (ba, bb), plans, None,
+                                         planes, Ho, Wo, False)[:2]), plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,planes", [(torch.float32, False),
+                                          (torch.float64, False),
+                                          (torch.float32, True)])
+@pytest.mark.parametrize("kind", ["inv_level1_pack", "inv_level2_pack"])
+def test_cuda_inv_pack_writes_its_outputs_whole(cuda, monkeypatch, kind,
+                                                dtype, planes):
+    """The synthesis kernels write every output element and nothing past
+    the end: U_0 and U_1 are the heads of NaN-filled buffers one row
+    longer, equal to the plain version after the launch, the tail still
+    NaN."""
+    from dtcwt_tpu_torch.ops import pack3d
+    level = 1 if "level1" in kind else 2
+    make, heads = pack3d._inv_outputs, []
+
+    def sentinel(*args):
+        outs = []
+        for t in make(*args):
+            if t is not None:
+                buf = torch.full((t.numel() + t.shape[-1],), float("nan"),
+                                 dtype=t.dtype, device=t.device)
+                heads.append((buf, t.numel()))
+                t = buf[:t.numel()].view(t.shape)
+            outs.append(t)
+        return tuple(outs)
+    monkeypatch.setattr(pack3d, "_inv_outputs", sentinel)
+    for fam in _PACK_FAMS[kind]:
+        for seed, shape in enumerate(_INV_PACK_SHAPES[level]):
+            heads.clear()
+            x = _pack_inputs(kind, shape, dtype, planes, cuda, seed)
+            kern, plain = _inv_stage(kind, fam, x, planes)
+            got = kern()
+            torch.cuda.synchronize()
+            assert _kerr(got, plain()) < _KTOL[dtype], (fam, shape)
+            assert len(heads) == 2
+            for buf, n in heads:
+                assert not torch.isnan(buf[:n]).any(), (fam, shape)
+                assert torch.isnan(buf[n:]).all(), (fam, shape)
+
+
+@pytest.mark.cuda
+def test_cuda_inv_pack_refuses_a_tile_not_the_hosts(cuda, monkeypatch):
+    """The synthesis C entries take the tile, tap bound and 16-byte loads
+    of _inv_pack_geometry and refuse any other with a CUDA error; the
+    host's own launch then runs."""
+    from dtcwt_tpu_torch.ops import pack3d
+    geometry = pack3d._inv_pack_geometry
+    for kind, planes, bad in (
+            ("inv_level1_pack", False, dict(mt=21)),
+            ("inv_level1_pack", False, dict(oh=16)),
+            ("inv_level1_pack", True, dict(smem=1)),
+            ("inv_level1_pack", True, dict(vq=True)),
+            ("inv_level2_pack", False, dict(mt=7)),
+            ("inv_level2_pack", False, dict(xr=26, xc=26)),
+            ("inv_level2_pack", True, dict(mt=17))):
+        fam = "near_sym_a" if kind == "inv_level1_pack" else "qshift_a"
+        x = _pack_inputs(kind, (1, 4, 36, 44), torch.float32, planes, cuda)
+        kern, plain = _inv_stage(kind, fam, x, planes)
+        monkeypatch.setattr(
+            pack3d, "_inv_pack_geometry",
+            lambda *a, **k: geometry(*a, **k)._replace(**bad))
+        _build.reset_launches()
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            kern()
+        assert not _build.launches
+        monkeypatch.setattr(pack3d, "_inv_pack_geometry", geometry)
+        got = kern()
+        torch.cuda.synchronize()
+        assert _kerr(got, plain()) < _KTOL[torch.float32], (kind, bad)
 
 
 @pytest.mark.cuda

@@ -5,14 +5,15 @@ at the main path's volumes, beside their byte bound and plain versions.
     python tools/time_pack3d.py kernels    # stop after the kernel lines
 
 Prints the card (``nvidia-smi`` name and power limit), the kernels' build
-time and what ``nvcc -Xptxas -v`` reports for each kernel of
-``pack3d.cu`` (registers, shared memory, spills), then one line per kernel,
-layout (f32 interleaved, f32 planes, bf16 planes) and volume of the 256^3
-3-level round trip: the kernel stage's device time (stream held; the depth
-stage already run), the bound, the kernel's share of it, the plain
-version's time and the error against it, and the sum over the round
-trip's launches.  The forward kernels ``fwd_level1_pack`` and
-``fwd_level2_pack`` come first; the inverse ones are the controls.  Then,
+time and what ``nvcc -Xptxas -v`` reports for each instance of the
+synthesis kernel ``inv_pack_kernel`` (registers, shared memory, spills),
+then one line per kernel, layout (f32 interleaved, f32 planes, bf16
+planes) and volume of the 256^3 3-level round trip: the kernel stage's
+device time (stream held; the depth stage already run), the bound, the
+kernel's share of it, the plain version's time and the error against it,
+and the sum over the round trip's launches.  The inverse kernels
+``inv_level1_pack`` and ``inv_level2_pack`` come first; the forward ones
+are the controls.  Then,
 unless ``kernels`` is given: the 3-D round trip in each layout, the traces
 of its f32 interleaved and f32 planes forms (device time by kernel, idle
 share, host enqueue), the two-sided hw kernels of the sharded path (f32,
@@ -43,8 +44,8 @@ _spec.loader.exec_module(cs)
 import dtcwt_tpu_torch as dt  # noqa: E402
 from dtcwt_tpu_torch.ops import _build  # noqa: E402
 
-PACK_ORDER = ("fwd_level1_pack", "fwd_level2_pack", "inv_level2_pack",
-              "inv_level1_pack")
+PACK_ORDER = ("inv_level1_pack", "inv_level2_pack", "fwd_level1_pack",
+              "fwd_level2_pack")
 CONTROL_HW = ("filter_hw22", "dfilt_hw22", "filter_sum_hw22",
               "ifilt_sum_hw22")
 
@@ -59,13 +60,14 @@ def ptxas_start(work):
 
 
 def ptxas_print(proc) -> None:
-    """Print each kernel's resource line from ptxas's report."""
+    """Print the resource lines of ptxas's report for each instance of the
+    synthesis kernel."""
     out, _ = proc.communicate()
     name = None
     for line in out.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = m.group(1)
+            name = m.group(1) if "inv_pack_kernel" in m.group(1) else None
             continue
         if name and ("Used" in line or "spill" in line):
             print("ptxas %s: %s" % (name, line.split(" : ")[-1].strip()),

@@ -5,6 +5,8 @@ kernels, on one NVIDIA GPU.
     python tools/time_variant.py VARIANT.cu dtcwt_ilevel2 ilevel2 kernels
     python tools/time_variant.py VARIANT.cu \
         dtcwt_fwd_level1_pack,dtcwt_fwd_level2_pack pack3d kernels
+    python tools/time_variant.py VARIANT.cu \
+        dtcwt_inv_level1_pack,dtcwt_inv_level2_pack pack3d kernels
 
 Compiles ``VARIANT.cu`` (an edited copy of a ``csrc/*.cu`` file; its
 includes are searched in its own directory first, then in ``csrc/``, so a
@@ -13,7 +15,8 @@ library of its own with the package's nvcc flags and ``-Xptxas -v``
 (its report goes to the standard error), routes the named C entries (one
 or several, comma-separated: ``dtcwt_level2``, ``dtcwt_level1``,
 ``dtcwt_ilevel1``, ``dtcwt_ilevel2``, ``dtcwt_fwd_level1_pack``,
-``dtcwt_fwd_level2_pack``) to it and every other entry to the package's
+``dtcwt_fwd_level2_pack``, ``dtcwt_inv_level1_pack``,
+``dtcwt_inv_level2_pack``) to it and every other entry to the package's
 library, then runs ``tools/time_level1.py`` in the given mode, or
 ``tools/time_pack3d.py`` for the mode ``pack3d`` (a last argument
 ``kernels`` stops either after the kernel lines).  A kernel's design is
