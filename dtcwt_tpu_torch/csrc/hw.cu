@@ -19,23 +19,24 @@
 //
 // The TPU kernel multiplies each slice by dense operator matrices from
 // both sides (about 7% non-zero at 256).  Here the same map is a direct
-// FIR on the stream plans of hwstage.cuh, the (H, W) stage pair of the
-// level kernels in pack3d.cu without the (un)pack: filter (P, D, S) =
-// (1, 1, 1), dfilt (2, 4, 2), ifilt (4, 2, 2).  x is read at symmetric
-// reflection (reflect() of common.cuh), so any H and W work, those shorter
-// than the filter included.  Storage types float, bfloat16 and double;
-// float and bfloat16 accumulate in float, double in double, and each output
-// is rounded to storage once.
+// FIR on the stream plans of hwstage.cuh: filter (P, D, S) = (1, 1, 1),
+// dfilt (2, 4, 2), ifilt (4, 2, 2).  x is read at symmetric reflection
+// (reflect() of common.cuh), so any H and W work, those shorter than the
+// filter included.  Storage types float, bfloat16 and double; float and
+// bfloat16 accumulate in float, double in double, and each output is
+// rounded to storage once.
 //
 // Bound on the H100: device memory bytes.  Analysis reads a slice once and
 // writes four (~20 bytes a float32 input sample) for ~3 m multiply-adds a
-// sample (m taps), under the card's ~20 float32 operations per byte.  The
-// design: one block per (slice, OH x OW output tile) stages its input tile
-// with the reflected halo in shared memory, runs the W stage of both
-// branches into shared memory and the H stage in registers, and writes
-// every output once.  Synthesis stages the four inputs one after another
-// and keeps the two W-stage sums (one per H branch) in shared memory.
-#include "hwstage.cuh"
+// sample (m taps), under the card's ~20 float32 operations per byte.
+// Analysis (hw22_kernel, the first port's design): one block per (slice,
+// OH x OW output tile, pick_tile) stages its input tile with the reflected
+// halo in shared memory, runs the W stage of both branches into shared
+// memory (hwstage.cuh fir()) and the H stage in registers, and writes every
+// output once.  Synthesis (sum_hw22_kernel) is the design of hwsum.cuh:
+// the four inputs staged together, taps by value under a compile-time
+// bound, register windows, its tile from the host.
+#include "hwsum.cuh"
 
 namespace dtcwt {
 
@@ -98,65 +99,15 @@ __global__ void __launch_bounds__(PACK_THREADS)
   }
 }
 
-// synthesis: v_jk [N, H, W] -> y [N, Ho, Wo]
-template <typename T, int P, int D, int S>
-__global__ void __launch_bounds__(PACK_THREADS)
-    sum_hw22_kernel(const T* __restrict__ v00, const T* __restrict__ v01,
-                    const T* __restrict__ v10, const T* __restrict__ v11,
-                    T* __restrict__ y, int H, int W, int Ho, int Wo, int OH,
-                    int OW, int XR, int XC, int cmin, int n_th, int n_tw,
-                    PackPlan<typename AccOf<T>::type, P> plan) {
-  using A = typename AccOf<T>::type;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ PackPlan<A, P> sp;
-  A* xs = reinterpret_cast<A*>(smem_raw);  // [XR][XC] one input tile
-  A* vw = xs + XR * XC;  // [2 j][XR][OW] sum_k F_W(g_k) v[j][k]
-
-  int64_t blk = blockIdx.x;
-  const int tw = static_cast<int>(blk % n_tw);
-  blk /= n_tw;
-  const int th = static_cast<int>(blk % n_th);
-  const int64_t n = blk / n_th;
-  const int o0r = th * OH, o0c = tw * OW;
-  const int64_t slice = n * H * static_cast<int64_t>(W);
-  const int VN = XR * OW;
-
-  stage_plan(plan, &sp);
-#pragma unroll 1
-  for (int jk = 0; jk < 4; ++jk) {
-    const int j = jk >> 1, k = jk & 1;
-    const T* src = jk == 0 ? v00 : jk == 1 ? v01 : jk == 2 ? v10 : v11;
-    __syncthreads();  // the plan is staged / the last W stage read xs
-    stage_tile(src + slice, H, W, D * (o0r / P) + cmin,
-               D * (o0c / P) + cmin, XR, XC, xs);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < VN; idx += PACK_THREADS) {
-      const int r = idx / OW, ow = idx - r * OW;
-      const A t = fir<A, P, D, S>(sp, k, ow, xs + r * XC, 1);
-      A* dst = vw + j * VN + idx;
-      *dst = k ? *dst + t : t;
-    }
-  }
-  __syncthreads();
-
-  for (int idx = threadIdx.x; idx < OH * OW; idx += PACK_THREADS) {
-    const int orow = idx / OW, ocol = idx - orow * OW;
-    const int gor = o0r + orow, goc = o0c + ocol;
-    if (gor >= Ho || goc >= Wo) continue;
-    store(y + (n * Ho + gor) * static_cast<int64_t>(Wo) + goc,
-          fir<A, P, D, S>(sp, 0, orow, vw + ocol, OW) +
-              fir<A, P, D, S>(sp, 1, orow, vw + VN + ocol, OW));
-  }
-}
-
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
-template <typename T, int P, int D, int S, bool FWD>
-cudaError_t run_hw22(const void* const* in, void* const* out, int N, int H,
-                     int W, int Ho, int Wo, const double* taps,
-                     const int* lens, const int* offs, cudaStream_t stream) {
+// analysis, its tile from pick_tile
+template <typename T, int P, int D, int S>
+cudaError_t run_hw22(const T* x, T* const* out, int N, int H, int W, int Ho,
+                     int Wo, const double* taps, const int* lens,
+                     const int* offs, cudaStream_t stream) {
   using A = typename AccOf<T>::type;
   PackPlan<A, P> plan;
   int cmin, span, OH, OW, XR, XC;
@@ -169,77 +120,161 @@ cudaError_t run_hw22(const void* const* in, void* const* out, int N, int H,
   const int n_th = (Ho + OH - 1) / OH, n_tw = (Wo + OW - 1) / OW;
   const int64_t blocks = static_cast<int64_t>(N) * n_th * n_tw;
   if (blocks < 1 || blocks > INT_MAX) return cudaErrorInvalidValue;
-  cudaError_t e;
-  if constexpr (FWD) {
-    auto kernel = hw22_kernel<T, P, D, S>;
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    kernel<<<static_cast<unsigned>(blocks), PACK_THREADS, smem, stream>>>(
-        static_cast<const T*>(in[0]), static_cast<T*>(out[0]),
-        static_cast<T*>(out[1]), static_cast<T*>(out[2]),
-        static_cast<T*>(out[3]), H, W, Ho, Wo, OH, OW, XR, XC, cmin, n_th,
-        n_tw, plan);
-  } else {
-    auto kernel = sum_hw22_kernel<T, P, D, S>;
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    kernel<<<static_cast<unsigned>(blocks), PACK_THREADS, smem, stream>>>(
-        static_cast<const T*>(in[0]), static_cast<const T*>(in[1]),
-        static_cast<const T*>(in[2]), static_cast<const T*>(in[3]),
-        static_cast<T*>(out[0]), H, W, Ho, Wo, OH, OW, XR, XC, cmin, n_th,
-        n_tw, plan);
-  }
+  auto kernel = hw22_kernel<T, P, D, S>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  kernel<<<static_cast<unsigned>(blocks), PACK_THREADS, smem, stream>>>(
+      x, out[0], out[1], out[2], out[3], H, W, Ho, Wo, OH, OW, XR, XC, cmin,
+      n_th, n_tw, plan);
   return cudaGetLastError();
 }
 
-template <int P, int D, int S, bool FWD>
-int dispatch_hw22(const void* const* in, void* const* out, int N, int H,
-                  int W, int Ho, int Wo, const double* taps, const int* lens,
+template <int P, int D, int S>
+int dispatch_hw22(const void* x, void* const* out, int N, int H, int W,
+                  int Ho, int Wo, const double* taps, const int* lens,
                   const int* offs, int dtype, void* stream) {
   if (N < 1 || H < 1 || W < 1 || Ho < 1 || Wo < 1)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define DTCWT_RUN_HW22(T)                                                   \
+  run_hw22<T, P, D, S>(static_cast<const T*>(x),                            \
+                       reinterpret_cast<T* const*>(out), N, H, W, Ho, Wo,   \
+                       taps, lens, offs, st)
   switch (dtype) {
     case DT_F32:
-      return run_hw22<float, P, D, S, FWD>(in, out, N, H, W, Ho, Wo, taps,
-                                           lens, offs, st);
+      return DTCWT_RUN_HW22(float);
     case DT_BF16:
-      return run_hw22<__nv_bfloat16, P, D, S, FWD>(in, out, N, H, W, Ho, Wo,
-                                                   taps, lens, offs, st);
+      return DTCWT_RUN_HW22(__nv_bfloat16);
     case DT_F64:
-      return run_hw22<double, P, D, S, FWD>(in, out, N, H, W, Ho, Wo, taps,
-                                            lens, offs, st);
+      return DTCWT_RUN_HW22(double);
+  }
+#undef DTCWT_RUN_HW22
+  return cudaErrorInvalidValue;
+}
+
+// The synthesis tile the host chose (ops/hw.py _sum_hw22_geometry): OH x
+// OW output samples, the tap bound MT, the staged area XR x XC and the
+// dynamic shared memory in bytes.
+struct SumTile {
+  int oh, ow, mt, xr, xc, smem;
+};
+
+// synthesis at tap bound MT: the instance's tile and no other
+template <typename T, int P, int MT>
+cudaError_t run_sum_hw22(const T* const* v, T* y, int N, int H, int W,
+                         int Ho, int Wo,
+                         const HsTaps<typename AccOf<T>::type, P>& tp,
+                         const SumTile& tile, cudaStream_t stream) {
+  using A = typename AccOf<T>::type;
+  using G = HsGeo<A, P, MT>;
+  constexpr size_t smem = G::SMEM;
+  if (tile.oh != HS_TILE || tile.ow != HS_TILE || tile.xr != G::X ||
+      tile.xc != G::X || static_cast<size_t>(tile.smem) != smem)
+    return cudaErrorInvalidValue;
+  const int n_th = (Ho + HS_TILE - 1) / HS_TILE;
+  const int n_tw = (Wo + HS_TILE - 1) / HS_TILE;
+  const int64_t blocks = static_cast<int64_t>(N) * n_th * n_tw;
+  if (blocks < 1 || blocks > INT_MAX) return cudaErrorInvalidValue;
+  auto kernel = sum_hw22_kernel<T, P, MT>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  kernel<<<static_cast<unsigned>(blocks), PACK_THREADS, smem, stream>>>(
+      v[0], v[1], v[2], v[3], y, H, W, Ho, Wo, n_th, n_tw, tp);
+  return cudaGetLastError();
+}
+
+// The plan's taps at the least tap bound of the instance set that holds
+// them, which must be the host's; then that instance.
+template <typename T, int P>
+cudaError_t sum_hw22_mt(const void* const* in, void* out, int N, int H,
+                        int W, int Ho, int Wo, const double* taps,
+                        const int* lens, const int* offs,
+                        const SumTile& tile, cudaStream_t st) {
+  using A = typename AccOf<T>::type;
+  HsTaps<A, P> tp{};
+  int mt = 0;
+  for (int e = 0; e < HS_BOUNDS && !mt; ++e)
+    if (make_hs_taps<A, P>(&tp, taps, lens, offs, hs_bound<P>(e)))
+      mt = hs_bound<P>(e);
+  if (!mt || tile.mt != mt) return cudaErrorInvalidValue;
+  const T* const v[4] = {
+      static_cast<const T*>(in[0]), static_cast<const T*>(in[1]),
+      static_cast<const T*>(in[2]), static_cast<const T*>(in[3])};
+  T* y = static_cast<T*>(out);
+#define DTCWT_RUN_SUM(E)                                                   \
+  if (mt == hs_bound<P>(E))                                                 \
+  return run_sum_hw22<T, P, hs_bound<P>(E)>(v, y, N, H, W, Ho, Wo, tp, tile, \
+                                            st)
+  DTCWT_RUN_SUM(0);
+  DTCWT_RUN_SUM(1);
+  DTCWT_RUN_SUM(2);
+  DTCWT_RUN_SUM(3);
+  DTCWT_RUN_SUM(4);
+#undef DTCWT_RUN_SUM
+  return cudaErrorInvalidValue;
+}
+
+template <int P, int D>
+int dispatch_sum_hw22(const void* const* in, void* out, int N, int H, int W,
+                      int Ho, int Wo, const double* taps, const int* lens,
+                      const int* offs, int dtype, const SumTile& tile,
+                      void* stream) {
+  // filter keeps the size, ifilt doubles it (H and W even)
+  if (N < 1 || H < 1 || W < 1 || Ho != D * H || Wo != D * W ||
+      (D == 2 && (H % 2 || W % 2)))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case DT_F32:
+      return sum_hw22_mt<float, P>(in, out, N, H, W, Ho, Wo, taps, lens,
+                                   offs, tile, st);
+    case DT_BF16:
+      return sum_hw22_mt<__nv_bfloat16, P>(in, out, N, H, W, Ho, Wo, taps,
+                                           lens, offs, tile, st);
+    case DT_F64:
+      return sum_hw22_mt<double, P>(in, out, N, H, W, Ho, Wo, taps, lens,
+                                    offs, tile, st);
   }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace dtcwt
 
-// Common C interface of the four kernels, all tensors of the storage type:
+// C interface of the four kernels, all tensors of the storage type.
+// taps: host float64 [2 branches][P streams][MAX_TAPS]; lens, offs: host
+// [2][P].  Each returns the launch's CUDA error code.
 //   analysis:  in0 = x [N, H, W]; out0..out3 = o00, o01, o10, o11
 //              [N, Ho, Wo]; in1..in3 unused.
-//   synthesis: in0..in3 = v00, v01, v10, v11 [N, H, W]; out0 = y
-//              [N, Ho, Wo]; out1..out3 unused.
-// taps: host float64 [2 branches][P streams][MAX_TAPS]; lens, offs: host
-// [2][P].  Returns the launch's CUDA error code.
-#define DTCWT_HW_EXPORT(name, P, D, S, FWD)                                  \
+#define DTCWT_HW_EXPORT(name, P, D, S)                                      \
   extern "C" int name(const void* in0, const void* in1, const void* in2,    \
                       const void* in3, void* out0, void* out1, void* out2,  \
                       void* out3, int N, int H, int W, int Ho, int Wo,      \
                       const double* taps, const int* lens, const int* offs, \
                       int dtype, void* stream) {                            \
-    const void* in[4] = {in0, in1, in2, in3};                               \
     void* out[4] = {out0, out1, out2, out3};                                \
-    return dtcwt::dispatch_hw22<P, D, S, FWD>(in, out, N, H, W, Ho, Wo,     \
-                                              taps, lens, offs, dtype,      \
-                                              stream);                      \
+    return dtcwt::dispatch_hw22<P, D, S>(in0, out, N, H, W, Ho, Wo, taps,   \
+                                         lens, offs, dtype, stream);        \
+  }
+//   synthesis: v00, v01, v10, v11 [N, H, W] -> y [N, Ho, Wo]; oh .. smem
+//              the host's tile (SumTile), refused unless it is the
+//              kernel's.
+#define DTCWT_SUM_HW_EXPORT(name, P, D)                                     \
+  extern "C" int name(const void* v00, const void* v01, const void* v10,    \
+                      const void* v11, void* y, int N, int H, int W, int Ho, \
+                      int Wo, const double* taps, const int* lens,          \
+                      const int* offs, int dtype, int oh, int ow, int mt,   \
+                      int xr, int xc, int smem, void* stream) {             \
+    const void* in[4] = {v00, v01, v10, v11};                              \
+    return dtcwt::dispatch_sum_hw22<P, D>(                                  \
+        in, y, N, H, W, Ho, Wo, taps, lens, offs, dtype,                    \
+        dtcwt::SumTile{oh, ow, mt, xr, xc, smem}, stream);                  \
   }
 
-DTCWT_HW_EXPORT(dtcwt_filter_hw22, 1, 1, 1, true)
-DTCWT_HW_EXPORT(dtcwt_dfilt_hw22, 2, 4, 2, true)
-DTCWT_HW_EXPORT(dtcwt_filter_sum_hw22, 1, 1, 1, false)
-DTCWT_HW_EXPORT(dtcwt_ifilt_sum_hw22, 4, 2, 2, false)
+DTCWT_HW_EXPORT(dtcwt_filter_hw22, 1, 1, 1)
+DTCWT_HW_EXPORT(dtcwt_dfilt_hw22, 2, 4, 2)
+DTCWT_SUM_HW_EXPORT(dtcwt_filter_sum_hw22, 1, 1)
+DTCWT_SUM_HW_EXPORT(dtcwt_ifilt_sum_hw22, 4, 2)

@@ -1,5 +1,8 @@
-// The (H, W) stage pair of a 3-D level, shared by the level kernels of
-// pack3d.cu and the two-sided kernels of hw.cu (CUDA C++, sm_90a).
+// The (H, W) stage pair of a 3-D level, shared by the analysis kernels of
+// pack3d.cu (fwd_pack_kernel) and of hw.cu (hw22_kernel) (CUDA C++,
+// sm_90a).  The synthesis kernels have designs of their own: pack3d.cu's in
+// ipack.cuh, hw.cu's in hwsum.cuh; they take PACK_THREADS, PACK_SMEM_MAX,
+// cp_async_value and the host plans' layout from here.
 //
 // Both branch filters of one axis stage are P output streams each (host
 // plans: dual._filter_plan, level2.dfilt_streams, ilevel2.ifilt_streams),
@@ -14,10 +17,10 @@
 // owns one OH x OW output tile of a depth slice: it stages the input tile
 // plus its reflected halo (XR x XC) in dynamic shared memory, runs the W
 // stage into shared memory (XR x OW per image) and the H stage in
-// registers.  The tile is the largest that fits: pick_tile for hw.cu and
-// the synthesis kernels of pack3d.cu; the analysis kernels of pack3d.cu
-// take theirs from the host, which applies the same rule to their own
-// shared-memory layout (pack3d.cu FwdTile).
+// registers.  The tile is the largest that fits: pick_tile for hw.cu's
+// analysis kernel; the analysis kernels of pack3d.cu take theirs from the
+// host, which applies the same rule to their own shared-memory layout
+// (pack3d.cu FwdTile).
 #pragma once
 
 #include <climits>
@@ -29,6 +32,16 @@ namespace dtcwt {
 constexpr int PACK_THREADS = 256;
 constexpr int PACK_TILE = 32;                   // largest output tile side
 constexpr size_t PACK_SMEM_MAX = 220 * 1024;    // dynamic shared memory cap
+
+// One value from device memory into shared memory, asynchronously
+// (cp.async; the caller waits for it).
+template <typename A>
+__device__ __forceinline__ void cp_async_value(A* smem, const A* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+               "l"(gmem), "n"(sizeof(A))
+               : "memory");
+}
 
 // The two branch filters of one axis stage as P streams each.
 template <typename A, int P> struct PackPlan {

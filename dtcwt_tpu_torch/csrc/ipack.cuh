@@ -203,15 +203,6 @@ __device__ __forceinline__ void ip_put(A* img, int r, int x, A a0, A a1) {
   }
 }
 
-// One value from device memory into shared memory, asynchronously.
-template <typename A>
-__device__ __forceinline__ void ip_cp_async(A* smem, const A* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
-               "l"(gmem), "n"(sizeof(A))
-               : "memory");
-}
-
 // Stage round (i, j): the octants (i, j, k), k = 0, 1, into xs[k][c].
 // n0 < 0: the LLL slice pair in the place of k = 0.
 template <typename T, bool PLANES, int P, int MT>
@@ -233,7 +224,7 @@ __device__ __forceinline__ void ip_stage(
                      static_cast<int64_t>(rmap[r]) * W + cmap[col];
       A* dst = xs + c * G::XN + ip_cell<P, MT>(r, col);
       if constexpr (sizeof(T) == sizeof(A))
-        ip_cp_async(dst, src);
+        cp_async_value(dst, src);
       else
         *dst = load(src);
     }

@@ -82,12 +82,15 @@ for _name in ("fwd_level1_pack", "inv_level1_pack", "fwd_level2_pack",
               "inv_level2_pack"):
     _SIGNATURES["dtcwt_" + _name] = (_P,) * 7 + (_I,) * 6 + (_P,) * 3 + (
         _I, _I) + (_I,) * (6 if _name.startswith("fwd") else 7) + (_P,)
-# the two-sided (H, W) kernels of csrc/hw.cu: in0..in3, out0..out3, N, H, W,
-# Ho, Wo, taps, lens, offs, dtype, stream
-for _name in ("filter_hw22", "dfilt_hw22", "filter_sum_hw22",
-              "ifilt_sum_hw22"):
+# the two-sided (H, W) kernels of csrc/hw.cu: analysis in0..in3, out0..out3,
+# synthesis v00..v11, y; then N, H, W, Ho, Wo, taps, lens, offs, dtype, the
+# synthesis tile (oh, ow, mt, xr, xc, smem), and stream
+for _name in ("filter_hw22", "dfilt_hw22"):
     _SIGNATURES["dtcwt_" + _name] = (_P,) * 8 + (_I,) * 5 + (_P,) * 3 + (
         _I, _P)
+for _name in ("filter_sum_hw22", "ifilt_sum_hw22"):
+    _SIGNATURES["dtcwt_" + _name] = (_P,) * 5 + (_I,) * 5 + (_P,) * 3 + (
+        _I,) * 7 + (_P,)
 
 #: Kernel launches per wrapper, counted where each wrapper launches.
 launches = collections.Counter()

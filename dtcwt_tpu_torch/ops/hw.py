@@ -25,12 +25,20 @@ lane multiples gone.
 Each entry ``f`` has ``f_reference``, its plain version: :mod:`fb`'s dual
 forms along W, then along H, computed at float32 for bfloat16 storage.  An
 entry takes its route from the input's device: a CPU tensor runs the plain
-version, a CUDA tensor launches the kernel (``csrc/hw.cu``: the (H, W)
-stage pair of ``csrc/pack3d.cu`` without the (un)pack, on the same host
-plans) or raises.  The kernels take float32, bfloat16 and float64.
+version, a CUDA tensor launches the kernel (``csrc/hw.cu``) or raises.  The
+analysis kernel is the (H, W) stage pair of ``csrc/pack3d.cu``'s analysis
+without the pack, on the same host plans.  The synthesis kernel is
+``csrc/hwsum.cuh``'s: its tile and tap bound come from
+:func:`_sum_hw22_geometry` and :func:`_sum_tap_bound`, the C entry refuses
+any other, and ``tests/test_torch_hw_tiling.py`` replays it on the CPU.
+The kernels take float32, bfloat16 and float64, and filters of up to 32
+taps a stream: odd filters of up to 31 taps, qshift pairs of up to 64.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -38,7 +46,8 @@ import torch
 from dtcwt_tpu_torch.ops import _build, dual, fb
 from dtcwt_tpu_torch.ops.ilevel2 import ifilt_streams
 from dtcwt_tpu_torch.ops.level2 import dfilt_streams
-from dtcwt_tpu_torch.ops.pack3d import _filter_plans, _table
+from dtcwt_tpu_torch.ops.pack3d import (_SMEM_MAX, _filter_plans, _inv_taps,
+                                        _table)
 from dtcwt_tpu_torch.utils import compute_view
 
 __all__ = ["filter_hw22", "dfilt_hw22", "filter_sum_hw22", "ifilt_sum_hw22",
@@ -129,9 +138,18 @@ def _equal_pairs(pair0, pair1, name: str):
     return pairs
 
 
-def _launch(name: str, ins, plans, Ho: int, Wo: int, n_out: int):
-    """Run kernel *name* on the [..., H, W] tensors *ins* (one for analysis,
-    four for synthesis); returns *n_out* outputs [..., Ho, Wo]."""
+def _outputs(n_out: int, N: int, Ho: int, Wo: int, dtype, device):
+    """The kernels' outputs, *n_out* of ``[N, Ho, Wo]``."""
+    return [torch.empty((N, Ho, Wo), dtype=dtype, device=device)
+            for _ in range(n_out)]
+
+
+def _launch(name: str, ins, Ho: int, Wo: int, n_out: int, args):
+    """Run kernel *name* on the [..., H, W] tensors *ins* (one for
+    analysis, four for synthesis); *args()*, called where there is work,
+    gives the host tap table (taps, lens, offs) and the ints the C entry
+    takes after the dtype (the synthesis tile; none for analysis).  Returns
+    *n_out* outputs [..., Ho, Wo]."""
     _build.check_no_grad(name, ins)
     x = ins[0]
     lead, (H, W) = tuple(x.shape[:-2]), tuple(x.shape[-2:])
@@ -141,18 +159,147 @@ def _launch(name: str, ins, plans, Ho: int, Wo: int, n_out: int):
                          % (name, N, H, W))
     code = _build.dtype_code(x.dtype)
     flat = [t.reshape((N, H, W)).contiguous() for t in ins]
-    outs = [torch.empty((N, Ho, Wo), dtype=x.dtype, device=x.device)
-            for _ in range(n_out)]
+    outs = _outputs(n_out, N, Ho, Wo, x.dtype, x.device)
     if N:
-        taps, lens, offs = _table(plans)
-        ptrs = lambda ts: [t.data_ptr() for t in ts] + [None] * (4 - len(ts))
+        (taps, lens, offs), tile = args()
+        ptrs = ([t.data_ptr() for t in flat] + [None] * (4 - len(flat))
+                + [o.data_ptr() for o in outs])
         fn = getattr(_build.library(), "dtcwt_" + name)
-        err = fn(*ptrs(flat), *ptrs(outs), N, H, W, Ho, Wo, taps.ctypes.data,
-                 lens.ctypes.data, offs.ctypes.data, code,
-                 _build.stream_ptr(x.device))
+        err = fn(*ptrs, N, H, W, Ho, Wo, taps.ctypes.data, lens.ctypes.data,
+                 offs.ctypes.data, code, *tile, _build.stream_ptr(x.device))
         _build.check(name, err)
         _build.count(name)
     return [o.reshape(lead + (Ho, Wo)) for o in outs]
+
+
+# ---------------------------------------------------------------------------
+# the synthesis kernel's tiling (csrc/hwsum.cuh)
+# ---------------------------------------------------------------------------
+
+_TILE = 32                     # csrc/hwsum.cuh HS_TILE
+#: Streams a stage of each synthesis entry (csrc/hw.cu)
+_SUM_P = {"filter_sum_hw22": 1, "ifilt_sum_hw22": 4}
+#: Tap bounds of the synthesis instances by streams a stage, every dtype
+#: (csrc/hwsum.cuh hs_bound): the largest holds odd filters of 31 taps and
+#: qshift pairs of 64
+_SUM_BOUNDS = {1: (5, 7, 9, 19, 31), 4: (5, 7, 9, 17, 33)}
+
+
+def _sum_tap_bound(plans, P: int) -> int:
+    """The least tap bound of the synthesis instances that holds the plans
+    (the taps centred on its halo, csrc/hwsum.cuh make_hs_taps, as
+    :func:`pack3d._inv_taps` centres them): filter 5 (legall), 7
+    (near_sym_a), 9 (antonini), 19 (near_sym_b) or 31; ifilt 5 (qshift_a),
+    7 (qshift_b), 9 (qshift_c, qshift_d), 17 (qshift_32) or 33."""
+    for mt in _SUM_BOUNDS[P]:
+        if _inv_taps(plans, P, mt) is not None:
+            return mt
+    raise ValueError("the hw synthesis kernel's largest tap bound, %d, does "
+                     "not hold these filters" % _SUM_BOUNDS[P][-1])
+
+
+class SumHw22Geometry(NamedTuple):
+    """The tile of a synthesis kernel (csrc/hwsum.cuh HsGeo): oh x ow output
+    samples, 256 threads a block, a block for each tile of each slice; the
+    tap bound mt and its halo ph; the staged area xr x xc (square) from
+    so samples before the tile's first input row and column (filter: the
+    tile's first; ifilt: half of it), so = ph rounded up to 4 for filter
+    (its windows then start dl = so - ph in), 2 ph for ifilt (dl 0); xh
+    the parity half of an ifilt staged row (0 for filter) and xs the staged
+    row stride; cw the values a chunk of the filter's staging (f32 and bf16
+    4, f64 2; 0 for ifilt, a value an item); rounds of staging (1: the four
+    inputs together; 2: two a round, where four do not fit) and smem the
+    dynamic shared memory bytes (4 / rounds staged images [xr][xs], the W
+    stage's two [xr][ow], the int row and column maps)."""
+    oh: int
+    ow: int
+    mt: int
+    ph: int
+    so: int
+    dl: int
+    xr: int
+    xc: int
+    xh: int
+    xs: int
+    cw: int
+    rounds: int
+    smem: int
+
+    def tile(self):
+        """The ints the C entry takes: oh, ow, mt, xr, xc, smem."""
+        return self.oh, self.ow, self.mt, self.xr, self.xc, self.smem
+
+
+@functools.lru_cache(maxsize=None)
+def _sum_hw22_geometry(P: int, mt: int,
+                       dtype: torch.dtype) -> SumHw22Geometry:
+    """The tile of a synthesis kernel with *P* streams a stage (1: filter,
+    4: ifilt) and tap bound *mt* (:func:`_sum_tap_bound`) in *dtype*: 32 x
+    32 output samples.  At the main path's bounds in float32 its shared
+    memory (36 KB for filter at 7, 16 KB for ifilt at 5) leaves an SM six
+    and eight blocks; float64 at the largest bounds fits, ifilt in two
+    rounds.  Cached: the sharded transform asks for the same tile at every
+    call."""
+    acc = 8 if dtype == torch.float64 else 4
+    ph = (mt - 1) // 2
+    if P == 1:
+        so = (ph + 3) // 4 * 4
+        dl, xh, cw = so - ph, 0, 16 // acc
+        xr = xs = _TILE + 2 * so
+    else:
+        so, dl, cw = 2 * ph, 0, 0
+        xr = _TILE // 2 + 2 * mt - 2
+        xh = (xr // 2 + 3) // 8 * 8 + 4
+        xs = 2 * xh
+
+    def smem_of(images):
+        return acc * (images * xr * xs + 2 * xr * _TILE) + 4 * 2 * xr
+    rounds = 1 if smem_of(4) <= _SMEM_MAX else 2
+    return SumHw22Geometry(_TILE, _TILE, mt, ph, so, dl, xr, xr, xh, xs, cw,
+                           rounds, smem_of(4 // rounds))
+
+
+class _SumPlan(NamedTuple):
+    """A synthesis filter set's kernel arguments: the host tap table, lens
+    and offsets (kept alive here across launches), the plans and the tap
+    bound."""
+    taps: np.ndarray
+    lens: np.ndarray
+    offs: np.ndarray
+    plans: list
+    mt: int
+
+
+_SUM_PLANS = {}
+
+
+def _sum_plan(name: str, filters) -> _SumPlan:
+    """The kernel arguments of a synthesis filter set (*filters*: g0, g1 or
+    the two pairs' four filters), planned once per filter set (keyed by the
+    filters' values) and cached."""
+    f = [np.asarray(v, np.float64).reshape(-1) for v in filters]
+    key = (name,) + tuple(v.tobytes() for v in f)
+    plan = _SUM_PLANS.get(key)
+    if plan is not None:
+        return plan
+    P = _SUM_P[name]
+    plans = (_filter_plans(f[0], f[1]) if P == 1 else
+             [ifilt_streams(f[0], f[1]), ifilt_streams(f[2], f[3])])
+    taps, lens, offs = _table(plans)
+    plan = _SumPlan(taps, lens, offs, plans, _sum_tap_bound(plans, P))
+    if len(_SUM_PLANS) >= 64:
+        _SUM_PLANS.clear()
+    _SUM_PLANS[key] = plan
+    return plan
+
+
+def _sum_args(name: str, filters, dtype: torch.dtype):
+    """The synthesis launch's arguments (:func:`_launch` *args*): the cached
+    tap table and the tile of :func:`_sum_hw22_geometry` for *dtype* at the
+    plan's tap bound."""
+    plan = _sum_plan(name, filters)
+    geo = _sum_hw22_geometry(_SUM_P[name], plan.mt, dtype)
+    return (plan.taps, plan.lens, plan.offs), geo.tile()
 
 
 def _nest(u):
@@ -170,7 +317,9 @@ def filter_hw22(x: torch.Tensor, h0, h1):
     h0, h1 = _odd(h0, h1, "filter_hw22")
     if dual._on_cpu(x, "filter_hw22"):
         return filter_hw22_reference(x, h0, h1)
-    return _nest(_launch("filter_hw22", [x], _filter_plans(h0, h1), H, W, 4))
+    plans = _filter_plans(h0, h1)
+    return _nest(_launch("filter_hw22", [x], H, W, 4,
+                         lambda: (_table(plans), ())))
 
 
 def dfilt_hw22(x: torch.Tensor, pair0, pair1):
@@ -181,8 +330,9 @@ def dfilt_hw22(x: torch.Tensor, pair0, pair1):
     pairs = _equal_pairs(pair0, pair1, "dfilt_hw22")
     if dual._on_cpu(x, "dfilt_hw22"):
         return dfilt_hw22_reference(x, pair0, pair1)
-    return _nest(_launch("dfilt_hw22", [x], [dfilt_streams(*p) for p in pairs],
-                         H // 2, W // 2, 4))
+    plans = [dfilt_streams(*p) for p in pairs]
+    return _nest(_launch("dfilt_hw22", [x], H // 2, W // 2, 4,
+                         lambda: (_table(plans), ())))
 
 
 def filter_sum_hw22(v00, v01, v10, v11, g0, g1):
@@ -193,7 +343,8 @@ def filter_sum_hw22(v00, v01, v10, v11, g0, g1):
     g0, g1 = _odd(g0, g1, "filter_sum_hw22")
     if dual._on_cpu(v00, "filter_sum_hw22"):
         return filter_sum_hw22_reference(*vs, g0, g1)
-    return _launch("filter_sum_hw22", vs, _filter_plans(g0, g1), H, W, 1)[0]
+    return _launch("filter_sum_hw22", vs, H, W, 1, lambda: _sum_args(
+        "filter_sum_hw22", (g0, g1), v00.dtype))[0]
 
 
 def ifilt_sum_hw22(v00, v01, v10, v11, pair0, pair1):
@@ -204,5 +355,5 @@ def ifilt_sum_hw22(v00, v01, v10, v11, pair0, pair1):
     pairs = _equal_pairs(pair0, pair1, "ifilt_sum_hw22")
     if dual._on_cpu(v00, "ifilt_sum_hw22"):
         return ifilt_sum_hw22_reference(*vs, pair0, pair1)
-    return _launch("ifilt_sum_hw22", vs, [ifilt_streams(*p) for p in pairs],
-                   2 * H, 2 * W, 1)[0]
+    return _launch("ifilt_sum_hw22", vs, 2 * H, 2 * W, 1, lambda: _sum_args(
+        "ifilt_sum_hw22", pairs[0] + pairs[1], v00.dtype))[0]

@@ -1057,6 +1057,10 @@ def test_cuda_compat_matches_the_transforms(cuda):
 # cap, or shorter than the filter; multiples of 4 where dfilt needs them
 _HW_SHAPES = [(3, 12, 20), (2, 2, 8, 132), (1, 520, 8), (2, 4, 4),
               (6, 32, 48)]
+# the synthesis kernel's 32 x 32 output tiles partial in H and W (ifilt:
+# even sides, outputs 72 x 88 and 132 x 136), and rows of 42 that its
+# chunked staging does not take (a value an item)
+_HW_SUM_SHAPES = [(1, 36, 44), (2, 66, 68), (1, 36, 42)]
 
 
 def _hw_cases(kind):
@@ -1084,8 +1088,9 @@ def test_cuda_hw_matches_plain(cuda, kind, dtype):
     kern = getattr(hw, kind + "_hw22")
     plain = getattr(hw, kind + "_hw22_reference")
     n_in = 1 if kind in ("filter", "dfilt") else 4
+    shapes = _HW_SHAPES + (_HW_SUM_SHAPES if n_in == 4 else [])
     for fam, f in _hw_cases(kind):
-        for seed, shape in enumerate(_HW_SHAPES):
+        for seed, shape in enumerate(shapes):
             xs = [_rand(shape, seed + i, cuda, dtype) for i in range(n_in)]
             _build.reset_launches()
             got = kern(*xs, *f)
@@ -1096,6 +1101,107 @@ def test_cuda_hw_matches_plain(cuda, kind, dtype):
                 got = tuple(u for row in got for u in row)
                 want = tuple(u for row in want for u in row)
             assert _kerr(got, want) < _KTOL[dtype], (fam, shape)
+
+
+def _hw_long(kind, seed=3):
+    """The longest filters the synthesis kernel takes, every tap random:
+    an odd pair of 31 taps (filter_sum), two qshift pairs of 64 (ifilt_sum)."""
+    rs = np.random.RandomState(seed)
+    if kind == "filter_sum":
+        return rs.randn(31), rs.randn(31)
+    return (rs.randn(64), rs.randn(64)), (rs.randn(64), rs.randn(64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("kind", ["filter_sum", "ifilt_sum"])
+def test_cuda_sum_hw22_takes_the_longest_filters(cuda, kind, dtype):
+    """Odd filters of 31 taps and qshift pairs of 64, the longest the
+    synthesis kernel took before its redesign, run on the card at the
+    largest tap bound (33) against the plain version."""
+    f = _hw_long(kind)
+    kern = getattr(hw, kind + "_hw22")
+    plain = getattr(hw, kind + "_hw22_reference")
+    for seed, shape in enumerate([(2, 4, 4), (1, 36, 44), (2, 66, 68)]):
+        xs = [_rand(shape, seed + i, cuda, dtype) for i in range(4)]
+        _build.reset_launches()
+        got = kern(*xs, *f)
+        torch.cuda.synchronize()
+        assert dict(_build.launches) == {kind + "_hw22": 1}
+        assert _kerr(got, plain(*xs, *f)) < _KTOL[dtype], shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["filter_sum", "ifilt_sum"])
+def test_cuda_sum_hw22_writes_its_output_whole(cuda, monkeypatch, kind,
+                                               dtype):
+    """The synthesis kernel writes every output element and nothing past
+    the end: its output is the head of a NaN-filled buffer one row
+    longer, equal to the plain version after the launch, the tail still
+    NaN.  Odd seeds place the inputs one element past an aligned start
+    (the staging then copies a value at a time)."""
+    make, heads = hw._outputs, []
+
+    def sentinel(n_out, N, Ho, Wo, dt, device):
+        outs = []
+        for t in make(n_out, N, Ho, Wo, dt, device):
+            buf = torch.full((t.numel() + Wo,), float("nan"), dtype=dt,
+                             device=device)
+            heads.append((buf, t.numel()))
+            outs.append(buf[:t.numel()].view(t.shape))
+        return outs
+    monkeypatch.setattr(hw, "_outputs", sentinel)
+    kern = getattr(hw, kind + "_hw22")
+    plain = getattr(hw, kind + "_hw22_reference")
+    cases = _hw_cases(kind)[:2] + [("long", _hw_long(kind))]
+    for fam, f in cases:
+        for seed, shape in enumerate(_HW_SUM_SHAPES + [(3, 12, 20)]):
+            heads.clear()
+            xs = [_rand(shape, seed + i, cuda, dtype) for i in range(4)]
+            if seed % 2:
+                xs = [torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].view(
+                    shape) for t in xs]
+            got = kern(*xs, *f)
+            torch.cuda.synchronize()
+            assert _kerr(got, plain(*xs, *f)) < _KTOL[dtype], (fam, shape)
+            assert len(heads) == 1
+            buf, n = heads[0]
+            assert not torch.isnan(buf[:n]).any(), (fam, shape)
+            assert torch.isnan(buf[n:]).all(), (fam, shape)
+
+
+@pytest.mark.cuda
+def test_cuda_sum_hw22_refuses_a_tile_not_the_hosts(cuda, monkeypatch):
+    """The synthesis C entries take the tile, tap bound and shared memory
+    of _sum_hw22_geometry and refuse any other with a CUDA error, launching
+    nothing; the host's own launch then runs."""
+    geometry = hw._sum_hw22_geometry
+    for kind, dtype, bad in (
+            ("filter_sum", torch.float32, dict(mt=21)),
+            ("filter_sum", torch.float32, dict(oh=16)),
+            ("filter_sum", torch.float64, dict(smem=1)),
+            ("filter_sum", torch.bfloat16, dict(xr=44, xc=44)),
+            ("ifilt_sum", torch.float32, dict(mt=7)),
+            ("ifilt_sum", torch.float32, dict(ow=16)),
+            ("ifilt_sum", torch.float64, dict(smem=1)),
+            ("ifilt_sum", torch.float32, dict(xr=26, xc=26))):
+        fam, f = _hw_cases(kind)[1]
+        kern = getattr(hw, kind + "_hw22")
+        plain = getattr(hw, kind + "_hw22_reference")
+        xs = [_rand((2, 36, 44), i, cuda, dtype) for i in range(4)]
+        monkeypatch.setattr(
+            hw, "_sum_hw22_geometry",
+            lambda *a, **k: geometry(*a, **k)._replace(**bad))
+        _build.reset_launches()
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            kern(*xs, *f)
+        assert not _build.launches
+        monkeypatch.setattr(hw, "_sum_hw22_geometry", geometry)
+        got = kern(*xs, *f)
+        torch.cuda.synchronize()
+        assert _kerr(got, plain(*xs, *f)) < _KTOL[dtype], (kind, bad)
 
 
 @pytest.mark.cuda

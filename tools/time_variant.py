@@ -7,6 +7,8 @@ kernels, on one NVIDIA GPU.
         dtcwt_fwd_level1_pack,dtcwt_fwd_level2_pack pack3d kernels
     python tools/time_variant.py VARIANT.cu \
         dtcwt_inv_level1_pack,dtcwt_inv_level2_pack pack3d kernels
+    python tools/time_variant.py VARIANT.cu \
+        dtcwt_filter_sum_hw22,dtcwt_ifilt_sum_hw22 hw kernels
 
 Compiles ``VARIANT.cu`` (an edited copy of a ``csrc/*.cu`` file; its
 includes are searched in its own directory first, then in ``csrc/``, so a
@@ -16,10 +18,12 @@ library of its own with the package's nvcc flags and ``-Xptxas -v``
 or several, comma-separated: ``dtcwt_level2``, ``dtcwt_level1``,
 ``dtcwt_ilevel1``, ``dtcwt_ilevel2``, ``dtcwt_fwd_level1_pack``,
 ``dtcwt_fwd_level2_pack``, ``dtcwt_inv_level1_pack``,
-``dtcwt_inv_level2_pack``) to it and every other entry to the package's
-library, then runs ``tools/time_level1.py`` in the given mode, or
-``tools/time_pack3d.py`` for the mode ``pack3d`` (a last argument
-``kernels`` stops either after the kernel lines).  A kernel's design is
+``dtcwt_inv_level2_pack``, ``dtcwt_filter_sum_hw22``,
+``dtcwt_ifilt_sum_hw22``) to it and every other entry to the package's
+library, then runs ``tools/time_level1.py`` in the given mode,
+``tools/time_pack3d.py`` for the mode ``pack3d`` or ``tools/time_hw.py``
+for the mode ``hw`` (a last argument ``kernels`` stops any of them after
+the kernel lines).  A kernel's design is
 tuned this way without rebuilding every source for each variant.  Run
 from the repository's root.
 """
@@ -36,7 +40,8 @@ from dtcwt_tpu_torch.ops import _build  # noqa: E402
 
 
 def main() -> int:
-    modes = ("level1", "ilevel1", "level2", "ilevel2", "pack3d")
+    modes = ("level1", "ilevel1", "level2", "ilevel2", "pack3d", "hw")
+    tools = {"pack3d": "time_pack3d", "hw": "time_hw"}
     if len(sys.argv) not in (4, 5) or sys.argv[3] not in modes:
         raise SystemExit("usage: python tools/time_variant.py VARIANT.cu "
                          "ENTRY[,ENTRY...] %s [kernels]" % "|".join(modes))
@@ -59,13 +64,13 @@ def main() -> int:
             return routes[name] if name in routes else getattr(lib, name)
     routed = Routed()
     _build.library = lambda: routed
-    name = "time_pack3d" if mode == "pack3d" else "time_level1"
+    name = tools.get(mode, "time_level1")
     spec = importlib.util.spec_from_file_location(
         name, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            name + ".py"))
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
-    sys.argv = [sys.argv[0]] + ([] if mode == "pack3d" else [mode]) + \
+    sys.argv = [sys.argv[0]] + ([] if mode in tools else [mode]) + \
         sys.argv[4:]
     print("variant %s for %s" % (src, entries), flush=True)
     return tool.main()
