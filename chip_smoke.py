@@ -34,8 +34,9 @@ complex float32, float32 planes, bfloat16 planes):
   on ``make_mesh((1, 4), ("data", "depth"), ["cuda"] * 4)`` (four shards of
   the one card), ``forward(v, nlevels=3)`` then ``inverse`` on a ``[1, 256,
   256, 256]`` volume with every level depth-sharded: the (H, W) stage pair
-  of each shard on the four kernels of ``csrc/hw.cu`` (its synthesis
-  kernel's design in ``csrc/hwsum.cuh``), the depth stages on
+  of each shard on the four kernels of ``csrc/hw.cu`` (the analysis
+  kernel's design in ``csrc/hwana.cuh``, the synthesis kernel's in
+  ``csrc/hwsum.cuh``), the depth stages on
   the dual kernels' from-extension mode after a halo exchange.
 
 Phases, each printing its own lines:
@@ -159,7 +160,7 @@ _PACK_SRC = "dtcwt_tpu_torch/csrc/pack3d.cu"
 _IPACK_SRC = "dtcwt_tpu_torch/csrc/ipack.cuh"
 _SINGLE_SRC = "dtcwt_tpu_torch/csrc/single.cu"
 _FILTER_SRC = "dtcwt_tpu_torch/csrc/filter.cu"
-_HW_SRC = "dtcwt_tpu_torch/csrc/hw.cu"
+_HWANA_SRC = "dtcwt_tpu_torch/csrc/hwana.cuh"
 _HWSUM_SRC = "dtcwt_tpu_torch/csrc/hwsum.cuh"
 KERNELS = {   # name -> (CUDA source, the TPU kernel it replaces)
     "level1": ("dtcwt_tpu_torch/csrc/level1.cu",
@@ -181,8 +182,8 @@ KERNELS = {   # name -> (CUDA source, the TPU kernel it replaces)
     "filter": (_FILTER_SRC, "dtcwt_tpu/ops/pallas_fb.py:492"),
     "dfilt": (_SINGLE_SRC, "dtcwt_tpu/ops/pallas_fb.py:642"),
     "ifilt": (_SINGLE_SRC, "dtcwt_tpu/ops/pallas_fb.py:791"),
-    "filter_hw22": (_HW_SRC, "dtcwt_tpu/ops/pallas_hw.py:145"),
-    "dfilt_hw22": (_HW_SRC, "dtcwt_tpu/ops/pallas_hw.py:155"),
+    "filter_hw22": (_HWANA_SRC, "dtcwt_tpu/ops/pallas_hw.py:145"),
+    "dfilt_hw22": (_HWANA_SRC, "dtcwt_tpu/ops/pallas_hw.py:155"),
     "filter_sum_hw22": (_HWSUM_SRC, "dtcwt_tpu/ops/pallas_hw.py:223"),
     "ifilt_sum_hw22": (_HWSUM_SRC, "dtcwt_tpu/ops/pallas_hw.py:234"),
 }

@@ -1,8 +1,8 @@
-// The (H, W) stage pair of a 3-D level, shared by the analysis kernels of
-// pack3d.cu (fwd_pack_kernel) and of hw.cu (hw22_kernel) (CUDA C++,
-// sm_90a).  The synthesis kernels have designs of their own: pack3d.cu's in
-// ipack.cuh, hw.cu's in hwsum.cuh; they take PACK_THREADS, PACK_SMEM_MAX,
-// cp_async_value and the host plans' layout from here.
+// The (H, W) stage pair of the 3-D analysis kernel fwd_pack_kernel of
+// pack3d.cu (CUDA C++, sm_90a), and the constants and helpers the other
+// 3-D kernels take from it: PACK_THREADS, PACK_SMEM_MAX, cp_async_value and
+// the host plans' layout (pack3d.cu's synthesis in ipack.cuh; hw.cu's
+// kernels in hwana.cuh and hwsum.cuh, on hwtile.cuh).
 //
 // Both branch filters of one axis stage are P output streams each (host
 // plans: dual._filter_plan, level2.dfilt_streams, ilevel2.ifilt_streams),
@@ -13,14 +13,13 @@
 //   level-2 dfilt            = (2, 4, 2)
 //   level-2 ifilt            = (4, 2, 2)
 //
-// applied along W and along H, so the kernels hold no parity logic.  A block
-// owns one OH x OW output tile of a depth slice: it stages the input tile
-// plus its reflected halo (XR x XC) in dynamic shared memory, runs the W
-// stage into shared memory (XR x OW per image) and the H stage in
-// registers.  The tile is the largest that fits: pick_tile for hw.cu's
-// analysis kernel; the analysis kernels of pack3d.cu take theirs from the
-// host, which applies the same rule to their own shared-memory layout
-// (pack3d.cu FwdTile).
+// applied along W and along H, so the kernel holds no parity logic.  A
+// block of fwd_pack_kernel owns one OH x OW output tile of a depth slice:
+// it stages the input tile plus its reflected halo (XR x XC) in dynamic
+// shared memory, runs the W stage into shared memory (XR x OW per image,
+// fir() over the plan staged by stage_plan) and the H stage in registers.
+// Its tile comes from the host (ops/pack3d.py _fwd_pack_geometry, pack3d.cu
+// FwdTile): the largest that fits.
 #pragma once
 
 #include <climits>
@@ -100,35 +99,6 @@ bool make_pack_plan(PackPlan<A, P>* plan, const double* taps,
   *cmin = lo;
   *span = hi - lo + 1;
   return true;
-}
-
-// The largest output tile (OH x OW, each a power of two <= PACK_TILE and a
-// multiple of `mult`) whose shared memory fits: n_x staged images of
-// XR x XC and n_v W-stage images of XR x OW.
-template <typename A, int P, int D>
-bool pick_tile(int span, int n_x, int n_v, int mult, int* OH, int* OW,
-               int* XR, int* XC, size_t* smem) {
-  int oh = PACK_TILE, ow = PACK_TILE;
-  for (;;) {
-    const int xr = D * (oh / P - 1) + span, xc = D * (ow / P - 1) + span;
-    const size_t bytes = sizeof(A) * (static_cast<size_t>(n_x) * xr * xc +
-                                      static_cast<size_t>(n_v) * xr * ow);
-    if (bytes <= PACK_SMEM_MAX) {
-      *OH = oh;
-      *OW = ow;
-      *XR = xr;
-      *XC = xc;
-      *smem = bytes;
-      return true;
-    }
-    if (oh >= ow && oh > mult) {
-      oh /= 2;
-    } else if (ow > mult) {
-      ow /= 2;
-    } else {
-      return false;
-    }
-  }
 }
 
 }  // namespace dtcwt

@@ -60,35 +60,18 @@
 //
 // The host (ops/hw.py _sum_hw22_geometry, _sum_tap_bound) chooses the tile,
 // the tap bound and the shared memory and passes them in; the C entry
-// refuses any other (hw.cu run_sum_hw22).  tests/test_torch_hw_tiling.py
-// replays the tiling on the CPU, block by block.  The pieces (HsGeo, the
-// staging, the windows) are written so that the analysis kernel
-// hw22_kernel can take them.
+// refuses any other (hw.cu launch_tiles, sum_hw22_mt).  tests/test_torch_hw_tiling.py
+// replays the tiling on the CPU, block by block.  The pieces it shares with
+// the analysis kernel hw22_kernel (hwana.cuh), which runs the same design
+// the other way (one input staged, four outputs fanned out from the
+// windows), are in hwtile.cuh: the tile side, HsTaps and make_hs_taps, the
+// tap bounds, the staging through the maps (hs_stage over a geometry:
+// HsGeo here).
 #pragma once
 
-#include "hwstage.cuh"
-#include "l1tile.cuh"
+#include "hwtile.cuh"
 
 namespace dtcwt {
-
-constexpr int HS_TILE = 32;  // output tile side
-constexpr int HS_K = 33;     // the largest tap bound
-
-// The two branch filters' taps by value: t[b][s][m] multiplies the window
-// sample m of stream s of branch b (ifilt: of the parity (s & 1) ^ sw[b]).
-template <typename A, int P> struct HsTaps {
-  A t[2][P][HS_K];
-  int sw[2];
-};
-
-// Shared memory of n_x staged images of xn values, two W-stage images of
-// vn and two int maps of x.
-template <typename A>
-__host__ __device__ constexpr size_t hs_bytes(int n_x, int xn, int vn,
-                                              int x) {
-  return sizeof(A) * (static_cast<size_t>(n_x) * xn + 2 * vn) +
-         sizeof(int) * 2 * x;
-}
 
 // The compile-time geometry of an instance: P streams (1: filter, 4:
 // ifilt), tap bound MT, accumulator type A.
@@ -122,110 +105,16 @@ template <typename A, int P, int MT> struct HsGeo {
   // dynamic shared memory: the staged images [NX][X][XS], the W stage's
   // [2 j][X][32] and the row and column maps [X] each
   static constexpr size_t SMEM = hs_bytes<A>(NX, XN, VN, X);
+  // staged cell (r, col) of an image: filter row-major, ifilt the
+  // column's parity half
+  static constexpr bool ROWS = P == 1;
+  static __device__ __forceinline__ int cell(int r, int col) {
+    if constexpr (P == 1) return r * XS + col;
+    return r * XS + (col & 1) * XH + (col >> 1);
+  }
   static_assert(P != 1 || (X % 4 == 0 && NW <= 4 + 2 * SO), "windows");
   static_assert(SMEM <= PACK_SMEM_MAX, "shared memory");
 };
-
-// Staged cell (r, col) of an image: filter row-major, ifilt the column's
-// parity half.
-template <typename A, int P, int MT>
-__device__ __forceinline__ int hs_cell(int r, int col) {
-  using G = HsGeo<A, P, MT>;
-  if constexpr (P == 1) return r * G::XS + col;
-  return r * G::XS + (col & 1) * G::XH + (col >> 1);
-}
-
-// 16 bytes from device memory into shared memory, asynchronously.
-template <typename A>
-__device__ __forceinline__ void hs_cp_async16(A* smem, const A* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-// Values a chunk of the filter's staging: 16 bytes (bfloat16: 8, four
-// values as for float32).
-template <typename T> __host__ __device__ constexpr int hs_chunk() {
-  return sizeof(T) == 8 ? 2 : 4;
-}
-
-// Copy NX images' cells at offset off of each src[i] to dst + i XN.
-template <typename T, int NX, int XN>
-__device__ __forceinline__ void hs_copy(const T* const (&src)[NX],
-                                        int64_t off,
-                                        typename AccOf<T>::type* dst) {
-  using A = typename AccOf<T>::type;
-  if constexpr (sizeof(T) == sizeof(A)) {
-#pragma unroll
-    for (int i = 0; i < NX; ++i) cp_async_value(dst + i * XN, src[i] + off);
-  } else {
-    A v[NX];
-#pragma unroll
-    for (int i = 0; i < NX; ++i) v[i] = load(src[i] + off);
-#pragma unroll
-    for (int i = 0; i < NX; ++i) dst[i * XN] = v[i];
-  }
-}
-
-// Stage NX images: cell (r, col) of image i is src[i][rmap[r] W +
-// cmap[col]], all NX images' values of a cell from one offset; then wait
-// for the copies.  The caller syncs.  filter, where vec (the row width and
-// the four inputs aligned to the chunk): an item is a chunk of CW cells of
-// a row, copied as one vector where the map runs on in order (16-byte
-// asynchronous copies; bfloat16 an 8-byte load, converted), else a cell
-// at a time; otherwise (ifilt, its cells split by column parity) an item
-// is a cell.
-template <typename T, int P, int MT, int NX>
-__device__ __forceinline__ void hs_stage(const T* const (&src)[NX],
-                                         typename AccOf<T>::type* xs,
-                                         const int* rmap, const int* cmap,
-                                         int W, bool vec) {
-  using A = typename AccOf<T>::type;
-  using G = HsGeo<A, P, MT>;
-  constexpr int CW = hs_chunk<T>();
-  if constexpr (P == 1) {
-    if (vec) {
-      constexpr int NC = G::X / CW;  // chunks a row
-      for (int it = threadIdx.x; it < G::X * NC; it += PACK_THREADS) {
-        const int r = it / NC, col = (it - r * NC) * CW;
-        const int c0 = cmap[col];
-        const int64_t row = static_cast<int64_t>(rmap[r]) * W;
-        A* dst = xs + r * G::XS + col;
-        if (cmap[col + CW - 1] == c0 + CW - 1 && c0 % CW == 0) {
-#pragma unroll
-          for (int i = 0; i < NX; ++i) {
-            if constexpr (sizeof(T) == sizeof(A)) {
-              hs_cp_async16(dst + i * G::XN, src[i] + row + c0);
-            } else {
-              const Vec<T, CW> pk =
-                  *reinterpret_cast<const Vec<T, CW>*>(src[i] + row + c0);
-              Vec<A, CW> o;
-#pragma unroll
-              for (int e = 0; e < CW; ++e) o.v[e] = load(&pk.v[e]);
-              *reinterpret_cast<Vec<A, CW>*>(dst + i * G::XN) = o;
-            }
-          }
-        } else {
-#pragma unroll
-          for (int e = 0; e < CW; ++e)
-            hs_copy<T, NX, G::XN>(src, row + cmap[col + e], dst + e);
-        }
-      }
-      if constexpr (sizeof(T) == sizeof(A))
-        asm volatile("cp.async.wait_all;\n" ::: "memory");
-      return;
-    }
-  }
-  for (int it = threadIdx.x; it < G::X * G::X; it += PACK_THREADS) {
-    const int r = it / G::X, col = it - r * G::X;
-    hs_copy<T, NX, G::XN>(src,
-                          static_cast<int64_t>(rmap[r]) * W + cmap[col],
-                          xs + hs_cell<A, P, MT>(r, col));
-  }
-  if constexpr (sizeof(T) == sizeof(A))
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 // The W stage of the H branches j0 .. j0 + NX / 2 - 1, staged as images
 // 2 (j - j0) + k: vw[j] = sum_k F_W(g_k) v[j][k] at the tile's 32 output
@@ -402,7 +291,7 @@ __device__ __forceinline__ void sum_hw22_body(
     const T* src[G::NX];
 #pragma unroll
     for (int i = 0; i < G::NX; ++i) src[i] = v[round * G::NX + i];
-    hs_stage<T, P, MT, G::NX>(src, xs, rmap, cmap, W, vec);
+    hs_stage<T, G, G::NX>(src, xs, rmap, cmap, W, vec);
     __syncthreads();
     hs_wstage<A, P, MT, G::NX>(xs, vw, round * G::NX / 2, tp);
     __syncthreads();  // the W stage read xs and wrote vw
@@ -433,48 +322,6 @@ __global__ void __launch_bounds__(PACK_THREADS) sum_hw22_kernel(
     const __grid_constant__ HsTaps<typename AccOf<T>::type, P> tp) {
   sum_hw22_body<T, P, MT>(v00, v01, v10, v11, y, H, W, Ho, Wo, n_th, n_tw,
                           tp);
-}
-
-// The tap bounds of an instance set, 5 of each: filter 5, 7, 9, 19, 31;
-// ifilt 5, 7, 9, 17, 33.
-constexpr int HS_BOUNDS = 5;
-template <int P> constexpr int hs_bound(int e) {
-  constexpr int b1[HS_BOUNDS] = {5, 7, 9, 19, 31};
-  constexpr int b4[HS_BOUNDS] = {5, 7, 9, 17, HS_K};
-  return P == 1 ? b1[e] : b4[e];
-}
-
-// Fill *tp from the host plan (taps [2][P][MAX_TAPS], lens and offs
-// [2][P]: stream s of branch b reads x[D g + offs + S k], k < lens) centred
-// on the halo of bound mt; false where a stream does not fit in it.
-template <typename A, int P>
-bool make_hs_taps(HsTaps<A, P>* tp, const double* taps, const int* lens,
-                  const int* offs, int mt) {
-  if (mt > HS_K) return false;
-  const int ph = (mt - 1) / 2;
-  for (int b = 0; b < 2; ++b) {
-    // ifilt: the parity of stream 0's first sample sets the swap
-    const int sw = P == 1 ? 0 : (offs[b * P] + 2 * ph) & 1;
-    tp->sw[b] = sw;
-    for (int s = 0; s < P; ++s) {
-      const int len = lens[b * P + s];
-      // the stream's first tap's window index: filter ph + off; ifilt the
-      // half-index shift d / 2 of d = off + 2 ph
-      const int d = P == 1 ? ph + offs[b * P + s] : offs[b * P + s] + 2 * ph;
-      const int sh = P == 1 ? d : d >> 1;
-      if (len < 1 || len > MAX_TAPS || d < 0 || sh + len > mt ||
-          (P > 1 && (d & 1) != ((s & 1) ^ sw)))
-        return false;
-      for (int k = 0; k < HS_K; ++k) {
-        const int kk = k - sh;
-        tp->t[b][s][k] =
-            kk >= 0 && kk < len
-                ? static_cast<A>(taps[(b * P + s) * MAX_TAPS + kk])
-                : A(0);
-      }
-    }
-  }
-  return true;
 }
 
 }  // namespace dtcwt

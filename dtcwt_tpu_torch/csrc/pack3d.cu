@@ -34,8 +34,8 @@
 //
 // Every filter is a set of P output streams (host plans, ops/pack3d.py)
 // applied along W and along H, as hwstage.cuh sets out (the analysis
-// kernel takes the stream plan and the FIR from there, shared with hw.cu;
-// the synthesis kernel takes the same plans as taps by value, ipack.cuh),
+// kernel takes the stream plan and the FIR from there; the synthesis
+// kernel takes the same plans as taps by value, ipack.cuh),
 // so the kernels hold no parity logic.  x is read at symmetric reflection
 // (reflect() of common.cuh, folded as often as needed, so H or W shorter
 // than the filter works).

@@ -84,13 +84,11 @@ for _name in ("fwd_level1_pack", "inv_level1_pack", "fwd_level2_pack",
         _I, _I) + (_I,) * (6 if _name.startswith("fwd") else 7) + (_P,)
 # the two-sided (H, W) kernels of csrc/hw.cu: analysis in0..in3, out0..out3,
 # synthesis v00..v11, y; then N, H, W, Ho, Wo, taps, lens, offs, dtype, the
-# synthesis tile (oh, ow, mt, xr, xc, smem), and stream
-for _name in ("filter_hw22", "dfilt_hw22"):
-    _SIGNATURES["dtcwt_" + _name] = (_P,) * 8 + (_I,) * 5 + (_P,) * 3 + (
-        _I, _P)
-for _name in ("filter_sum_hw22", "ifilt_sum_hw22"):
-    _SIGNATURES["dtcwt_" + _name] = (_P,) * 5 + (_I,) * 5 + (_P,) * 3 + (
-        _I,) * 7 + (_P,)
+# tile (oh, ow, mt, xr, xc, smem), and stream
+for _name, _n_ptr in (("filter_hw22", 8), ("dfilt_hw22", 8),
+                      ("filter_sum_hw22", 5), ("ifilt_sum_hw22", 5)):
+    _SIGNATURES["dtcwt_" + _name] = (_P,) * _n_ptr + (_I,) * 5 + (
+        _P,) * 3 + (_I,) * 7 + (_P,)
 
 #: Kernel launches per wrapper, counted where each wrapper launches.
 launches = collections.Counter()

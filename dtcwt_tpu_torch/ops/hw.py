@@ -26,13 +26,15 @@ Each entry ``f`` has ``f_reference``, its plain version: :mod:`fb`'s dual
 forms along W, then along H, computed at float32 for bfloat16 storage.  An
 entry takes its route from the input's device: a CPU tensor runs the plain
 version, a CUDA tensor launches the kernel (``csrc/hw.cu``) or raises.  The
-analysis kernel is the (H, W) stage pair of ``csrc/pack3d.cu``'s analysis
-without the pack, on the same host plans.  The synthesis kernel is
-``csrc/hwsum.cuh``'s: its tile and tap bound come from
-:func:`_sum_hw22_geometry` and :func:`_sum_tap_bound`, the C entry refuses
-any other, and ``tests/test_torch_hw_tiling.py`` replays it on the CPU.
+analysis kernel is ``csrc/hwana.cuh``'s, the synthesis kernel
+``csrc/hwsum.cuh``'s: one design run both ways on the pieces of
+``csrc/hwtile.cuh``.  Their tiles and tap bounds come from
+:func:`_hw22_geometry` / :func:`_hw22_tap_bound` and
+:func:`_sum_hw22_geometry` / :func:`_sum_tap_bound`, the C entries refuse
+any other, and ``tests/test_torch_hw_tiling.py`` replays both on the CPU.
 The kernels take float32, bfloat16 and float64, and filters of up to 32
-taps a stream: odd filters of up to 31 taps, qshift pairs of up to 64.
+taps a stream: odd filters of up to 31 taps, qshift pairs of up to 32
+(``dfilt_hw22``) and 64 (``ifilt_sum_hw22``).
 """
 
 from __future__ import annotations
@@ -148,7 +150,7 @@ def _launch(name: str, ins, Ho: int, Wo: int, n_out: int, args):
     """Run kernel *name* on the [..., H, W] tensors *ins* (one for
     analysis, four for synthesis); *args()*, called where there is work,
     gives the host tap table (taps, lens, offs) and the ints the C entry
-    takes after the dtype (the synthesis tile; none for analysis).  Returns
+    takes after the dtype (the kernel's tile).  Returns
     *n_out* outputs [..., Ho, Wo]."""
     _build.check_no_grad(name, ins)
     x = ins[0]
@@ -173,29 +175,105 @@ def _launch(name: str, ins, Ho: int, Wo: int, n_out: int, args):
 
 
 # ---------------------------------------------------------------------------
-# the synthesis kernel's tiling (csrc/hwsum.cuh)
+# the kernels' tilings (csrc/hwana.cuh, csrc/hwsum.cuh; their shared pieces
+# csrc/hwtile.cuh)
 # ---------------------------------------------------------------------------
 
-_TILE = 32                     # csrc/hwsum.cuh HS_TILE
-#: Streams a stage of each synthesis entry (csrc/hw.cu)
-_SUM_P = {"filter_sum_hw22": 1, "ifilt_sum_hw22": 4}
+_TILE = 32                     # csrc/hwtile.cuh HS_TILE
+#: Streams a stage of each entry (csrc/hw.cu)
+_STREAMS = {"filter_hw22": 1, "dfilt_hw22": 2, "filter_sum_hw22": 1,
+            "ifilt_sum_hw22": 4}
 #: Tap bounds of the synthesis instances by streams a stage, every dtype
-#: (csrc/hwsum.cuh hs_bound): the largest holds odd filters of 31 taps and
+#: (csrc/hwtile.cuh hs_bound): the largest holds odd filters of 31 taps and
 #: qshift pairs of 64
 _SUM_BOUNDS = {1: (5, 7, 9, 19, 31), 4: (5, 7, 9, 17, 33)}
+#: Tap bounds of the analysis instances, every dtype (hs_bound): filter the
+#: synthesis's; dfilt a stream's window in half samples, the largest
+#: holding qshift pairs of 32 (two streams of 32 taps at stride 2)
+_HW_BOUNDS = {1: _SUM_BOUNDS[1], 2: (10, 14, 16, 18, 32)}
+
+
+def _least_bound(plans, P: int, bounds, what: str) -> int:
+    """The least of *bounds* that holds the plans (the taps centred on its
+    halo, csrc/hwtile.cuh make_hs_taps, as :func:`pack3d._inv_taps`
+    centres them)."""
+    for mt in bounds:
+        if _inv_taps(plans, P, mt) is not None:
+            return mt
+    raise ValueError("the hw %s kernel's largest tap bound, %d, does not "
+                     "hold these filters" % (what, bounds[-1]))
 
 
 def _sum_tap_bound(plans, P: int) -> int:
-    """The least tap bound of the synthesis instances that holds the plans
-    (the taps centred on its halo, csrc/hwsum.cuh make_hs_taps, as
-    :func:`pack3d._inv_taps` centres them): filter 5 (legall), 7
-    (near_sym_a), 9 (antonini), 19 (near_sym_b) or 31; ifilt 5 (qshift_a),
-    7 (qshift_b), 9 (qshift_c, qshift_d), 17 (qshift_32) or 33."""
-    for mt in _SUM_BOUNDS[P]:
-        if _inv_taps(plans, P, mt) is not None:
-            return mt
-    raise ValueError("the hw synthesis kernel's largest tap bound, %d, does "
-                     "not hold these filters" % _SUM_BOUNDS[P][-1])
+    """The least tap bound of the synthesis instances that holds the plans:
+    filter 5 (legall), 7 (near_sym_a), 9 (antonini), 19 (near_sym_b) or 31;
+    ifilt 5 (qshift_a), 7 (qshift_b), 9 (qshift_c, qshift_d), 17
+    (qshift_32) or 33."""
+    return _least_bound(plans, P, _SUM_BOUNDS[P], "synthesis")
+
+
+def _hw22_tap_bound(plans, P: int) -> int:
+    """The least tap bound of the analysis instances that holds the plans:
+    filter 5 (legall), 7 (near_sym_a), 9 (antonini), 19 (near_sym_b) or
+    31; dfilt a stream's length, 10 (qshift_06, qshift_a), 14 (qshift_b),
+    16 (qshift_c), 18 (qshift_d) or 32 (qshift_32)."""
+    return _least_bound(plans, P, _HW_BOUNDS[P], "analysis")
+
+
+class Hw22Geometry(NamedTuple):
+    """The tile of an analysis kernel (csrc/hwana.cuh HaGeo): oh x ow
+    output samples of each of the four outputs, 256 threads a block, a
+    block for each tile of each slice; the tap bound mt and its halo ph
+    (window steps); the staged area xr x xc (square) of the one input from
+    so samples before the tile's first input row and column (the halo
+    P ph rounded up to 4, so that it starts 16 bytes aligned and even),
+    its windows starting dl = so - P ph in; xs the staged row stride
+    (dfilt's padded to 4 (mod 8) values); ns the samples a window of 4
+    outputs reads from dl on (filter mt + 3, dfilt 2 mt + 4) and nw the W
+    stage's window in 16-byte vectors; cw the values a staging chunk (f32
+    and bf16 4, f64 2) and smem the dynamic shared memory bytes (the
+    staged image [xr][xs], the W stage's two [xr][ow], the int row and
+    column maps)."""
+    oh: int
+    ow: int
+    mt: int
+    ph: int
+    so: int
+    dl: int
+    xr: int
+    xc: int
+    xs: int
+    ns: int
+    nw: int
+    cw: int
+    smem: int
+
+    def tile(self):
+        """The ints the C entry takes: oh, ow, mt, xr, xc, smem."""
+        return self.oh, self.ow, self.mt, self.xr, self.xc, self.smem
+
+
+@functools.lru_cache(maxsize=None)
+def _hw22_geometry(P: int, mt: int, dtype: torch.dtype) -> Hw22Geometry:
+    """The tile of an analysis kernel with *P* streams a stage (1: filter,
+    2: dfilt) and tap bound *mt* (:func:`_hw22_tap_bound`) in *dtype*: 32 x
+    32 output samples from a staged area of P 32 input samples and so each
+    side.  At the main path's bounds in float32 its shared memory (17 KB
+    for filter at 7, 47 KB for dfilt at 10) leaves an SM eight and four
+    blocks; float64 at the largest bounds fits.  Cached: the sharded
+    transform asks for the same tile at every call."""
+    acc = 8 if dtype == torch.float64 else 4
+    ph = (mt - 1) // 2
+    so = (P * ph + 3) // 4 * 4
+    dl = so - P * ph
+    x = P * _TILE + 2 * so
+    xs = x if P == 1 or x % 8 == 4 else x + 4
+    vv = 16 // acc
+    ns = mt + 3 if P == 1 else 2 * mt + 4
+    nw = -(-(dl + ns) // vv) * vv
+    smem = acc * (x * xs + 2 * x * _TILE) + 4 * 2 * x
+    return Hw22Geometry(_TILE, _TILE, mt, ph, so, dl, x, x, xs, ns, nw, vv,
+                        smem)
 
 
 class SumHw22Geometry(NamedTuple):
@@ -259,10 +337,9 @@ def _sum_hw22_geometry(P: int, mt: int,
                            rounds, smem_of(4 // rounds))
 
 
-class _SumPlan(NamedTuple):
-    """A synthesis filter set's kernel arguments: the host tap table, lens
-    and offsets (kept alive here across launches), the plans and the tap
-    bound."""
+class _Plan(NamedTuple):
+    """A filter set's kernel arguments: the host tap table, lens and offsets
+    (kept alive here across launches), the plans and the tap bound."""
     taps: np.ndarray
     lens: np.ndarray
     offs: np.ndarray
@@ -270,35 +347,42 @@ class _SumPlan(NamedTuple):
     mt: int
 
 
-_SUM_PLANS = {}
+_PLANS = {}
 
 
-def _sum_plan(name: str, filters) -> _SumPlan:
-    """The kernel arguments of a synthesis filter set (*filters*: g0, g1 or
-    the two pairs' four filters), planned once per filter set (keyed by the
-    filters' values) and cached."""
+def _plan(name: str, filters) -> _Plan:
+    """The kernel arguments of entry *name*'s filter set (*filters*: the two
+    odd filters, or the two pairs' four filters), planned once per filter
+    set (keyed by the filters' values) and cached."""
     f = [np.asarray(v, np.float64).reshape(-1) for v in filters]
     key = (name,) + tuple(v.tobytes() for v in f)
-    plan = _SUM_PLANS.get(key)
+    plan = _PLANS.get(key)
     if plan is not None:
         return plan
-    P = _SUM_P[name]
+    P = _STREAMS[name]
+    streams = {2: dfilt_streams, 4: ifilt_streams}.get(P)
     plans = (_filter_plans(f[0], f[1]) if P == 1 else
-             [ifilt_streams(f[0], f[1]), ifilt_streams(f[2], f[3])])
+             [streams(f[0], f[1]), streams(f[2], f[3])])
     taps, lens, offs = _table(plans)
-    plan = _SumPlan(taps, lens, offs, plans, _sum_tap_bound(plans, P))
-    if len(_SUM_PLANS) >= 64:
-        _SUM_PLANS.clear()
-    _SUM_PLANS[key] = plan
+    bound = _sum_tap_bound if "sum" in name else _hw22_tap_bound
+    plan = _Plan(taps, lens, offs, plans, bound(plans, P))
+    if len(_PLANS) >= 64:
+        _PLANS.clear()
+    _PLANS[key] = plan
     return plan
 
 
-def _sum_args(name: str, filters, dtype: torch.dtype):
-    """The synthesis launch's arguments (:func:`_launch` *args*): the cached
-    tap table and the tile of :func:`_sum_hw22_geometry` for *dtype* at the
-    plan's tap bound."""
-    plan = _sum_plan(name, filters)
-    geo = _sum_hw22_geometry(_SUM_P[name], plan.mt, dtype)
+#: the synthesis entries' plans (the name their tests know)
+_sum_plan = _plan
+
+
+def _args(name: str, filters, dtype: torch.dtype):
+    """A launch's arguments (:func:`_launch` *args*): the cached tap table
+    and the tile of :func:`_hw22_geometry` or :func:`_sum_hw22_geometry`
+    for *dtype* at the plan's tap bound."""
+    plan = _plan(name, filters)
+    geometry = _sum_hw22_geometry if "sum" in name else _hw22_geometry
+    geo = geometry(_STREAMS[name], plan.mt, dtype)
     return (plan.taps, plan.lens, plan.offs), geo.tile()
 
 
@@ -317,9 +401,8 @@ def filter_hw22(x: torch.Tensor, h0, h1):
     h0, h1 = _odd(h0, h1, "filter_hw22")
     if dual._on_cpu(x, "filter_hw22"):
         return filter_hw22_reference(x, h0, h1)
-    plans = _filter_plans(h0, h1)
-    return _nest(_launch("filter_hw22", [x], H, W, 4,
-                         lambda: (_table(plans), ())))
+    return _nest(_launch("filter_hw22", [x], H, W, 4, lambda: _args(
+        "filter_hw22", (h0, h1), x.dtype)))
 
 
 def dfilt_hw22(x: torch.Tensor, pair0, pair1):
@@ -330,9 +413,8 @@ def dfilt_hw22(x: torch.Tensor, pair0, pair1):
     pairs = _equal_pairs(pair0, pair1, "dfilt_hw22")
     if dual._on_cpu(x, "dfilt_hw22"):
         return dfilt_hw22_reference(x, pair0, pair1)
-    plans = [dfilt_streams(*p) for p in pairs]
-    return _nest(_launch("dfilt_hw22", [x], H // 2, W // 2, 4,
-                         lambda: (_table(plans), ())))
+    return _nest(_launch("dfilt_hw22", [x], H // 2, W // 2, 4, lambda: _args(
+        "dfilt_hw22", pairs[0] + pairs[1], x.dtype)))
 
 
 def filter_sum_hw22(v00, v01, v10, v11, g0, g1):
@@ -343,7 +425,7 @@ def filter_sum_hw22(v00, v01, v10, v11, g0, g1):
     g0, g1 = _odd(g0, g1, "filter_sum_hw22")
     if dual._on_cpu(v00, "filter_sum_hw22"):
         return filter_sum_hw22_reference(*vs, g0, g1)
-    return _launch("filter_sum_hw22", vs, H, W, 1, lambda: _sum_args(
+    return _launch("filter_sum_hw22", vs, H, W, 1, lambda: _args(
         "filter_sum_hw22", (g0, g1), v00.dtype))[0]
 
 
@@ -355,5 +437,5 @@ def ifilt_sum_hw22(v00, v01, v10, v11, pair0, pair1):
     pairs = _equal_pairs(pair0, pair1, "ifilt_sum_hw22")
     if dual._on_cpu(v00, "ifilt_sum_hw22"):
         return ifilt_sum_hw22_reference(*vs, pair0, pair1)
-    return _launch("ifilt_sum_hw22", vs, 2 * H, 2 * W, 1, lambda: _sum_args(
+    return _launch("ifilt_sum_hw22", vs, 2 * H, 2 * W, 1, lambda: _args(
         "ifilt_sum_hw22", pairs[0] + pairs[1], v00.dtype))[0]

@@ -1061,6 +1061,11 @@ _HW_SHAPES = [(3, 12, 20), (2, 2, 8, 132), (1, 520, 8), (2, 4, 4),
 # even sides, outputs 72 x 88 and 132 x 136), and rows of 42 that its
 # chunked staging does not take (a value an item)
 _HW_SUM_SHAPES = [(1, 36, 44), (2, 66, 68), (1, 36, 42)]
+# the analysis kernel's 32 x 32 output tiles partial in H and W (dfilt:
+# sides multiples of 4, outputs 18 x 22 and 34 x 36), and rows of 42 that
+# its chunked staging does not take (filter)
+_HW22_SHAPES = {"filter": [(1, 36, 44), (2, 68, 72), (1, 36, 42)],
+                "dfilt": [(1, 36, 44), (2, 68, 72)]}
 
 
 def _hw_cases(kind):
@@ -1088,7 +1093,8 @@ def test_cuda_hw_matches_plain(cuda, kind, dtype):
     kern = getattr(hw, kind + "_hw22")
     plain = getattr(hw, kind + "_hw22_reference")
     n_in = 1 if kind in ("filter", "dfilt") else 4
-    shapes = _HW_SHAPES + (_HW_SUM_SHAPES if n_in == 4 else [])
+    shapes = _HW_SHAPES + (_HW_SUM_SHAPES if n_in == 4 else
+                           _HW22_SHAPES[kind])
     for fam, f in _hw_cases(kind):
         for seed, shape in enumerate(shapes):
             xs = [_rand(shape, seed + i, cuda, dtype) for i in range(n_in)]
@@ -1202,6 +1208,111 @@ def test_cuda_sum_hw22_refuses_a_tile_not_the_hosts(cuda, monkeypatch):
         got = kern(*xs, *f)
         torch.cuda.synchronize()
         assert _kerr(got, plain(*xs, *f)) < _KTOL[dtype], (kind, bad)
+
+
+def _hw22_long(kind, seed=4):
+    """The longest filters the analysis kernel takes, every tap random: an
+    odd pair of 31 taps (filter), two qshift pairs of 32 (dfilt)."""
+    rs = np.random.RandomState(seed)
+    if kind == "filter":
+        return rs.randn(31), rs.randn(31)
+    return (rs.randn(32), rs.randn(32)), (rs.randn(32), rs.randn(32))
+
+
+def _flat4(u):
+    return tuple(v for row in u for v in row)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("kind", ["filter", "dfilt"])
+def test_cuda_hw22_takes_the_longest_filters(cuda, kind, dtype):
+    """Odd filters of 31 taps and qshift pairs of 32, the longest the
+    analysis kernel took before its redesign, run on the card at the
+    largest tap bound (31, 32) against the plain version."""
+    f = _hw22_long(kind)
+    kern = getattr(hw, kind + "_hw22")
+    plain = getattr(hw, kind + "_hw22_reference")
+    for seed, shape in enumerate([(2, 4, 4), (1, 36, 44), (2, 68, 72)]):
+        x = _rand(shape, seed, cuda, dtype)
+        _build.reset_launches()
+        got = kern(x, *f)
+        torch.cuda.synchronize()
+        assert dict(_build.launches) == {kind + "_hw22": 1}
+        assert _kerr(_flat4(got), _flat4(plain(x, *f))) < _KTOL[dtype], shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["filter", "dfilt"])
+def test_cuda_hw22_writes_its_outputs_whole(cuda, monkeypatch, kind, dtype):
+    """The analysis kernel writes every element of its four outputs and
+    nothing past their ends: each output is the head of a NaN-filled buffer
+    one row longer, equal to the plain version after the launch, every
+    tail still NaN.  Odd seeds place the input one element past an aligned
+    start (the staging then copies a value at a time)."""
+    make, heads = hw._outputs, []
+
+    def sentinel(n_out, N, Ho, Wo, dt, device):
+        outs = []
+        for t in make(n_out, N, Ho, Wo, dt, device):
+            buf = torch.full((t.numel() + Wo,), float("nan"), dtype=dt,
+                             device=device)
+            heads.append((buf, t.numel()))
+            outs.append(buf[:t.numel()].view(t.shape))
+        return outs
+    monkeypatch.setattr(hw, "_outputs", sentinel)
+    kern = getattr(hw, kind + "_hw22")
+    plain = getattr(hw, kind + "_hw22_reference")
+    cases = _hw_cases(kind)[:2] + [("long", _hw22_long(kind))]
+    for fam, f in cases:
+        for seed, shape in enumerate(_HW22_SHAPES[kind] + [(3, 12, 20)]):
+            heads.clear()
+            x = _rand(shape, seed, cuda, dtype)
+            if seed % 2:
+                x = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(shape)
+            got = kern(x, *f)
+            torch.cuda.synchronize()
+            assert _kerr(_flat4(got), _flat4(plain(x, *f))) < _KTOL[dtype], (
+                fam, shape)
+            assert len(heads) == 4
+            for buf, n in heads:
+                assert not torch.isnan(buf[:n]).any(), (fam, shape)
+                assert torch.isnan(buf[n:]).all(), (fam, shape)
+
+
+@pytest.mark.cuda
+def test_cuda_hw22_refuses_a_tile_not_the_hosts(cuda, monkeypatch):
+    """The analysis C entries take the tile, tap bound and shared memory of
+    _hw22_geometry and refuse any other with a CUDA error, launching
+    nothing; the host's own launch then runs."""
+    geometry = hw._hw22_geometry
+    for kind, dtype, bad in (
+            ("filter", torch.float32, dict(mt=9)),
+            ("filter", torch.float32, dict(oh=16)),
+            ("filter", torch.float64, dict(smem=1)),
+            ("filter", torch.bfloat16, dict(xr=44, xc=44)),
+            ("dfilt", torch.float32, dict(mt=14)),
+            ("dfilt", torch.float32, dict(ow=16)),
+            ("dfilt", torch.float64, dict(smem=1)),
+            ("dfilt", torch.float32, dict(xr=84, xc=84))):
+        fam, f = _hw_cases(kind)[1]
+        kern = getattr(hw, kind + "_hw22")
+        plain = getattr(hw, kind + "_hw22_reference")
+        x = _rand((2, 36, 44), 0, cuda, dtype)
+        monkeypatch.setattr(
+            hw, "_hw22_geometry",
+            lambda *a, **k: geometry(*a, **k)._replace(**bad))
+        _build.reset_launches()
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            kern(x, *f)
+        assert not _build.launches
+        monkeypatch.setattr(hw, "_hw22_geometry", geometry)
+        got = kern(x, *f)
+        torch.cuda.synchronize()
+        assert _kerr(_flat4(got), _flat4(plain(x, *f))) < _KTOL[dtype], (
+            kind, bad)
 
 
 @pytest.mark.cuda

@@ -8,7 +8,7 @@ kernels, on one NVIDIA GPU.
     python tools/time_variant.py VARIANT.cu \
         dtcwt_inv_level1_pack,dtcwt_inv_level2_pack pack3d kernels
     python tools/time_variant.py VARIANT.cu \
-        dtcwt_filter_sum_hw22,dtcwt_ifilt_sum_hw22 hw kernels
+        dtcwt_filter_hw22,dtcwt_dfilt_hw22 hw kernels
 
 Compiles ``VARIANT.cu`` (an edited copy of a ``csrc/*.cu`` file; its
 includes are searched in its own directory first, then in ``csrc/``, so a
@@ -18,14 +18,14 @@ library of its own with the package's nvcc flags and ``-Xptxas -v``
 or several, comma-separated: ``dtcwt_level2``, ``dtcwt_level1``,
 ``dtcwt_ilevel1``, ``dtcwt_ilevel2``, ``dtcwt_fwd_level1_pack``,
 ``dtcwt_fwd_level2_pack``, ``dtcwt_inv_level1_pack``,
-``dtcwt_inv_level2_pack``, ``dtcwt_filter_sum_hw22``,
-``dtcwt_ifilt_sum_hw22``) to it and every other entry to the package's
-library, then runs ``tools/time_level1.py`` in the given mode,
-``tools/time_pack3d.py`` for the mode ``pack3d`` or ``tools/time_hw.py``
-for the mode ``hw`` (a last argument ``kernels`` stops any of them after
-the kernel lines).  A kernel's design is
-tuned this way without rebuilding every source for each variant.  Run
-from the repository's root.
+``dtcwt_inv_level2_pack``, ``dtcwt_filter_hw22``, ``dtcwt_dfilt_hw22``,
+``dtcwt_filter_sum_hw22``, ``dtcwt_ifilt_sum_hw22``) to it and every
+other entry to the package's library, then runs ``tools/time_level1.py``
+in the given mode, ``tools/time_pack3d.py`` for the mode ``pack3d`` or
+``tools/time_hw.py`` for the mode ``hw`` (a last argument ``kernels``
+stops any of them after the kernel lines).  A kernel's design is tuned
+this way without rebuilding every source for each variant.  Run from the
+repository's root.
 """
 
 import ctypes
