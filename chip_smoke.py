@@ -156,6 +156,7 @@ QSHIFTS = ("qshift_06", "qshift_a", "qshift_b", "qshift_c", "qshift_d",
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12         # float32 outside the tensor cores
 _DUAL_SRC = "dtcwt_tpu_torch/csrc/dual.cu"
+_SUM_SRC = "dtcwt_tpu_torch/csrc/streamsum.cuh"
 _PACK_SRC = "dtcwt_tpu_torch/csrc/pack3d.cu"
 _IPACK_SRC = "dtcwt_tpu_torch/csrc/ipack.cuh"
 _SINGLE_SRC = "dtcwt_tpu_torch/csrc/single.cu"
@@ -173,8 +174,8 @@ KERNELS = {   # name -> (CUDA source, the TPU kernel it replaces)
                 "dtcwt_tpu/ops/pallas_ilevel1.py:434"),
     "filter2": (_DUAL_SRC, "dtcwt_tpu/ops/pallas_dual.py:173"),
     "dfilt2": (_DUAL_SRC, "dtcwt_tpu/ops/pallas_dual.py:294"),
-    "ifilt2_sum": (_DUAL_SRC, "dtcwt_tpu/ops/pallas_dual.py:533"),
-    "filter2_sum": (_DUAL_SRC, "dtcwt_tpu/ops/pallas_dual.py:409"),
+    "ifilt2_sum": (_SUM_SRC, "dtcwt_tpu/ops/pallas_dual.py:533"),
+    "filter2_sum": (_SUM_SRC, "dtcwt_tpu/ops/pallas_dual.py:409"),
     "fwd_level1_pack": (_PACK_SRC, "dtcwt_tpu/ops/pallas_pack3d.py:607"),
     "inv_level1_pack": (_IPACK_SRC, "dtcwt_tpu/ops/pallas_pack3d.py:647"),
     "fwd_level2_pack": (_PACK_SRC, "dtcwt_tpu/ops/pallas_pack3d.py:503"),

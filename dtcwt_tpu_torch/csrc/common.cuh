@@ -58,6 +58,57 @@ template <typename T, int N> struct alignas(sizeof(T) * N) Vec {
   T v[N];
 };
 
+// Values of T in one 16-byte vector.
+template <typename T> __host__ __device__ constexpr int vec16() {
+  return 16 / sizeof(T);
+}
+// A column vector of the 1-D filters' columns paths (filter.cu,
+// streamtile.cuh): 16 bytes of float32 / float64, 8 of bfloat16.
+template <typename T> __host__ __device__ constexpr int col_vec() {
+  return sizeof(T) == 8 ? 2 : 4;
+}
+
+// N values of storage type T at p (aligned to the vector) stored from /
+// loaded into the accumulator type, as one vector access.
+template <typename T, typename A, int N>
+__device__ __forceinline__ void store_pack(T* p, const A* v) {
+  Vec<T, N> pk;
+#pragma unroll
+  for (int i = 0; i < N; ++i) store(&pk.v[i], v[i]);
+  *reinterpret_cast<Vec<T, N>*>(p) = pk;
+}
+
+template <typename T, typename A, int N>
+__device__ __forceinline__ void load_pack(const T* p, A* v) {
+  const Vec<T, N> pk = *reinterpret_cast<const Vec<T, N>*>(p);
+#pragma unroll
+  for (int i = 0; i < N; ++i) v[i] = load(&pk.v[i]);
+}
+
+// 16 bytes from device memory into shared memory, asynchronously; the
+// caller waits with cp_async_wait_all().
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// In-axis index of sample j of a length-n_in axis, or -1 where the sample
+// reads as zero (refl = 0: outside a pre-extended buffer; only padded taps
+// reach there).  One fold costs two compares; the modulo of reflect() is
+// left to axes shorter than the reach.
+__device__ __forceinline__ int source(int j, int n_in, int refl) {
+  if (j >= 0 && j < n_in) return j;
+  if (!refl) return -1;
+  const int f = j < 0 ? -1 - j : 2 * n_in - 1 - j;
+  return f >= 0 && f < n_in ? f : reflect(j, n_in);
+}
+
 // Position of degree band d in PLANE_BAND_ORDER = (0, 5, 1, 4, 2, 3).
 __device__ __forceinline__ int plane_pos(int d) {
   return d == 0 ? 0 : d == 1 ? 2 : d == 2 ? 4 : d == 3 ? 5 : d == 4 ? 3 : 1;

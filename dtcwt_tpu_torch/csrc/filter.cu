@@ -52,55 +52,6 @@ template <typename A> struct FilterTaps {
   A t[MAX_TAPS];  // reversed taps, zero past m
 };
 
-// N consecutive samples of T as one aligned vector access.
-template <typename T, int N> struct alignas(sizeof(T) * N) Pack {
-  T v[N];
-};
-
-template <typename T> __host__ __device__ constexpr int vec16() {
-  return 16 / sizeof(T);
-}
-// columns path vector: 16 bytes of float32 / float64, 8 of bfloat16
-template <typename T> __host__ __device__ constexpr int col_vec() {
-  return sizeof(T) == 8 ? 2 : 4;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// In-axis index of sample j, or -1 where the sample reads as zero (outside
-// a pre-extended buffer; only padded taps reach there).  One fold costs two
-// compares; the modulo of reflect() is left to axes shorter than the reach.
-__device__ __forceinline__ int source(int j, int n_in, int refl) {
-  if (j >= 0 && j < n_in) return j;
-  if (!refl) return -1;
-  const int f = j < 0 ? -1 - j : 2 * n_in - 1 - j;
-  return f >= 0 && f < n_in ? f : reflect(j, n_in);
-}
-
-template <typename T, typename A, int N>
-__device__ __forceinline__ void store_pack(T* p, const A* v) {
-  Pack<T, N> pk;
-#pragma unroll
-  for (int i = 0; i < N; ++i) store(&pk.v[i], v[i]);
-  *reinterpret_cast<Pack<T, N>*>(p) = pk;
-}
-
-template <typename T, typename A, int N>
-__device__ __forceinline__ void load_pack(const T* p, A* v) {
-  const Pack<T, N> pk = *reinterpret_cast<const Pack<T, N>*>(p);
-#pragma unroll
-  for (int i = 0; i < N; ++i) v[i] = load(&pk.v[i]);
-}
-
 // One block's staged rows: the shared copy xs (xs[pad + e] is input
 // element f0 + e, e < len, f0 the flat index of in-row sample a of the
 // block's first row o0), and its outputs s0 .. end - 1 of each row in y.

@@ -8,9 +8,9 @@
 // chooses; both run the W stage on register windows of a staged row and
 // the H stage on register windows down a column.
 //
-// Here: the tile side, the taps struct and its filling from the host plan
-// (the taps centred on the halo of the bound), the instance sets' tap
-// bounds, and the staging of images through the maps: 16-byte cp.async
+// Here: the tile side and the staging of images through the maps (the
+// taps struct, its filling from the host plan and the instance sets' tap
+// bounds are taps.cuh's, shared with the 1-D stream sums): 16-byte cp.async
 // chunks where a row is stored in order (filter, dfilt), a value an item
 // where its cells are split by column parity (ifilt).  A geometry G (HaGeo,
 // HsGeo) gives the staged area: X x X cells at row stride XS, XN values an
@@ -19,19 +19,11 @@
 
 #include "hwstage.cuh"
 #include "l1tile.cuh"
+#include "taps.cuh"
 
 namespace dtcwt {
 
 constexpr int HS_TILE = 32;  // output tile side
-constexpr int HS_K = 33;     // the largest tap bound
-
-// The two branch filters' taps by value: t[b][s][m] multiplies the window
-// sample m of stream s of branch b (ifilt: of the parity (s & 1) ^ sw[b];
-// dfilt: of the parity s, the host having swapped the streams where sw[b]).
-template <typename A, int P> struct HsTaps {
-  A t[2][P][HS_K];
-  int sw[2];
-};
 
 // Shared memory of n_x staged images of xn values, two W-stage images of
 // vn and two int maps of x.
@@ -40,15 +32,6 @@ __host__ __device__ constexpr size_t hs_bytes(int n_x, int xn, int vn,
                                               int x) {
   return sizeof(A) * (static_cast<size_t>(n_x) * xn + 2 * vn) +
          sizeof(int) * 2 * x;
-}
-
-// 16 bytes from device memory into shared memory, asynchronously.
-template <typename A>
-__device__ __forceinline__ void hs_cp_async16(A* smem, const A* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
 }
 
 // Values a chunk of the row-major staging: 16 bytes (bfloat16: 8, four
@@ -102,7 +85,7 @@ __device__ __forceinline__ void hs_stage(const T* const (&src)[NX],
 #pragma unroll
           for (int i = 0; i < NX; ++i) {
             if constexpr (sizeof(T) == sizeof(A)) {
-              hs_cp_async16(dst + i * G::XN, src[i] + row + c0);
+              cp_async16(dst + i * G::XN, src[i] + row + c0);
             } else {
               const Vec<T, CW> pk =
                   *reinterpret_cast<const Vec<T, CW>*>(src[i] + row + c0);
@@ -119,7 +102,7 @@ __device__ __forceinline__ void hs_stage(const T* const (&src)[NX],
         }
       }
       if constexpr (sizeof(T) == sizeof(A))
-        asm volatile("cp.async.wait_all;\n" ::: "memory");
+        cp_async_wait_all();
       return;
     }
   }
@@ -130,51 +113,7 @@ __device__ __forceinline__ void hs_stage(const T* const (&src)[NX],
                           xs + G::cell(r, col));
   }
   if constexpr (sizeof(T) == sizeof(A))
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// The tap bounds of an instance set, 5 of each: P = 1 (filter, both
-// directions) 5, 7, 9, 19, 31; P = 2 (dfilt) 10, 14, 16, 18, 32; P = 4
-// (ifilt) 5, 7, 9, 17, 33.
-constexpr int HS_BOUNDS = 5;
-template <int P> constexpr int hs_bound(int e) {
-  constexpr int b1[HS_BOUNDS] = {5, 7, 9, 19, 31};
-  constexpr int b2[HS_BOUNDS] = {10, 14, 16, 18, 32};
-  constexpr int b4[HS_BOUNDS] = {5, 7, 9, 17, HS_K};
-  return P == 1 ? b1[e] : P == 2 ? b2[e] : b4[e];
-}
-
-// Fill *tp from the host plan (taps [2][P][MAX_TAPS], lens and offs
-// [2][P]: stream s of branch b reads x[D g + offs + S k], k < lens) centred
-// on the halo of bound mt; false where a stream does not fit in it.
-template <typename A, int P>
-bool make_hs_taps(HsTaps<A, P>* tp, const double* taps, const int* lens,
-                  const int* offs, int mt) {
-  if (mt > HS_K) return false;
-  const int ph = (mt - 1) / 2;
-  for (int b = 0; b < 2; ++b) {
-    // qshift: the parity of stream 0's first sample sets the swap
-    const int sw = P == 1 ? 0 : (offs[b * P] + 2 * ph) & 1;
-    tp->sw[b] = sw;
-    for (int s = 0; s < P; ++s) {
-      const int len = lens[b * P + s];
-      // the stream's first tap's window index: filter ph + off; qshift the
-      // half-index shift d / 2 of d = off + 2 ph
-      const int d = P == 1 ? ph + offs[b * P + s] : offs[b * P + s] + 2 * ph;
-      const int sh = P == 1 ? d : d >> 1;
-      if (len < 1 || len > MAX_TAPS || d < 0 || sh + len > mt ||
-          (P > 1 && (d & 1) != ((s & 1) ^ sw)))
-        return false;
-      for (int k = 0; k < HS_K; ++k) {
-        const int kk = k - sh;
-        tp->t[b][s][k] =
-            kk >= 0 && kk < len
-                ? static_cast<A>(taps[(b * P + s) * MAX_TAPS + kk])
-                : A(0);
-      }
-    }
-  }
-  return true;
+    cp_async_wait_all();
 }
 
 // The host's tile of an hw kernel (ops/hw.py _hw22_geometry,

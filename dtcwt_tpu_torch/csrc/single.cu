@@ -16,9 +16,9 @@
 // which holds the design (stream plans, [outer, n, inner] tiling, reflect
 // and from-extension modes) and its bound: device memory bytes, each input
 // read once and each output written once.  The instance carries no second
-// branch: one input is staged, one branch's taps are held and multiplied.
+// branch: one branch's taps are held and multiplied.
 #include "streams.cuh"
 
-//                  name          NB NI NO P  D  S
-DTCWT_STREAM_EXPORT(dtcwt_dfilt,  1, 1, 1, 2, 4, 2)
-DTCWT_STREAM_EXPORT(dtcwt_ifilt,  1, 1, 1, 4, 2, 2)
+//                  name         NB P  D  S
+DTCWT_STREAM_EXPORT(dtcwt_dfilt, 1, 2, 4, 2)
+DTCWT_STREAM_EXPORT(dtcwt_ifilt, 1, 4, 2, 2)

@@ -1,18 +1,19 @@
 // The stream-plan filter kernel shared by the single-stream kernels dfilt
-// and ifilt (single.cu) and the dual-stream kernels (dual.cu), along any
-// axis of a contiguous tensor (CUDA C++, sm_90a).  The single-stream
-// non-decimating filter has a kernel of its own (filter.cu).
+// and ifilt (single.cu) and the dual-stream analysis kernels filter2 and
+// dfilt2 (dual.cu), along any axis of a contiguous tensor (CUDA C++,
+// sm_90a).  The single-stream non-decimating filter has a kernel of its
+// own (filter.cu), and so have the dual-stream synthesis sums filter2_sum
+// and ifilt2_sum (streamsum.cuh, exported by dual.cu).
 //
-// A kernel instance runs NB branches (1 or 2) over NI inputs (1, or one per
-// branch) into NO outputs (one per branch, or for NB = 2 their sum).  Every
-// branch is a set of P output streams (host plans, ops/dual.py):
+// A kernel instance runs NB branches (1 or 2) over one input into one
+// output a branch.  Every branch is a set of P output streams (host plans,
+// ops/dual.py):
 //
 //   Y[P g + s] = sum_{k < len[s]} t[s][k] x[D g + c[s] + S k]
 //
-//   filter2, filter2_sum (P, D, S) = (1, 1, 1): c = -(m/2), t = reversed
-//                                    taps
-//   dfilt, dfilt2        = (2, 4, 2): level2.dfilt_streams
-//   ifilt, ifilt2_sum    = (4, 2, 2): ilevel2.ifilt_streams
+//   filter2      (P, D, S) = (1, 1, 1): c = -(m/2), t = reversed taps
+//   dfilt, dfilt2          = (2, 4, 2): level2.dfilt_streams
+//   ifilt                  = (4, 2, 2): ilevel2.ifilt_streams
 //
 // so the kernels hold no parity logic.  Each branch has its own tap counts
 // and offsets, so filters of unequal length (near_sym_b's 13/19 taps, or
@@ -22,8 +23,8 @@
 // signal shorter than the filter works), or, in the from-extension mode, at
 // side + index in a buffer the caller has already extended (the host adds
 // side to every offset and checks that the reads stay inside).  The branch
-// count is a template parameter: a one-branch instance stages one input and
-// holds, loads and multiplies one branch's taps only.
+// count is a template parameter: a one-branch instance holds, loads and
+// multiplies one branch's taps only.
 //
 // Layout: the filtered axis of a contiguous tensor is viewed as
 // [outer, n, inner] with strides (n * inner, inner, 1); no transpose.  A
@@ -56,19 +57,17 @@ template <int NB, int P> struct StreamPlan {
   int off[NB][P];  // first input row of stream s, relative to the tile
 };
 
-template <typename T, int NB, int NI, int NO, int P, int D, int S>
+template <typename T, int NB, int P, int D, int S>
 __global__ void __launch_bounds__(STREAM_THREADS)
-    stream_kernel(const T* __restrict__ in0, const T* __restrict__ in1,
-                  T* __restrict__ out0, T* __restrict__ out1, int n_in,
-                  int inner, int g0n, int g1n, int refl, int TG, int lgTI,
-                  int XR, int cmin, int n_gt, int n_ct,
+    stream_kernel(const T* __restrict__ in0, T* __restrict__ out0,
+                  T* __restrict__ out1, int n_in, int inner, int g0n,
+                  int g1n, int refl, int TG, int lgTI, int XR, int cmin,
+                  int n_gt, int n_ct,
                   const double* __restrict__ taps, StreamPlan<NB, P> plan) {
   static_assert(NB == 1 || NB == 2, "one or two branches");
-  static_assert(NI == 1 || NI == NB, "one input, or one per branch");
-  static_assert(NO == 1 || NO == NB, "one output, or one per branch");
   using A = typename AccOf<T>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  A* xs = reinterpret_cast<A*>(smem_raw);  // [NI][XR][TI]
+  A* xs = reinterpret_cast<A*>(smem_raw);  // [XR][TI]
   __shared__ A tap_s[NB * P * TAP_STRIDE];
   __shared__ int len_s[NB][P], off_s[NB][P];
 
@@ -93,17 +92,15 @@ __global__ void __launch_bounds__(STREAM_THREADS)
       }
   }
 
-  // stage input rows D * gbase + cmin + r, r < XR, of every input
+  // stage input rows D * gbase + cmin + r, r < XR
   const int rows_per = STREAM_THREADS >> lgTI;
   const int tc = tid & (TI - 1), tr = tid >> lgTI;
   const int col = cbase + tc;
   const bool col_ok = col < inner;
   const int rstart = D * gbase + cmin;
-#pragma unroll
-  for (int ii = 0; ii < NI; ++ii) {
-    const T* src = (ii == 0 ? in0 : in1) +
-                   o * static_cast<int64_t>(n_in) * inner + col;
-    A* dst = xs + static_cast<int64_t>(ii) * XR * TI + tc;
+  {
+    const T* src = in0 + o * static_cast<int64_t>(n_in) * inner + col;
+    A* dst = xs + tc;
     for (int r = tr; r < XR; r += rows_per) {
       int g = rstart + r;
       if (refl) g = reflect(g, n_in);
@@ -125,8 +122,7 @@ __global__ void __launch_bounds__(STREAM_THREADS)
     A acc[NB];
 #pragma unroll
     for (int b = 0; b < NB; ++b) {
-      const A* xp = xs + (static_cast<int64_t>(NI == 2 ? b : 0) * XR +
-                          D * gl + off_s[b][s]) * TI + tc;
+      const A* xp = xs + static_cast<int64_t>(D * gl + off_s[b][s]) * TI + tc;
       const A* tp = tap_s + (b * P + s) * TAP_STRIDE;
       const int len = len_s[b][s];
       A a = 0;
@@ -134,23 +130,20 @@ __global__ void __launch_bounds__(STREAM_THREADS)
       acc[b] = a;
     }
     const int64_t row = static_cast<int64_t>(P * g + s) * inner;
-    if constexpr (NO == 2) {
+    if constexpr (NB == 2) {
       if (g < g0n) store(out0 + ob0 + row, acc[0]);
       if (g < g1n) store(out1 + ob1 + row, acc[1]);
-    } else if constexpr (NB == 2) {
-      store(out0 + ob0 + row, acc[0] + acc[1]);
     } else {
       store(out0 + ob0 + row, acc[0]);
     }
   }
 }
 
-template <typename T, int NB, int NI, int NO, int P, int D, int S>
-cudaError_t run_streams(const void* in0, const void* in1, void* out0,
-                        void* out1, int outer, int n_in, int inner, int g0n,
-                        int g1n, int refl, const double* taps,
-                        const int* lens, const int* offs,
-                        cudaStream_t stream) {
+template <typename T, int NB, int P, int D, int S>
+cudaError_t run_streams(const void* in0, void* out0, void* out1, int outer,
+                        int n_in, int inner, int g0n, int g1n, int refl,
+                        const double* taps, const int* lens,
+                        const int* offs, cudaStream_t stream) {
   using A = typename AccOf<T>::type;
   StreamPlan<NB, P> plan;
   int cmin = INT_MAX, cend = INT_MIN;
@@ -174,43 +167,43 @@ cudaError_t run_streams(const void* in0, const void* in1, void* out0,
   if (TG < 1) TG = 1;
   if (TG > gmax) TG = gmax;
   const int XR = D * (TG - 1) + (cend - cmin) + 1;
-  const size_t smem = sizeof(A) * static_cast<size_t>(NI) * XR * TI;
+  const size_t smem = sizeof(A) * static_cast<size_t>(XR) * TI;
   const int n_gt = (gmax + TG - 1) / TG;
   const int n_ct = (inner + TI - 1) / TI;
   const int64_t blocks = static_cast<int64_t>(outer) * n_gt * n_ct;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  auto kernel = stream_kernel<T, NB, NI, NO, P, D, S>;
+  auto kernel = stream_kernel<T, NB, P, D, S>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   kernel<<<static_cast<unsigned>(blocks), STREAM_THREADS, smem, stream>>>(
-      static_cast<const T*>(in0), static_cast<const T*>(in1),
-      static_cast<T*>(out0), static_cast<T*>(out1), n_in, inner, g0n, g1n,
-      refl, TG, lgTI, XR, cmin, n_gt, n_ct, taps, plan);
+      static_cast<const T*>(in0), static_cast<T*>(out0),
+      static_cast<T*>(out1), n_in, inner, g0n, g1n, refl, TG, lgTI, XR,
+      cmin, n_gt, n_ct, taps, plan);
   return cudaGetLastError();
 }
 
-template <int NB, int NI, int NO, int P, int D, int S>
-int dispatch_streams(const void* in0, const void* in1, void* out0,
-                     void* out1, int outer, int n_in, int inner, int g0n,
-                     int g1n, int refl, const double* taps, const int* lens,
-                     const int* offs, int dtype, void* stream) {
+template <int NB, int P, int D, int S>
+int dispatch_streams(const void* in0, void* out0, void* out1, int outer,
+                     int n_in, int inner, int g0n, int g1n, int refl,
+                     const double* taps, const int* lens, const int* offs,
+                     int dtype, void* stream) {
   if (outer < 1 || n_in < 1 || inner < 1 || g0n < 1 || (NB == 2 && g1n < 1))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case DT_F32:
-      return run_streams<float, NB, NI, NO, P, D, S>(
-          in0, in1, out0, out1, outer, n_in, inner, g0n, g1n, refl, taps,
+      return run_streams<float, NB, P, D, S>(
+          in0, out0, out1, outer, n_in, inner, g0n, g1n, refl, taps,
           lens, offs, st);
     case DT_BF16:
-      return run_streams<__nv_bfloat16, NB, NI, NO, P, D, S>(
-          in0, in1, out0, out1, outer, n_in, inner, g0n, g1n, refl, taps,
+      return run_streams<__nv_bfloat16, NB, P, D, S>(
+          in0, out0, out1, outer, n_in, inner, g0n, g1n, refl, taps,
           lens, offs, st);
     case DT_F64:
-      return run_streams<double, NB, NI, NO, P, D, S>(
-          in0, in1, out0, out1, outer, n_in, inner, g0n, g1n, refl, taps,
+      return run_streams<double, NB, P, D, S>(
+          in0, out0, out1, outer, n_in, inner, g0n, g1n, refl, taps,
           lens, offs, st);
   }
   return cudaErrorInvalidValue;
@@ -218,19 +211,18 @@ int dispatch_streams(const void* in0, const void* in1, void* out0,
 
 }  // namespace dtcwt
 
-// Common C interface of the stream kernels.  in1 / out1 are unused (null)
-// where the kernel has one input / one output, and g1n where it has one
-// branch.  taps: device float64 [NB branches][P streams][MAX_TAPS]; lens,
-// offs: host [NB][P].  g0n / g1n: output groups of branch 0 / 1 (each
-// writes P * g rows).  refl = 1: read x at reflected indices of a
-// length-n_in axis; refl = 0: n_in is the length of a pre-extended buffer
-// and offs already include its side.
-#define DTCWT_STREAM_EXPORT(name, NB, NI, NO, P, D, S)                        \
-  extern "C" int name(const void* in0, const void* in1, void* out0,          \
-                      void* out1, int outer, int n_in, int inner, int g0n,   \
-                      int g1n, int refl, const double* taps, const int* lens, \
-                      const int* offs, int dtype, void* stream) {            \
-    return dtcwt::dispatch_streams<NB, NI, NO, P, D, S>(                     \
-        in0, in1, out0, out1, outer, n_in, inner, g0n, g1n, refl, taps,      \
-        lens, offs, dtype, stream);                                          \
+// Common C interface of the stream kernels.  out1 is unused (null) and g1n
+// ignored where the kernel has one branch.  taps: device float64 [NB
+// branches][P streams][MAX_TAPS]; lens, offs: host [NB][P].  g0n / g1n:
+// output groups of branch 0 / 1 (each writes P * g rows).  refl = 1: read
+// x at reflected indices of a length-n_in axis; refl = 0: n_in is the
+// length of a pre-extended buffer and offs already include its side.
+#define DTCWT_STREAM_EXPORT(name, NB, P, D, S)                               \
+  extern "C" int name(const void* in0, void* out0, void* out1, int outer,   \
+                      int n_in, int inner, int g0n, int g1n, int refl,      \
+                      const double* taps, const int* lens, const int* offs, \
+                      int dtype, void* stream) {                            \
+    return dtcwt::dispatch_streams<NB, P, D, S>(                            \
+        in0, out0, out1, outer, n_in, inner, g0n, g1n, refl, taps, lens,    \
+        offs, dtype, stream);                                               \
   }

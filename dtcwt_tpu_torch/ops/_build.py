@@ -64,12 +64,17 @@ _SIGNATURES = {
         _P,),
 }
 # the stream kernels of csrc/dual.cu and csrc/single.cu share one interface
-# (csrc/streams.cuh): in0, in1, out0, out1, outer, n_in, inner, g0, g1,
-# refl, taps, lens, offs, dtype, stream
-for _name in ("filter2", "dfilt2", "filter2_sum", "ifilt2_sum", "dfilt",
-              "ifilt"):
-    _SIGNATURES["dtcwt_" + _name] = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+# (csrc/streams.cuh): in0, out0, out1, outer, n_in, inner, g0, g1, refl,
+# taps, lens, offs, dtype, stream
+for _name in ("filter2", "dfilt2", "dfilt", "ifilt"):
+    _SIGNATURES["dtcwt_" + _name] = (_P, _P, _P, _I, _I, _I, _I, _I, _I,
                                      _P, _P, _P, _I, _P)
+# the synthesis sums of csrc/dual.cu (csrc/streamsum.cuh): a, b, y, outer,
+# n_in, inner, g, side, refl, taps, lens, offs, dtype, then the tiling (mt,
+# path, v, vc, rows, seg, tx, smem), and stream
+for _name in ("filter2_sum", "ifilt2_sum"):
+    _SIGNATURES["dtcwt_" + _name] = (_P,) * 3 + (_I,) * 6 + (_P,) * 3 + (
+        _I,) * 9 + (_P,)
 # the filter kernel of csrc/filter.cu: x, y, outer, n_in, inner, g, c, refl,
 # m, taps, mt, path, v, vc, rows, seg, tx, dtype, stream
 _SIGNATURES["dtcwt_filter"] = (_P, _P) + (_I,) * 7 + (_P,) + (_I,) * 8 + (

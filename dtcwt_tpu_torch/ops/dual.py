@@ -23,19 +23,34 @@ storage as the kernels compute.
 An entry takes its route from the input's device: a CPU tensor runs the
 plain version, a CUDA tensor launches the kernel (``csrc/dual.cu``) or
 raises.  The kernels take any axis of a contiguous tensor, float32,
-bfloat16 or float64, filters of up to 32 taps per stream of any length and
-parity, and signals shorter than the filter.  The host turns every filter
-pair into output streams (:func:`level2.dfilt_streams`,
-:func:`ilevel2.ifilt_streams`), so the kernels hold no parity logic.
+bfloat16 or float64, and signals shorter than the filter.  The host turns
+every filter pair into output streams (:func:`level2.dfilt_streams`,
+:func:`ilevel2.ifilt_streams`), so the kernels hold no parity rule: the
+sums' kernel takes each branch's stream order as one swap of the two
+sample parities, computed from the plans.
 
-The same stream plans with one branch are the single-stream kernels
-``dfilt`` and ``ifilt`` of :mod:`single` (``csrc/single.cu``), which launch
-through :func:`_launch` here; both sources instantiate the one kernel of
-``csrc/streams.cuh``.  :mod:`single`'s ``filter`` has a kernel of its own
-(``csrc/filter.cu``).
+The analysis entries (``filter2``, ``dfilt2``) are two-branch instances of
+the stream kernel of ``csrc/streams.cuh``, launched by :func:`_launch`
+with the streams' taps in a device table; they take filters of up to 32
+taps a stream of any length and parity.  The same stream plans with one
+branch are the single-stream kernels ``dfilt`` and ``ifilt`` of
+:mod:`single` (``csrc/single.cu``), which launch through :func:`_launch`
+too; :mod:`single`'s ``filter`` has a kernel of its own
+(``csrc/filter.cu``).  The synthesis sums (``filter2_sum``,
+``ifilt2_sum``) have a kernel of their own, ``csrc/streamsum.cuh``
+(filter.cu's design, two inputs summed in registers), launched by
+:func:`_launch_sum`: its taps travel by value under a compile-time bound
+(:func:`_sum_plan`, cached per filter set) and its tiling comes from
+:func:`_sum_geometry`; the C entries refuse any other, and
+``tests/test_torch_dual_tiling.py`` replays it on the CPU.  They take
+filters of up to 32 taps of either parity (``filter2_sum``) and qshift
+pairs of up to 64 taps (``ifilt2_sum``, four streams of up to 32).
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -58,12 +73,13 @@ __all__ = [
 
 _MAX_TAPS = 32      # csrc/common.cuh MAX_TAPS, per output stream
 _INT_MAX = 2 ** 31 - 1
-# kernel -> (inputs, outputs, streams P, input step per group D, tap step S):
-# branch b writes Y[P g + s] = sum_k t[s][k] x[D g + c[s] + S k]; the
-# branches are the plans given to _launch (two here, one in ops/single)
-_GEOM = {"filter2": (1, 2, 1, 1, 1), "dfilt2": (1, 2, 2, 4, 2),
-         "filter2_sum": (2, 1, 1, 1, 1), "ifilt2_sum": (2, 1, 4, 2, 2),
-         "dfilt": (1, 1, 2, 4, 2), "ifilt": (1, 1, 4, 2, 2)}
+# stream kernel -> (streams P, input step per group D, tap step S): branch b
+# writes Y[P g + s] = sum_k t[s][k] x[D g + c[s] + S k] from the one input;
+# the branches are the plans given to _launch (two here, one in ops/single)
+_GEOM = {"filter2": (1, 1, 1), "dfilt2": (2, 4, 2), "dfilt": (2, 4, 2),
+         "ifilt": (4, 2, 2)}
+# synthesis sum -> (streams P, D, S) of its two branches' plans
+_SUM_GEOM = {"filter2_sum": (1, 1, 1), "ifilt2_sum": (4, 2, 2)}
 
 _device_taps = {}   # (taps bytes, device) -> float64 tap table on the card
 
@@ -140,17 +156,26 @@ def _ext_len(ext: torch.Tensor, side: int, axis: int) -> int:
     return n
 
 
+def _table(plans):
+    """The plans' taps as the kernels' host [branches][P][MAX_TAPS] float64
+    table and the [branches][P] tap counts and offsets."""
+    P = plans[0][0].shape[0]
+    taps = np.zeros((len(plans), P, _MAX_TAPS))
+    lens, offs = [], []
+    for b, (t, o) in enumerate(plans):
+        if t.shape[1] > _MAX_TAPS:
+            raise ValueError("the kernels take at most %d taps per stream, "
+                             "got %d" % (_MAX_TAPS, t.shape[1]))
+        taps[b, :, :t.shape[1]] = t
+        lens += [t.shape[1]] * P
+        offs += list(o)
+    return taps, _build.ints_arg(lens), _build.ints_arg(offs)
+
+
 def _tap_table(plans, device) -> torch.Tensor:
     """The streams' taps as the kernel's [branches][P][MAX_TAPS] float64
     table on *device*, built once per filter set and device."""
-    P = plans[0][0].shape[0]
-    buf = np.zeros((len(plans), P, _MAX_TAPS))
-    for b, (taps, _) in enumerate(plans):
-        if taps.shape[1] > _MAX_TAPS:
-            raise ValueError("the stream kernels take at most %d taps "
-                             "per stream, got %d" % (_MAX_TAPS,
-                                                     taps.shape[1]))
-        buf[b, :, :taps.shape[1]] = taps
+    buf = _table(plans)[0]
     key = (buf.tobytes(), str(device))
     table = _device_taps.get(key)
     if table is None:
@@ -176,35 +201,48 @@ def _axis_view(name: str, ins, axis: int):
             int(np.prod(shape[ax + 1:], dtype=np.int64)), code)
 
 
-def _launch(name: str, ins, plans, groups, axis: int, side=None):
-    """Run kernel *name* on the contiguous CUDA tensors *ins* along *axis*:
-    branch b's streams ``plans[b] = (taps [P, m_b], offsets)`` write
-    ``P * groups[b]`` samples (one or two branches, as the kernel has).
-    *side*: the inputs are extended by that many samples per side
-    (from-extension mode) instead of reflected."""
-    _build.check_no_grad(name, ins)
-    n_in_t, n_out, P, D, S = _GEOM[name]
-    x = ins[0]
-    ax, outer, n_in, inner, code = _axis_view(name, ins, axis)
-    shape = tuple(x.shape)
-    offs = []
-    for b, (taps, o_b) in enumerate(plans):
-        for s in range(P):
-            first = o_b[s] + (side or 0)
-            offs.append(first)
-            last = first + D * (groups[b] - 1) + S * (taps.shape[1] - 1)
-            if side is not None and groups[b] > 0 and (
-                    first < 0 or last >= n_in):
+def _check_reach(name: str, plans, groups, D: int, S: int, n_in: int,
+                 side) -> None:
+    """From-extension mode (*side* not None): raise ValueError unless every
+    read of branch b's streams ``plans[b] = (taps [P, m_b], offsets)``
+    over its ``groups[b]`` groups stays inside the buffer of *n_in*."""
+    if side is None:
+        return
+    for (taps, offs), g in zip(plans, groups):
+        for off in offs:
+            first = off + side
+            last = first + D * (g - 1) + S * (taps.shape[1] - 1)
+            if g > 0 and (first < 0 or last >= n_in):
                 raise ValueError(
                     "%s: an extension of %d per side does not cover the "
                     "filters' reach" % (name, side))
-    if max(outer, n_in, inner, P * max(groups)) > _INT_MAX:
+
+
+def _check_sizes(name: str, outer: int, n_in: int, inner: int,
+                 rows: int) -> None:
+    if max(outer, n_in, inner, rows) > _INT_MAX:
         raise ValueError("%s: the axis view [%d, %d, %d] exceeds the "
                          "kernel's 32-bit sizes" % (name, outer, n_in, inner))
+
+
+def _launch(name: str, ins, plans, groups, axis: int, side=None):
+    """Run stream kernel *name* on the contiguous CUDA tensor ``ins[0]``
+    along *axis*: branch b's streams ``plans[b] = (taps [P, m_b],
+    offsets)`` write ``P * groups[b]`` samples of output b (one or two
+    branches, as the kernel has).  *side*: the input is extended by that
+    many samples per side (from-extension mode) instead of reflected."""
+    _build.check_no_grad(name, ins)
+    P, D, S = _GEOM[name]
+    x = ins[0]
+    ax, outer, n_in, inner, code = _axis_view(name, ins, axis)
+    shape = tuple(x.shape)
+    _check_reach(name, plans, groups, D, S, n_in, side)
+    _check_sizes(name, outer, n_in, inner, P * max(groups))
+    offs = [o + (side or 0) for _, o_b in plans for o in o_b]
     outs = []
-    for b in range(n_out):
+    for g in groups:
         oshape = list(shape)
-        oshape[ax] = P * groups[b]
+        oshape[ax] = P * g
         outs.append(torch.empty(oshape, dtype=x.dtype, device=x.device))
     if min(groups) < 1 or outer * inner == 0:
         return outs
@@ -213,14 +251,225 @@ def _launch(name: str, ins, plans, groups, axis: int, side=None):
                             for _ in range(P)])
     offs = _build.ints_arg(offs)
     fn = getattr(_build.library(), "dtcwt_" + name)
-    err = fn(ins[0].data_ptr(), ins[1].data_ptr() if n_in_t == 2 else None,
-             outs[0].data_ptr(), outs[1].data_ptr() if n_out == 2 else None,
-             outer, n_in, inner, groups[0], groups[-1], int(side is None),
+    err = fn(x.data_ptr(), outs[0].data_ptr(),
+             outs[1].data_ptr() if len(outs) == 2 else None, outer, n_in,
+             inner, groups[0], groups[-1], int(side is None),
              table.data_ptr(), lens.ctypes.data, offs.ctypes.data, code,
              _build.stream_ptr(x.device))
     _build.check(name, err)
     _build.count(name)
     return outs
+
+
+# ---------------------------------------------------------------------------
+# the synthesis sums' kernel (csrc/streamsum.cuh): plans, tiling, launch
+# ---------------------------------------------------------------------------
+
+def _inv_taps(plans, P: int, mt: int):
+    """The plans' taps centred on the halo of tap bound *mt*
+    (csrc/taps.cuh make_hs_taps, csrc/ipack.cuh make_ip_taps): ``(t
+    [2][P][mt], sw [2])``, t[b][s][k] multiplying window sample k of stream
+    s of branch b (qshift streams: of the parity ``(s & 1) ^ sw[b]``), or
+    None where a stream does not fit."""
+    ph = (mt - 1) // 2
+    t = np.zeros((2, P, mt))
+    sw = [0, 0]
+    for b, (taps, offs) in enumerate(plans):
+        if P > 1:
+            sw[b] = (offs[0] + 2 * ph) & 1
+        for s in range(P):
+            m = taps.shape[1]
+            d = ph + offs[s] if P == 1 else offs[s] + 2 * ph
+            sh = d if P == 1 else d >> 1
+            if d < 0 or sh + m > mt or (
+                    P > 1 and (d & 1) != ((s & 1) ^ sw[b])):
+                return None
+            t[b, s, sh:sh + m] = taps[s]
+    return t, sw
+
+
+#: Tap bounds of the sums' instances by streams P, every dtype
+#: (csrc/taps.cuh st_bound): filter 5 (legall), 7 (near_sym_a), 9
+#: (antonini), 19 (near_sym_b) or 33, whose halo holds 32 taps of either
+#: parity; ifilt 5 (qshift_a), 7 (qshift_b), 9 (qshift_c, qshift_d), 17
+#: (qshift_32) or 33, which holds qshift pairs of 64
+_SUM_BOUNDS = {1: (5, 7, 9, 19, 33), 4: (5, 7, 9, 17, 33)}
+
+
+def _sum_tap_bound(plans, P: int) -> int:
+    """The least tap bound of the sums' instances that holds the plans."""
+    for mt in _SUM_BOUNDS[P]:
+        if _inv_taps(plans, P, mt) is not None:
+            return mt
+    raise ValueError("the stream sums' largest tap bound, %d, does not hold "
+                     "these filters" % _SUM_BOUNDS[P][-1])
+
+
+class _SumPlan(NamedTuple):
+    """A filter set's launch arguments: the host tap table, lens and
+    offsets (kept alive here across launches), the plans, the parity of
+    filter2_sum's filters and the tap bound."""
+    taps: np.ndarray
+    lens: np.ndarray
+    offs: np.ndarray
+    plans: list
+    odd: int
+    mt: int
+
+
+_SUM_PLANS = {}
+
+
+def _sum_plan(name: str, filters) -> _SumPlan:
+    """The launch arguments of sum *name*'s filter set (*filters*: the two
+    filters, or the two pairs' four), planned once per filter set (keyed by
+    the filters' values) and cached."""
+    f = [fb._as_taps(v) for v in filters]
+    key = (name,) + tuple(v.tobytes() for v in f)
+    plan = _SUM_PLANS.get(key)
+    if plan is not None:
+        return plan
+    P = _SUM_GEOM[name][0]
+    if P == 1:
+        plans = [_filter_plan(f[0]), _filter_plan(f[1])]
+    else:
+        plans = [ifilt_streams(*p) for p in _pairs(f[:2], f[2:])]
+    taps, lens, offs = _table(plans)
+    plan = _SumPlan(taps, lens, offs, plans, f[0].size % 2,
+                    _sum_tap_bound(plans, P))
+    if len(_SUM_PLANS) >= 64:
+        _SUM_PLANS.clear()
+    _SUM_PLANS[key] = plan
+    return plan
+
+
+_THREADS = 256          # csrc/streamtile.cuh ST_THREADS
+# columns path, by itemsize: threads across inner at most (a block of 64
+# spans four group rows, whose windows overlap in L1; float64 runs faster
+# on rows of 256 threads)
+_COL_TX = {2: 64, 4: 64, 8: 256}
+_COL_GROUPS = {1: 8, 4: 4}   # st_col_groups: groups a columns-path thread
+# columns path: a grid of fewer blocks than this (under one an SM of the
+# H100's 132) takes one column a thread, 2-4 times the blocks
+_FEW_BLOCKS = 128
+_STAGE_BYTES = 16384    # an input a rows-path block stages
+
+
+class SumGeometry(NamedTuple):
+    """The tiling of one sum launch (``csrc/streamsum.cuh``), over the
+    output groups (filter: an output; ifilt: four, one of each stream).
+
+    *path* ``"rows"`` (``inner = 1``): block ``b`` takes segment ``b %
+    grid[1]`` (groups ``[s * seg, s * seg + seg)``) of the *rows* outer
+    rows from ``(b // grid[1]) * rows``, each input's flat range staged in
+    a region of *smem* / 2 bytes; its threads take items of *v*
+    consecutive groups of one row in turn.  *path* ``"cols"``: block ``b``
+    is (outer, group tile, column tile) ``b`` in ``grid`` (the last
+    fastest); thread ``(tid % tx, tid // tx)`` owns *vc* columns from
+    ``(ct * tx + tid % tx) * vc`` and *v* groups from ``rt * seg + (tid //
+    tx) * v``.  *mt*: the tap bound; *smem*: dynamic shared memory bytes a
+    block."""
+    path: str
+    mt: int
+    v: int
+    vc: int
+    rows: int
+    seg: int
+    tx: int
+    grid: Tuple[int, ...]
+    smem: int
+
+    @property
+    def blocks(self) -> int:
+        return int(np.prod(self.grid, dtype=np.int64))
+
+    def args(self):
+        """The ints the C entry takes: mt, path, v, vc, rows, seg, tx,
+        smem."""
+        return (self.mt, int(self.path == "cols"), self.v, self.vc,
+                self.rows, self.seg, self.tx, self.smem)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=4096)
+def _sum_geometry(P: int, outer: int, n_in: int, inner: int, g: int,
+                  mt: int, itemsize: int, aligned: bool) -> SumGeometry:
+    """The tiling of a sum with *P* streams a branch (1: filter2_sum, 4:
+    ifilt2_sum) on two ``[outer, n_in, inner]`` inputs into ``[outer, P
+    g, inner]`` at tap bound *mt*, for elements of *itemsize* bytes;
+    *aligned*: the inputs and the output start on a column vector (16
+    bytes, bfloat16 8).  Rows path for ``inner = 1``; else the columns
+    path, a thread owning a column vector where inner and *aligned* allow
+    it and the grid keeps ``_FEW_BLOCKS`` blocks, one column otherwise.
+    Cached: the transforms ask for the same tiling at every call."""
+    D = 1 if P == 1 else 2
+    vec = 16 // itemsize
+    if inner == 1:
+        # several whole rows of a short axis, or segments of a long one
+        gv = vec if P == 1 else max(1, vec // 4)
+        tgt = _STAGE_BYTES // itemsize
+        if n_in <= tgt:
+            seg, rows = _cdiv(g, gv) * gv, max(1, min(outer, tgt // n_in))
+        else:
+            seg, rows = tgt // D, 1
+        region = _cdiv(vec + (rows - 1) * n_in
+                       + min(n_in, D * (seg + mt - 1)), vec) * vec
+        return SumGeometry("rows", mt, gv, 1, rows, seg, 1,
+                           (_cdiv(outer, rows), _cdiv(g, seg)),
+                           2 * region * itemsize)
+    rv = _COL_GROUPS[P]
+
+    def cols(vc):
+        tx = min(_COL_TX[itemsize],
+                 1 << (_cdiv(inner, vc) - 1).bit_length())
+        seg = _THREADS // tx * rv
+        return SumGeometry("cols", mt, rv, vc, 1, seg, tx,
+                           (outer, _cdiv(g, seg), _cdiv(inner, tx * vc)), 0)
+    vc = 2 if itemsize == 8 else 4
+    if inner % vc or not aligned:
+        vc = 1
+    geo = cols(vc)
+    return cols(1) if vc > 1 and geo.blocks < _FEW_BLOCKS else geo
+
+
+def _sum_output(shape, dtype, device) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=device)
+
+
+def _launch_sum(name: str, a: torch.Tensor, b: torch.Tensor, filters,
+                axis: int, n: int, side=None) -> torch.Tensor:
+    """Run sum *name* (``filter2_sum``: *filters* the two filters;
+    ``ifilt2_sum``: the two pairs' four) on the contiguous CUDA tensors
+    *a*, *b* along *axis* whose signal has *n* samples; *side*: the
+    inputs are extended by that many samples per side (from-extension
+    mode) instead of reflected."""
+    _build.check_no_grad(name, (a, b))
+    P, D, S = _SUM_GEOM[name]
+    plan = _sum_plan(name, filters)
+    ax, outer, n_in, inner, code = _axis_view(name, [a, b], axis)
+    g = n + 1 - plan.odd if P == 1 else n // 2
+    _check_reach(name, plan.plans, [g, g], D, S, n_in, side)
+    _check_sizes(name, outer, n_in, inner, P * g)
+    shape = list(a.shape)
+    shape[ax] = P * g
+    y = _sum_output(shape, a.dtype, a.device)
+    if g < 1 or outer * inner == 0:
+        return y
+    size = a.element_size()
+    vb = 8 if size == 2 else 16
+    geo = _sum_geometry(P, outer, n_in, inner, g, plan.mt, size,
+                        all(t.data_ptr() % vb == 0 for t in (a, b, y)))
+    err = getattr(_build.library(), "dtcwt_" + name)(
+        a.data_ptr(), b.data_ptr(), y.data_ptr(), outer, n_in, inner, g,
+        side or 0, int(side is None), plan.taps.ctypes.data,
+        plan.lens.ctypes.data, plan.offs.ctypes.data, code, *geo.args(),
+        _build.stream_ptr(a.device))
+    _build.check(name, err)
+    _build.count(name)
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -273,9 +522,7 @@ def dfilt2_fromext_axis(ext: torch.Tensor, side: int, pair0, pair1,
 
 
 def _filter2_sum(a, b, h0, h1, axis, n, side=None):
-    plans = [_filter_plan(h0), _filter_plan(h1)]
-    g = n + 1 - plans[0][0].shape[1] % 2
-    return _launch("filter2_sum", [a, b], plans, [g, g], axis, side)[0]
+    return _launch_sum("filter2_sum", a, b, (h0, h1), axis, n, side)
 
 
 def _check_parity(h0, h1) -> None:
@@ -304,9 +551,7 @@ def filter2_sum_fromext_axis(a: torch.Tensor, b: torch.Tensor, side: int,
 
 
 def _ifilt2_sum(a, b, pair0, pair1, axis, n, side=None):
-    plans = [ifilt_streams(ha, hb) for ha, hb in _pairs(pair0, pair1)]
-    return _launch("ifilt2_sum", [a, b], plans, [n // 2] * 2, axis,
-                   side)[0]
+    return _launch_sum("ifilt2_sum", a, b, (*pair0, *pair1), axis, n, side)
 
 
 def ifilt2_sum_axis(a: torch.Tensor, b: torch.Tensor, pair0, pair1,

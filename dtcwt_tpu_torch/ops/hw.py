@@ -48,8 +48,8 @@ import torch
 from dtcwt_tpu_torch.ops import _build, dual, fb
 from dtcwt_tpu_torch.ops.ilevel2 import ifilt_streams
 from dtcwt_tpu_torch.ops.level2 import dfilt_streams
-from dtcwt_tpu_torch.ops.pack3d import (_SMEM_MAX, _filter_plans, _inv_taps,
-                                        _table)
+from dtcwt_tpu_torch.ops.dual import _inv_taps, _table
+from dtcwt_tpu_torch.ops.pack3d import _SMEM_MAX, _filter_plans
 from dtcwt_tpu_torch.utils import compute_view
 
 __all__ = ["filter_hw22", "dfilt_hw22", "filter_sum_hw22", "ifilt_sum_hw22",
@@ -195,7 +195,7 @@ _HW_BOUNDS = {1: _SUM_BOUNDS[1], 2: (10, 14, 16, 18, 32)}
 
 def _least_bound(plans, P: int, bounds, what: str) -> int:
     """The least of *bounds* that holds the plans (the taps centred on its
-    halo, csrc/hwtile.cuh make_hs_taps, as :func:`pack3d._inv_taps`
+    halo, csrc/taps.cuh make_hs_taps, as :func:`dual._inv_taps`
     centres them)."""
     for mt in bounds:
         if _inv_taps(plans, P, mt) is not None:

@@ -46,10 +46,10 @@ from __future__ import annotations
 import functools
 from typing import NamedTuple, Tuple
 
-import numpy as np
 import torch
 
 from dtcwt_tpu_torch.ops import _build, dual, fb
+from dtcwt_tpu_torch.ops.dual import _inv_taps, _table
 from dtcwt_tpu_torch.ops.ilevel2 import ifilt_streams
 from dtcwt_tpu_torch.ops.level2 import dfilt_streams
 from dtcwt_tpu_torch.ops.packing import (
@@ -239,22 +239,6 @@ def _check_bands(lll: torch.Tensor, re, im, name: str):
     return re, None, False
 
 
-def _table(plans):
-    """The plans' taps as the kernel's host [2][P][MAX_TAPS] float64 table
-    and the [2][P] tap counts and offsets."""
-    P = plans[0][0].shape[0]
-    taps = np.zeros((2, P, _MAX_TAPS))
-    lens, offs = [], []
-    for b, (t, o) in enumerate(plans):
-        if t.shape[1] > _MAX_TAPS:
-            raise ValueError("the 3-D level kernels take at most %d taps per "
-                             "stream, got %d" % (_MAX_TAPS, t.shape[1]))
-        taps[b, :, :t.shape[1]] = t
-        lens += [t.shape[1]] * P
-        offs += list(o)
-    return taps, _build.ints_arg(lens), _build.ints_arg(offs)
-
-
 class FwdPackGeometry(NamedTuple):
     """The tile of an analysis kernel (csrc/pack3d.cu FwdTile): oh x ow
     output samples, the staged slice xr x xc with its halo, the first
@@ -308,28 +292,6 @@ def _fwd_pack_geometry(B: int, Dn: int, Ho: int, Wo: int, P: int, D: int,
 _INV_BOUNDS = {1: ((9, 21, 33), (33,)), 4: ((5, 7, 9, 17), (17,))}
 #: Output streams of each synthesis kernel's stage plans (csrc/hwstage.cuh)
 _INV_P = {"inv_level1_pack": 1, "inv_level2_pack": 4}
-
-
-def _inv_taps(plans, P: int, mt: int):
-    """The plans' taps centred on the halo of tap bound *mt*
-    (csrc/ipack.cuh make_ip_taps): ``(t [2][P][mt], sw [2])``, t[b][s][k]
-    multiplying window sample k of stream s of branch b (level 2: of the
-    parity ``(s & 1) ^ sw[b]``), or None where a stream does not fit."""
-    ph = (mt - 1) // 2
-    t = np.zeros((2, P, mt))
-    sw = [0, 0]
-    for b, (taps, offs) in enumerate(plans):
-        if P > 1:
-            sw[b] = (offs[0] + 2 * ph) & 1
-        for s in range(P):
-            m = taps.shape[1]
-            d = ph + offs[s] if P == 1 else offs[s] + 2 * ph
-            sh = d if P == 1 else d >> 1
-            if d < 0 or sh + m > mt or (
-                    P > 1 and (d & 1) != ((s & 1) ^ sw[b])):
-                return None
-            t[b, s, sh:sh + m] = taps[s]
-    return t, sw
 
 
 def _inv_tap_bound(plans, P: int, dtype: torch.dtype) -> int:

@@ -25,11 +25,14 @@ An entry takes its route from the input's device: a CPU tensor runs the
 plain version, a CUDA tensor launches the kernel or raises.  ``filter``'s
 kernel is ``csrc/filter.cu``, tiled by :func:`_filter_geometry` here;
 ``dfilt`` and ``ifilt`` are the one-branch instances in ``csrc/single.cu``
-of the stream kernel that :mod:`dual` runs with two.  The nine names of the low-level API (``filter_axis``,
-``dfilt_axis``, ``ifilt_axis`` and the column / row aliases) also take a
-non-tensor input, a numpy array or a list, as the JAX package's do, and a
-keyword *device*: a tensor stays on its device unless *device* is given, a
-non-tensor input goes to *device*, the card (``"cuda"``) by default.  The
+of the stream kernel whose two-branch instances are :mod:`dual`'s analysis
+entries (``filter2``, ``dfilt2``; the sums ``filter2_sum`` and
+``ifilt2_sum`` have a kernel of their own, ``csrc/streamsum.cuh``).  The
+nine names of the low-level API (``filter_axis``, ``dfilt_axis``,
+``ifilt_axis`` and the column / row aliases) also take a non-tensor input,
+a numpy array or a list, as the JAX package's do, and a keyword *device*:
+a tensor stays on its device unless *device* is given, a non-tensor input
+goes to *device*, the card (``"cuda"``) by default.  The
 kernels take any axis of a contiguous tensor, float32, bfloat16 or
 float64, filters of up to 32 taps per stream of any length and parity, and
 signals shorter than the filter; the host plans

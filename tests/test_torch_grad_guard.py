@@ -77,9 +77,10 @@ def _functions_launching(path):
 
 def test_every_launch_site_calls_the_guard():
     """Every function of ``dtcwt_tpu_torch/ops`` that loads the kernel
-    library calls ``_build.check_no_grad`` before it: the eight launch
-    sites of the 2-D level kernels, the dual and single-stream kernels,
-    the 3-D level kernels and the hw kernels."""
+    library calls ``_build.check_no_grad`` before it: the nine launch
+    sites of the 2-D level kernels, the dual and single-stream kernels
+    (the stream kernel and the synthesis sums), the 3-D level kernels and
+    the hw kernels."""
     sites = {}
     for path in sorted(glob.glob(_OPS)):
         if os.path.basename(path) == "_build.py":
@@ -87,8 +88,9 @@ def test_every_launch_site_calls_the_guard():
         for name, guard, lib in _functions_launching(path):
             sites["%s:%s" % (os.path.basename(path), name)] = (guard, lib)
     assert sorted(sites) == [
-        "dual.py:_launch", "hw.py:_launch", "ilevel1.py:inv_level1",
-        "ilevel2.py:inv_level2", "level1.py:fwd_level1",
+        "dual.py:_launch", "dual.py:_launch_sum", "hw.py:_launch",
+        "ilevel1.py:inv_level1", "ilevel2.py:inv_level2",
+        "level1.py:fwd_level1",
         "level2.py:fwd_level2", "pack3d.py:_launch", "single.py:_filter"]
     for site, (guard, lib) in sites.items():
         assert guard is not None and guard < lib, site

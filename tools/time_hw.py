@@ -50,6 +50,14 @@ _spec.loader.exec_module(cs)
 import dtcwt_tpu_torch as dt  # noqa: E402
 from dtcwt_tpu_torch.ops import _build  # noqa: E402
 
+# the dual kernels' replayed launches, from the tool that times them
+_spec = importlib.util.spec_from_file_location(
+    "time_dual", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "time_dual.py"))
+_time_dual = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_time_dual)
+time_dual_3d = _time_dual.time_dual_3d
+
 SUBJECTS = ("filter_hw22", "dfilt_hw22")
 CONTROLS = ("filter_sum_hw22", "ifilt_sum_hw22")
 DTYPES = (("f32", torch.float32), ("bf16", torch.bfloat16),
@@ -175,36 +183,6 @@ def time_controls(dev) -> None:
     x2 = cs.rand((cs.N, cs.N), 0, dev, torch.float32)
     cs.print_trace("round trip 2-D f32 interleaved",
                    lambda: t2.inverse(t2.forward(x2, cs.NLEVELS)))
-
-
-def time_dual_3d(what, run) -> None:
-    """The dual kernels' launches in one round trip *run* (rows 8-11 of
-    the kernel table on a 3-D path): each entry's launches recorded with
-    their inputs, then replayed with the stream held; their byte bound
-    (inputs read once, outputs written once, at 3.35 TB/s)."""
-    from dtcwt_tpu_torch.ops import dual
-    launch, calls = dual._launch, collections.defaultdict(list)
-
-    def record(name, ins, *a, **k):
-        outs = launch(name, ins, *a, **k)
-        calls[name].append(((name, ins) + a, k, cs.nbytes(ins)
-                            + cs.nbytes(outs)))
-        return outs
-    dual._launch = record
-    try:
-        run()
-        torch.cuda.synchronize()
-    finally:
-        dual._launch = launch
-    for name in sorted(calls):
-        cl = calls[name]
-        ms = cs.cuda_ms(lambda: [launch(*a, **k) for a, k, _ in cl],
-                        hold=True, reps=20)
-        bms, _ = cs.bound(sum(b for _, _, b in cl), 0)
-        print("dual %s in the %s round trip: %d launches, kernel %.4f ms, "
-              "bound %.4f ms (bytes), %.1f%% of the bound" % (
-                  name, what, len(cl), ms, bms, 100 * bms / ms), flush=True)
-    del calls
 
 
 def main() -> int:

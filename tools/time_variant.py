@@ -9,6 +9,10 @@ kernels, on one NVIDIA GPU.
         dtcwt_inv_level1_pack,dtcwt_inv_level2_pack pack3d kernels
     python tools/time_variant.py VARIANT.cu \
         dtcwt_filter_hw22,dtcwt_dfilt_hw22 hw kernels
+    python tools/time_variant.py VARIANT.cu \
+        dtcwt_filter2_sum,dtcwt_ifilt2_sum dual kernels
+    python tools/time_variant.py VARIANT.cu dtcwt_filter2_sum dual \
+        kernels --set 'dual._COL_GROUPS={1: 16, 4: 4}'
 
 Compiles ``VARIANT.cu`` (an edited copy of a ``csrc/*.cu`` file; its
 includes are searched in its own directory first, then in ``csrc/``, so a
@@ -19,16 +23,23 @@ or several, comma-separated: ``dtcwt_level2``, ``dtcwt_level1``,
 ``dtcwt_ilevel1``, ``dtcwt_ilevel2``, ``dtcwt_fwd_level1_pack``,
 ``dtcwt_fwd_level2_pack``, ``dtcwt_inv_level1_pack``,
 ``dtcwt_inv_level2_pack``, ``dtcwt_filter_hw22``, ``dtcwt_dfilt_hw22``,
-``dtcwt_filter_sum_hw22``, ``dtcwt_ifilt_sum_hw22``) to it and every
-other entry to the package's library, then runs ``tools/time_level1.py``
-in the given mode, ``tools/time_pack3d.py`` for the mode ``pack3d`` or
-``tools/time_hw.py`` for the mode ``hw`` (a last argument ``kernels``
+``dtcwt_filter_sum_hw22``, ``dtcwt_ifilt_sum_hw22``, ``dtcwt_filter2_sum``,
+``dtcwt_ifilt2_sum``) to it and every other entry to the package's
+library, then runs ``tools/time_level1.py`` in the given mode,
+``tools/time_pack3d.py`` for the mode ``pack3d``, ``tools/time_hw.py`` for
+the mode ``hw`` or ``tools/time_dual.py`` for the mode ``dual`` (a last
+argument ``kernels``
 stops any of them after the kernel lines).  A kernel's design is tuned
-this way without rebuilding every source for each variant.  Run from the
-repository's root.
+this way without rebuilding every source for each variant.  ``--set
+MODULE.NAME=VALUE`` (repeatable) gives a constant of
+``dtcwt_tpu_torch.ops.MODULE`` a Python literal first, for a variant whose
+host tiling differs (the module's cached tilings are cleared).  Run from
+the repository's root.
 """
 
+import ast
 import ctypes
+import importlib
 import importlib.util
 import os
 import subprocess
@@ -40,11 +51,30 @@ from dtcwt_tpu_torch.ops import _build  # noqa: E402
 
 
 def main() -> int:
-    modes = ("level1", "ilevel1", "level2", "ilevel2", "pack3d", "hw")
-    tools = {"pack3d": "time_pack3d", "hw": "time_hw"}
+    modes = ("level1", "ilevel1", "level2", "ilevel2", "pack3d", "hw",
+             "dual")
+    tools = {"pack3d": "time_pack3d", "hw": "time_hw", "dual": "time_dual"}
+    sets = []
+    while "--set" in sys.argv[:-1]:
+        i = sys.argv.index("--set")
+        sets.append(sys.argv[i + 1])
+        del sys.argv[i:i + 2]
     if len(sys.argv) not in (4, 5) or sys.argv[3] not in modes:
         raise SystemExit("usage: python tools/time_variant.py VARIANT.cu "
-                         "ENTRY[,ENTRY...] %s [kernels]" % "|".join(modes))
+                         "ENTRY[,ENTRY...] %s [kernels] [--set "
+                         "MODULE.NAME=VALUE ...]" % "|".join(modes))
+    for item in sets:
+        target, value = item.split("=", 1)
+        module, name = target.split(".")
+        mod = importlib.import_module("dtcwt_tpu_torch.ops." + module)
+        if not hasattr(mod, name):
+            raise SystemExit("time_variant: %s has no %s" % (module, name))
+        setattr(mod, name, ast.literal_eval(value))
+        for fn in vars(mod).values():
+            if hasattr(fn, "cache_clear"):
+                fn.cache_clear()
+        print("set %s.%s = %r" % (module, name, getattr(mod, name)),
+              flush=True)
     src, entries, mode = sys.argv[1:4]
     lib = _build.library()
     out = os.path.join(tempfile.mkdtemp(dir=_build.BUILD_DIR), "variant.so")
