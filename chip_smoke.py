@@ -155,7 +155,7 @@ QSHIFTS = ("qshift_06", "qshift_a", "qshift_b", "qshift_c", "qshift_d",
            "qshift_32")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12         # float32 outside the tensor cores
-_DUAL_SRC = "dtcwt_tpu_torch/csrc/dual.cu"
+_ANA_SRC = "dtcwt_tpu_torch/csrc/streamana.cuh"
 _SUM_SRC = "dtcwt_tpu_torch/csrc/streamsum.cuh"
 _PACK_SRC = "dtcwt_tpu_torch/csrc/pack3d.cu"
 _IPACK_SRC = "dtcwt_tpu_torch/csrc/ipack.cuh"
@@ -172,8 +172,8 @@ KERNELS = {   # name -> (CUDA source, the TPU kernel it replaces)
                 "dtcwt_tpu/ops/pallas_ilevel2.py:455"),
     "ilevel1": ("dtcwt_tpu_torch/csrc/ilevel1.cu",
                 "dtcwt_tpu/ops/pallas_ilevel1.py:434"),
-    "filter2": (_DUAL_SRC, "dtcwt_tpu/ops/pallas_dual.py:173"),
-    "dfilt2": (_DUAL_SRC, "dtcwt_tpu/ops/pallas_dual.py:294"),
+    "filter2": (_ANA_SRC, "dtcwt_tpu/ops/pallas_dual.py:173"),
+    "dfilt2": (_ANA_SRC, "dtcwt_tpu/ops/pallas_dual.py:294"),
     "ifilt2_sum": (_SUM_SRC, "dtcwt_tpu/ops/pallas_dual.py:533"),
     "filter2_sum": (_SUM_SRC, "dtcwt_tpu/ops/pallas_dual.py:409"),
     "fwd_level1_pack": (_PACK_SRC, "dtcwt_tpu/ops/pallas_pack3d.py:607"),

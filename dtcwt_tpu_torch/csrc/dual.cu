@@ -12,18 +12,18 @@
 // their *_fromext_axis forms).  Each takes the reflect and the
 // from-extension modes; its bound is device memory bytes.
 //
-// The analysis kernels are the two-branch instances of the stream-plan
-// kernel in streams.cuh (stream plans, [outer, n, inner] tiling; the input
-// read once for both branches).  The synthesis sums are streamsum.cuh's
-// (filter.cu's design, on the pieces of streamtile.cuh: taps by value
-// under a compile-time bound, columns or staged rows, the sum of the two
-// branches in registers), their tiling chosen by ops/dual.py _sum_geometry.
-#include "streams.cuh"
+// One design run both ways (filter.cu's, on the pieces of streamtile.cuh:
+// taps by value under a compile-time bound, columns or staged rows, every
+// output written once), its tiling chosen by ops/dual.py _stream_geometry.
+// The analysis entries are streamana.cuh's (the input read once for both
+// branches, both branches' outputs from one window), the synthesis sums
+// streamsum.cuh's (the sum of the two branches in registers).
+#include "streamana.cuh"
 #include "streamsum.cuh"
 
-//                  name           NB P  D  S
-DTCWT_STREAM_EXPORT(dtcwt_filter2, 2, 1, 1, 1)
-DTCWT_STREAM_EXPORT(dtcwt_dfilt2,  2, 2, 4, 2)
+//               name           P
+DTCWT_ANA_EXPORT(dtcwt_filter2, 1)
+DTCWT_ANA_EXPORT(dtcwt_dfilt2,  2)
 
 //               name               P
 DTCWT_SUM_EXPORT(dtcwt_filter2_sum, 1)

@@ -277,19 +277,4 @@ __global__ void __launch_bounds__(PACK_THREADS) hw22_kernel(
   ha_hstage<T, P, MT>(vw, u, o0r, o0c, Ho, Wo, tp);
 }
 
-// dfilt's taps by parity: stream s reads the parity s ^ sw, so a branch
-// whose first stream reads the odd samples has its two streams swapped.
-template <typename A, int P>
-void hs_taps_by_parity(HsTaps<A, P>* tp) {
-  if constexpr (P == 2) {
-    for (int b = 0; b < 2; ++b)
-      if (tp->sw[b])
-        for (int k = 0; k < HS_K; ++k) {
-          const A t = tp->t[b][0][k];
-          tp->t[b][0][k] = tp->t[b][1][k];
-          tp->t[b][1][k] = t;
-        }
-  }
-}
-
 }  // namespace dtcwt

@@ -12,13 +12,12 @@
 // are direct FIRs on the stream plans.  The third, the non-decimating
 // filter (_build_filter), has a kernel of its own in filter.cu.
 //
-// Each is the one-branch instance of the stream-plan kernel in streams.cuh,
-// which holds the design (stream plans, [outer, n, inner] tiling, reflect
-// and from-extension modes) and its bound: device memory bytes, each input
-// read once and each output written once.  The instance carries no second
-// branch: one branch's taps are held and multiplied.
+// Each is an instance of the stream-plan kernel in streams.cuh, which
+// holds the design (stream plans, [outer, n, inner] tiling, reflect and
+// from-extension modes) and its bound: device memory bytes, each input
+// read once and each output written once.
 #include "streams.cuh"
 
-//                  name         NB P  D  S
-DTCWT_STREAM_EXPORT(dtcwt_dfilt, 1, 2, 4, 2)
-DTCWT_STREAM_EXPORT(dtcwt_ifilt, 1, 4, 2, 2)
+//                  name         P  D  S
+DTCWT_STREAM_EXPORT(dtcwt_dfilt, 2, 4, 2)
+DTCWT_STREAM_EXPORT(dtcwt_ifilt, 4, 2, 2)

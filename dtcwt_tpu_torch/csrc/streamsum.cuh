@@ -41,13 +41,11 @@
 //   register window of each input, stored as vectors where the output row
 //   allows.  Only windows that cross a row's end reflect.
 //
-// The host (ops/dual.py _sum_geometry, _sum_plan) chooses the path, the
+// The host (ops/dual.py _stream_geometry, _plan) chooses the path, the
 // tiling, the tap bound and the shared memory and passes them in; the C
 // entries refuse any other with a CUDA error and launch nothing.
 // tests/test_torch_dual_tiling.py replays both paths on the CPU.
 #pragma once
-
-#include <climits>
 
 #include "streamtile.cuh"
 
@@ -64,7 +62,7 @@ __global__ void __launch_bounds__(ST_THREADS)
              int refl, int lgTX, int n_rt, int n_ct,
              const __grid_constant__ HsTaps<typename AccOf<T>::type, P> tp) {
   using A = typename AccOf<T>::type;
-  constexpr int RV = st_col_groups<P>();
+  constexpr int RV = st_col_groups<P, 2>();
   constexpr int D = st_step<P>();
   constexpr int PH = (MT - 1) / 2;
   const int tid = threadIdx.x;
@@ -256,76 +254,40 @@ __global__ void __launch_bounds__(ST_THREADS)
   }
 }
 
-// The host's tiling of a stream sum (ops/dual.py _sum_geometry): the tap
-// bound, the path (0 rows, 1 columns), groups a thread item (rows) or a
-// thread (columns), columns a thread, outer rows a block (rows path),
-// groups a block along the axis, threads across inner (columns path) and
-// the dynamic shared memory in bytes.
-struct SumTile {
-  int mt, path, v, vc, rows, seg, tx, smem;
-};
-
-template <typename Kernel, typename... Args>
-cudaError_t launch_sum(Kernel kernel, int64_t blocks, int smem,
-                       cudaStream_t stream, Args... args) {
-  if (blocks < 1 || blocks > INT_MAX) return cudaErrorInvalidValue;
-  if (smem > 0) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-  }
-  kernel<<<static_cast<unsigned>(blocks), ST_THREADS, smem, stream>>>(
-      args...);
-  return cudaGetLastError();
-}
-
 // The instance of tap bound MT, if the host's tiling is one it runs.
 template <typename T, int P, int MT>
 cudaError_t run_sum(const T* a, const T* b, T* y, int outer, int n_in,
                     int inner, int g, int side, int refl,
                     const HsTaps<typename AccOf<T>::type, P>& tp,
-                    const SumTile& t, cudaStream_t st) {
+                    const StTile& t, cudaStream_t st) {
   if (t.path == 0) {  // rows
-    constexpr int GV = st_row_groups<T, P>();
-    if (inner != 1 || t.v != GV || t.vc != 1 || t.tx != 1 || t.rows < 1 ||
-        t.seg < GV || t.seg % GV)
-      return cudaErrorInvalidValue;
-    const int n_seg = (g + t.seg - 1) / t.seg;
-    if (n_seg > 1 && t.rows != 1) return cudaErrorInvalidValue;
-    const int64_t rb = st_row_region<T, P, MT>(t.rows, t.seg, n_in);
-    if (2 * rb * static_cast<int64_t>(sizeof(T)) != t.smem ||
-        t.smem > ST_SMEM_MAX)
+    int n_seg, rb;
+    if (!st_rows_tile<T, P, MT>(t, inner, n_in, g, 2, &n_seg, &rb))
       return cudaErrorInvalidValue;
     const int64_t blocks =
         (static_cast<int64_t>(outer) + t.rows - 1) / t.rows * n_seg;
-    return launch_sum(sum_rows<T, P, MT>, blocks, t.smem, st, a, b, y,
-                      outer, n_in, g, side, refl, t.rows, t.seg, n_seg,
-                      static_cast<int>(rb), tp);
+    return st_launch(sum_rows<T, P, MT>, blocks, t.smem, st, a, b, y, outer,
+                     n_in, g, side, refl, t.rows, t.seg, n_seg, rb, tp);
   }
-  constexpr int RV = st_col_groups<P>();
-  if (t.path != 1 || inner < 2 || t.v != RV || t.rows != 1 || t.tx < 1 ||
-      t.tx > ST_THREADS || (t.tx & (t.tx - 1)) ||
-      t.seg != (ST_THREADS / t.tx) * RV || t.smem != 0)
-    return cudaErrorInvalidValue;
-  int lgTX = 0;
-  while ((1 << lgTX) < t.tx) ++lgTX;
+  int lgTX;
+  if (!st_cols_tile<P, 2>(t, inner, &lgTX)) return cudaErrorInvalidValue;
   const int n_rt = (g + t.seg - 1) / t.seg;
   const int64_t n_ct = (static_cast<int64_t>(inner) + t.tx * t.vc - 1) /
                        (static_cast<int64_t>(t.tx) * t.vc);
   const int64_t blocks = static_cast<int64_t>(outer) * n_rt * n_ct;
   if (t.vc == 1)
-    return launch_sum(sum_cols<T, P, MT, 1>, blocks, 0, st, a, b, y, n_in,
-                      inner, g, side, refl, lgTX, n_rt,
-                      static_cast<int>(n_ct), tp);
+    return st_launch(sum_cols<T, P, MT, 1>, blocks, 0, st, a, b, y, n_in,
+                     inner, g, side, refl, lgTX, n_rt,
+                     static_cast<int>(n_ct), tp);
   constexpr int VC = col_vec<T>();
   const uintptr_t align = VC * sizeof(T);
   if (t.vc != VC || inner % VC ||
       (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
        reinterpret_cast<uintptr_t>(y)) % align)
     return cudaErrorInvalidValue;
-  return launch_sum(sum_cols<T, P, MT, VC>, blocks, 0, st, a, b, y, n_in,
-                    inner, g, side, refl, lgTX, n_rt, static_cast<int>(n_ct),
-                    tp);
+  return st_launch(sum_cols<T, P, MT, VC>, blocks, 0, st, a, b, y, n_in,
+                   inner, g, side, refl, lgTX, n_rt, static_cast<int>(n_ct),
+                   tp);
 }
 
 // The plans' taps at the least tap bound of the instance set that holds
@@ -334,14 +296,11 @@ template <typename T, int P>
 cudaError_t dispatch_sum_mt(const void* a, const void* b, void* y, int outer,
                             int n_in, int inner, int g, int side, int refl,
                             const double* taps, const int* lens,
-                            const int* offs, const SumTile& t,
+                            const int* offs, const StTile& t,
                             cudaStream_t st) {
   using A = typename AccOf<T>::type;
   HsTaps<A, P> tp{};
-  int mt = 0;
-  for (int e = 0; e < HS_BOUNDS && !mt; ++e)
-    if (make_hs_taps<A, P>(&tp, taps, lens, offs, st_bound<P>(e)))
-      mt = st_bound<P>(e);
+  const int mt = st_fill_taps<A, P>(&tp, taps, lens, offs);
   if (!mt || mt != t.mt) return cudaErrorInvalidValue;
   const T* at = static_cast<const T*>(a);
   const T* bt = static_cast<const T*>(b);
@@ -363,7 +322,7 @@ template <int P>
 int dispatch_sum(const void* a, const void* b, void* y, int outer, int n_in,
                  int inner, int g, int side, int refl, const double* taps,
                  const int* lens, const int* offs, int dtype,
-                 const SumTile& t, void* stream) {
+                 const StTile& t, void* stream) {
   if (outer < 1 || n_in < 1 || inner < 1 || g < 1 || side < 0 ||
       (refl != 0 && refl != 1) || (refl && side))
     return cudaErrorInvalidValue;
@@ -390,7 +349,7 @@ int dispatch_sum(const void* a, const void* b, void* y, int outer, int n_in,
 // buffer (refl = 0), or 0 with refl = 1 (x read at symmetric reflection of
 // the length-n_in axis).  taps: host float64 [2 branches][P
 // streams][MAX_TAPS]; lens, offs: host [2][P], the plans' offsets without
-// the side.  mt .. smem: the host's tiling (SumTile), refused unless the
+// the side.  mt .. smem: the host's tiling (StTile), refused unless the
 // instance runs it.  Returns the launch's CUDA error code.
 #define DTCWT_SUM_EXPORT(name, P)                                           \
   extern "C" int name(const void* a, const void* b, void* y, int outer,     \
@@ -400,6 +359,6 @@ int dispatch_sum(const void* a, const void* b, void* y, int outer, int n_in,
                       int seg, int tx, int smem, void* stream) {            \
     return dtcwt::dispatch_sum<P>(                                          \
         a, b, y, outer, n_in, inner, g, side, refl, taps, lens, offs,       \
-        dtype, dtcwt::SumTile{mt, path, v, vc, rows, seg, tx, smem},        \
+        dtype, dtcwt::StTile{mt, path, v, vc, rows, seg, tx, smem},        \
         stream);                                                            \
   }

@@ -1,30 +1,39 @@
 // The pieces of the Hopper tiling of the 1-D stream kernels (CUDA C++,
 // sm_90a): filter.cu's two paths, for two branch filters whose taps travel
-// by value under a compile-time bound MT (taps.cuh).  The synthesis sums of
-// dual.cu (streamsum.cuh: filter2_sum, ifilt2_sum) run on them.
+// by value under a compile-time bound MT (taps.cuh).  The analysis entries
+// of dual.cu (streamana.cuh: filter2, dfilt2: one input, two branch
+// outputs) and its synthesis sums (streamsum.cuh: filter2_sum, ifilt2_sum:
+// two inputs, one output) run on them.
 //
 // The filtered axis of a contiguous tensor is viewed as [outer, n_in,
 // inner].  A branch is P output streams of groups g (taps.cuh): filter P =
-// 1, a group one output whose window is the MT samples from g - ph; ifilt
-// P = 4, a group four outputs whose window is the MT sample pairs from
-// 2 (g - ph), the even sample of a pair feeding streams of one parity and
-// the odd one the others, as the branch's swap sw says.  D is the samples
-// a group steps (1, 2).  In the from-extension mode every sample index is
-// shifted by the side the caller extended; in the reflect mode a sample
-// outside the axis is read at source() of common.cuh.
+// 1, a group one output whose window is the MT samples from g - ph; dfilt
+// P = 2, a group two outputs whose window is the MT sample pairs from 4 g -
+// 2 ph; ifilt P = 4, a group four outputs whose window is the MT sample
+// pairs from 2 (g - ph).  In a pair the even sample feeds the streams of
+// one parity and the odd one the others, as the branch's swap sw says.  D
+// is the samples a group steps (1, 4, 2) and S the samples a tap steps (1,
+// 2, 2).  In the from-extension mode every sample index is shifted by the
+// side the caller extended; in the reflect mode a sample outside the axis
+// is read at source() of common.cuh.
 //
 // * Columns (inner > 1): a thread owns VC adjacent columns (one 16-byte
 //   vector, bfloat16 8, where inner and the pointers allow; else one) and
 //   RV consecutive output groups.  It loads the rows its window needs once
 //   from each input, coalesced across the warp (st_load_row), and adds
-//   each row into every output it reaches (st_fir, st_fir_pairs): no
-//   shared memory.
+//   each row into every output it reaches (st_fir, st_fir_dec,
+//   st_fir_pairs): no shared memory.
 // * Rows (inner = 1): a block stages a flat range of each input, its halo
 //   included, into shared memory with 16-byte cp.async copies, a head and
 //   a tail a value at a time taking any alignment (st_stage_flat); a
 //   thread then takes GV consecutive groups from a register window of
 //   each input (st_row_window).
+//
+// The host chooses the path and the tiling (ops/dual.py _stream_geometry)
+// and passes them in as an StTile; the C entries refuse any other.
 #pragma once
+
+#include <climits>
 
 #include "taps.cuh"
 
@@ -33,19 +42,31 @@ namespace dtcwt {
 constexpr int ST_THREADS = 256;
 constexpr int ST_SMEM_MAX = 227 * 1024;  // dynamic shared memory a block
 
-// Samples a group steps: filter 1, ifilt 2.
+// Samples a group steps: filter 1, dfilt 4, ifilt 2.
 template <int P> __host__ __device__ constexpr int st_step() {
+  return P == 1 ? 1 : P == 2 ? 4 : 2;
+}
+// Samples a tap steps: filter 1, the qshift streams 2.
+template <int P> __host__ __device__ constexpr int st_tap_step() {
   return P == 1 ? 1 : 2;
 }
-// Columns path: output groups a thread.
-template <int P> __host__ __device__ constexpr int st_col_groups() {
-  return P == 1 ? 8 : 4;
+// Columns path: output groups a thread, by the inputs NIN: the analysis
+// entries (one input, two branches' accumulators) filter 4 outputs, dfilt
+// 2 groups of 2; the sums (two inputs, one set) filter 8, ifilt 4 groups
+// of 4.
+template <int P, int NIN>
+__host__ __device__ constexpr int st_col_groups() {
+  return NIN == 1 ? (P == 1 ? 4 : 2) : (P == 1 ? 8 : 4);
 }
 // Rows path: groups a thread item, P GV outputs of 16 bytes of storage
 // (float64 ifilt: one group, 32 bytes).
 template <typename T, int P>
 __host__ __device__ constexpr int st_row_groups() {
-  return P == 1 ? vec16<T>() : vec16<T>() / 4 > 1 ? vec16<T>() / 4 : 1;
+  return vec16<T>() / P > 1 ? vec16<T>() / P : 1;
+}
+// Samples the windows of n consecutive groups span.
+template <int P, int MT> __host__ __device__ constexpr int st_span(int n) {
+  return st_step<P>() * (n - 1) + st_tap_step<P>() * MT;
 }
 // Rows path: values of one input's staged region, rows whole rows of n_in
 // or a segment of seg groups with its halo, after a pad of up to a vector;
@@ -53,7 +74,7 @@ __host__ __device__ constexpr int st_row_groups() {
 template <typename T, int P, int MT>
 __host__ __device__ constexpr int64_t st_row_region(int rows, int seg,
                                                     int n_in) {
-  const int64_t span = static_cast<int64_t>(st_step<P>()) * (seg + MT - 1);
+  const int64_t span = st_span<P, MT>(seg);
   const int64_t vals = vec16<T>() + static_cast<int64_t>(rows - 1) * n_in +
                        (span < n_in ? span : n_in);
   return (vals + vec16<T>() - 1) / vec16<T>() * vec16<T>();
@@ -88,6 +109,30 @@ __device__ __forceinline__ void st_fir(A (&acc)[RV][1][VC], int r,
       const A tk = t[m];
 #pragma unroll
       for (int u = 0; u < VC; ++u) acc[v][0][u] += tk * x[u];
+    }
+  }
+}
+
+// Columns path, dfilt: add window pair r (rows e, o of even and odd
+// parity) of one branch into the RV groups it reaches (group v's window
+// starts at pair 2 v), as st_fir: acc[v][p] sums the parity p, its taps
+// t[p] placed by parity (hs_taps_by_parity); the caller applies the
+// branch's swap where it stores.
+template <typename A, int MT, int RV, int VC>
+__device__ __forceinline__ void st_fir_dec(A (&acc)[RV][2][VC], int r,
+                                           const A (&t)[2][HS_K],
+                                           const A (&e)[VC],
+                                           const A (&o)[VC]) {
+#pragma unroll
+  for (int v = 0; v < RV; ++v) {
+    const int m = r - 2 * v;
+    if (m >= 0 && m < MT) {
+      const A te = t[0][m], to = t[1][m];
+#pragma unroll
+      for (int u = 0; u < VC; ++u) {
+        acc[v][0][u] += te * e[u];
+        acc[v][1][u] += to * o[u];
+      }
     }
   }
 }
@@ -165,6 +210,74 @@ __device__ __forceinline__ void st_row_window(const T* xs, int rbase,
       w[t] = jj >= 0 ? v : A(0);
     }
   }
+}
+
+// The host's tiling of a stream launch (ops/dual.py _stream_geometry): the
+// tap bound, the path (0 rows, 1 columns), groups a thread item (rows) or a
+// thread (columns), columns a thread, outer rows a block (rows path),
+// groups a block along the axis, threads across inner (columns path) and
+// the dynamic shared memory in bytes.
+struct StTile {
+  int mt, path, v, vc, rows, seg, tx, smem;
+};
+
+template <typename Kernel, typename... Args>
+cudaError_t st_launch(Kernel kernel, int64_t blocks, int smem,
+                      cudaStream_t stream, Args... args) {
+  if (blocks < 1 || blocks > INT_MAX) return cudaErrorInvalidValue;
+  if (smem > 0) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<static_cast<unsigned>(blocks), ST_THREADS, smem, stream>>>(
+      args...);
+  return cudaGetLastError();
+}
+
+// Rows path: whether the host's tiling t is one the instance runs on gn
+// groups a row (GV groups an item, segments of whole items, the shared
+// memory of `inputs` staged regions), and its segments n_seg and region
+// rb in values.
+template <typename T, int P, int MT>
+bool st_rows_tile(const StTile& t, int inner, int n_in, int gn, int inputs,
+                  int* n_seg, int* rb) {
+  constexpr int GV = st_row_groups<T, P>();
+  if (inner != 1 || t.v != GV || t.vc != 1 || t.tx != 1 || t.rows < 1 ||
+      t.seg < GV || t.seg % GV)
+    return false;
+  *n_seg = (gn + t.seg - 1) / t.seg;
+  if (*n_seg > 1 && t.rows != 1) return false;
+  const int64_t r = st_row_region<T, P, MT>(t.rows, t.seg, n_in);
+  *rb = static_cast<int>(r);
+  return inputs * r * static_cast<int64_t>(sizeof(T)) == t.smem &&
+         t.smem <= ST_SMEM_MAX;
+}
+
+// Columns path: whether the host's tiling t is one the instance runs (RV
+// groups a thread, a power of two of threads across inner, seg groups a
+// block), and lgTX.
+template <int P, int NIN>
+bool st_cols_tile(const StTile& t, int inner, int* lgTX) {
+  constexpr int RV = st_col_groups<P, NIN>();
+  if (t.path != 1 || inner < 2 || t.v != RV || t.rows != 1 || t.tx < 1 ||
+      t.tx > ST_THREADS || (t.tx & (t.tx - 1)) ||
+      t.seg != (ST_THREADS / t.tx) * RV || t.smem != 0)
+    return false;
+  *lgTX = 0;
+  while ((1 << *lgTX) < t.tx) ++*lgTX;
+  return true;
+}
+
+// The plans' taps at the least tap bound of the instance set st_bound<P>
+// that holds them; returns it, 0 where none does.
+template <typename A, int P>
+int st_fill_taps(HsTaps<A, P>* tp, const double* taps, const int* lens,
+                 const int* offs) {
+  for (int e = 0; e < HS_BOUNDS; ++e)
+    if (make_hs_taps<A, P>(tp, taps, lens, offs, st_bound<P>(e)))
+      return st_bound<P>(e);
+  return 0;
 }
 
 }  // namespace dtcwt

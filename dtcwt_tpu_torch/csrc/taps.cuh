@@ -1,7 +1,8 @@
 // Taps by value under a compile-time bound, for the kernels whose two
 // branch filters run as host stream plans (CUDA C++, sm_90a): the hw
-// kernels of hw.cu (hwtile.cuh) and the 1-D stream sums of dual.cu
-// (streamtile.cuh, streamsum.cuh).
+// kernels of hw.cu (hwtile.cuh) and the 1-D stream kernels of dual.cu
+// (streamtile.cuh: the analysis entries of streamana.cuh, the sums of
+// streamsum.cuh).
 //
 // A branch's filter is P output streams (host plans: dual._filter_plan,
 // level2.dfilt_streams, ilevel2.ifilt_streams),
@@ -11,8 +12,9 @@
 // and here its taps are placed on a window of MT samples (filter) or MT
 // sample pairs from an even sample (the qshift streams, S = 2) centred on
 // the common halo ph = (MT - 1) / 2, zero outside a stream's own reach: a
-// group's window starts at sample D (g - ph) (filter: g - ph), and every
-// tap loop runs to MT with register indices and no guard.
+// group's window starts at sample D g - S ph (filter g - ph, dfilt 4 g - 2
+// ph, ifilt 2 g - 2 ph), and every tap loop runs to MT with register
+// indices and no guard.
 #pragma once
 
 #include "common.cuh"
@@ -40,10 +42,11 @@ template <int P> constexpr int hs_bound(int e) {
   return P == 1 ? b1[e] : P == 2 ? b2[e] : b4[e];
 }
 
-// The tap bounds of the 1-D stream sums (streamsum.cuh): ifilt's are
-// hs_bound<4>; filter's are hs_bound<1> with the largest raised to HS_K,
-// whose halo of 16 holds a filter of 32 taps of either parity (an even
-// filter of m taps starts m / 2 samples before its output).
+// The tap bounds of the 1-D stream kernels (streamana.cuh,
+// streamsum.cuh): dfilt's and ifilt's are hs_bound<2> and hs_bound<4>;
+// filter's are hs_bound<1> with the largest raised to HS_K, whose halo of
+// 16 holds a filter of 32 taps of either parity (an even filter of m taps
+// starts m / 2 samples before its output).
 template <int P> constexpr int st_bound(int e) {
   return P == 1 && e == HS_BOUNDS - 1 ? HS_K : hs_bound<P>(e);
 }
@@ -79,6 +82,21 @@ bool make_hs_taps(HsTaps<A, P>* tp, const double* taps, const int* lens,
     }
   }
   return true;
+}
+
+// dfilt's taps by parity: stream s reads the parity s ^ sw, so a branch
+// whose first stream reads the odd samples has its two streams swapped.
+template <typename A, int P>
+void hs_taps_by_parity(HsTaps<A, P>* tp) {
+  if constexpr (P == 2) {
+    for (int b = 0; b < 2; ++b)
+      if (tp->sw[b])
+        for (int k = 0; k < HS_K; ++k) {
+          const A t = tp->t[b][0][k];
+          tp->t[b][0][k] = tp->t[b][1][k];
+          tp->t[b][1][k] = t;
+        }
+  }
 }
 
 }  // namespace dtcwt

@@ -63,15 +63,20 @@ _SIGNATURES = {
     "dtcwt_ilevel1": (_P,) * 4 + (_I,) * 3 + (_P, _I) * 3 + (_I,) * 6 + (
         _P,),
 }
-# the stream kernels of csrc/dual.cu and csrc/single.cu share one interface
-# (csrc/streams.cuh): in0, out0, out1, outer, n_in, inner, g0, g1, refl,
-# taps, lens, offs, dtype, stream
-for _name in ("filter2", "dfilt2", "dfilt", "ifilt"):
-    _SIGNATURES["dtcwt_" + _name] = (_P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                     _P, _P, _P, _I, _P)
+# the stream kernel of csrc/single.cu (csrc/streams.cuh): in0, out0, outer,
+# n_in, inner, g, refl, taps, lens, offs, dtype, stream
+for _name in ("dfilt", "ifilt"):
+    _SIGNATURES["dtcwt_" + _name] = (_P, _P) + (_I,) * 5 + (_P,) * 3 + (
+        _I, _P)
+# the analysis entries of csrc/dual.cu (csrc/streamana.cuh): x, y0, y1,
+# outer, n_in, inner, g0, g1, side, refl, taps, lens, offs, dtype, then the
+# tiling (mt, path, v, vc, rows, seg, tx, smem), and stream
+for _name in ("filter2", "dfilt2"):
+    _SIGNATURES["dtcwt_" + _name] = (_P,) * 3 + (_I,) * 7 + (_P,) * 3 + (
+        _I,) * 9 + (_P,)
 # the synthesis sums of csrc/dual.cu (csrc/streamsum.cuh): a, b, y, outer,
-# n_in, inner, g, side, refl, taps, lens, offs, dtype, then the tiling (mt,
-# path, v, vc, rows, seg, tx, smem), and stream
+# n_in, inner, g, side, refl, taps, lens, offs, dtype, then the tiling, and
+# stream
 for _name in ("filter2_sum", "ifilt2_sum"):
     _SIGNATURES["dtcwt_" + _name] = (_P,) * 3 + (_I,) * 6 + (_P,) * 3 + (
         _I,) * 9 + (_P,)

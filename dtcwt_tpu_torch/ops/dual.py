@@ -25,26 +25,27 @@ plain version, a CUDA tensor launches the kernel (``csrc/dual.cu``) or
 raises.  The kernels take any axis of a contiguous tensor, float32,
 bfloat16 or float64, and signals shorter than the filter.  The host turns
 every filter pair into output streams (:func:`level2.dfilt_streams`,
-:func:`ilevel2.ifilt_streams`), so the kernels hold no parity rule: the
-sums' kernel takes each branch's stream order as one swap of the two
-sample parities, computed from the plans.
+:func:`ilevel2.ifilt_streams`), so the kernels hold no parity rule: they
+take each branch's stream order as one swap of the two sample parities,
+computed from the plans.
 
-The analysis entries (``filter2``, ``dfilt2``) are two-branch instances of
-the stream kernel of ``csrc/streams.cuh``, launched by :func:`_launch`
-with the streams' taps in a device table; they take filters of up to 32
-taps a stream of any length and parity.  The same stream plans with one
-branch are the single-stream kernels ``dfilt`` and ``ifilt`` of
-:mod:`single` (``csrc/single.cu``), which launch through :func:`_launch`
-too; :mod:`single`'s ``filter`` has a kernel of its own
-(``csrc/filter.cu``).  The synthesis sums (``filter2_sum``,
-``ifilt2_sum``) have a kernel of their own, ``csrc/streamsum.cuh``
-(filter.cu's design, two inputs summed in registers), launched by
-:func:`_launch_sum`: its taps travel by value under a compile-time bound
-(:func:`_sum_plan`, cached per filter set) and its tiling comes from
-:func:`_sum_geometry`; the C entries refuse any other, and
-``tests/test_torch_dual_tiling.py`` replays it on the CPU.  They take
-filters of up to 32 taps of either parity (``filter2_sum``) and qshift
-pairs of up to 64 taps (``ifilt2_sum``, four streams of up to 32).
+The four entries are one design run both ways, launched by
+:func:`_launch_stream`: the analysis entries (``filter2``, ``dfilt2``:
+one input, both branch outputs) are ``csrc/streamana.cuh``, the synthesis
+sums (``filter2_sum``, ``ifilt2_sum``: two inputs summed in registers)
+``csrc/streamsum.cuh``, both on the pieces of ``csrc/streamtile.cuh``
+(filter.cu's design).  Their taps travel by value under a compile-time
+bound (:func:`_plan`, cached per filter set) and their tiling comes from
+:func:`_stream_geometry`; the C entries refuse any other, and
+``tests/test_torch_dual_tiling.py`` replays both on the CPU.  They take
+filters of up to 32 taps of either parity (``filter2``, whose two
+branches may differ in parity and so in output length, and
+``filter2_sum``), qshift pairs of up to 32 taps (``dfilt2``, two streams
+of 32) and of up to 64 (``ifilt2_sum``, four streams of up to 32).  The
+stream kernel of ``csrc/streams.cuh`` runs :mod:`single`'s ``dfilt`` and
+``ifilt`` (``csrc/single.cu``), launched by :func:`_launch` with the
+streams' taps in a device table; :mod:`single`'s ``filter`` has a kernel
+of its own (``csrc/filter.cu``).
 """
 
 from __future__ import annotations
@@ -73,13 +74,12 @@ __all__ = [
 
 _MAX_TAPS = 32      # csrc/common.cuh MAX_TAPS, per output stream
 _INT_MAX = 2 ** 31 - 1
-# stream kernel -> (streams P, input step per group D, tap step S): branch b
-# writes Y[P g + s] = sum_k t[s][k] x[D g + c[s] + S k] from the one input;
-# the branches are the plans given to _launch (two here, one in ops/single)
-_GEOM = {"filter2": (1, 1, 1), "dfilt2": (2, 4, 2), "dfilt": (2, 4, 2),
-         "ifilt": (4, 2, 2)}
-# synthesis sum -> (streams P, D, S) of its two branches' plans
-_SUM_GEOM = {"filter2_sum": (1, 1, 1), "ifilt2_sum": (4, 2, 2)}
+# stream kernel (ops/single) -> (streams P, input step per group D, tap step
+# S): its one branch writes Y[P g + s] = sum_k t[s][k] x[D g + c[s] + S k]
+_GEOM = {"dfilt": (2, 4, 2), "ifilt": (4, 2, 2)}
+# dual entry -> (streams P, D, S) of its two branches' plans
+_STREAM_GEOM = {"filter2": (1, 1, 1), "dfilt2": (2, 4, 2),
+                "filter2_sum": (1, 1, 1), "ifilt2_sum": (4, 2, 2)}
 
 _device_taps = {}   # (taps bytes, device) -> float64 tap table on the card
 
@@ -173,8 +173,8 @@ def _table(plans):
 
 
 def _tap_table(plans, device) -> torch.Tensor:
-    """The streams' taps as the kernel's [branches][P][MAX_TAPS] float64
-    table on *device*, built once per filter set and device."""
+    """The streams' taps as the stream kernel's [P][MAX_TAPS] float64 table
+    on *device*, built once per filter set and device."""
     buf = _table(plans)[0]
     key = (buf.tobytes(), str(device))
     table = _device_taps.get(key)
@@ -225,44 +225,38 @@ def _check_sizes(name: str, outer: int, n_in: int, inner: int,
                          "kernel's 32-bit sizes" % (name, outer, n_in, inner))
 
 
-def _launch(name: str, ins, plans, groups, axis: int, side=None):
-    """Run stream kernel *name* on the contiguous CUDA tensor ``ins[0]``
-    along *axis*: branch b's streams ``plans[b] = (taps [P, m_b],
-    offsets)`` write ``P * groups[b]`` samples of output b (one or two
-    branches, as the kernel has).  *side*: the input is extended by that
-    many samples per side (from-extension mode) instead of reflected."""
-    _build.check_no_grad(name, ins)
+def _launch(name: str, x: torch.Tensor, plan, g: int, axis: int,
+            side=None) -> torch.Tensor:
+    """Run stream kernel *name* (``dfilt`` or ``ifilt`` of
+    :mod:`single`) on the contiguous CUDA tensor *x* along *axis*: the
+    streams ``plan = (taps [P, m], offsets)`` write ``P * g`` samples.
+    *side*: the input is extended by that many samples per side
+    (from-extension mode) instead of reflected."""
+    _build.check_no_grad(name, [x])
     P, D, S = _GEOM[name]
-    x = ins[0]
-    ax, outer, n_in, inner, code = _axis_view(name, ins, axis)
-    shape = tuple(x.shape)
-    _check_reach(name, plans, groups, D, S, n_in, side)
-    _check_sizes(name, outer, n_in, inner, P * max(groups))
-    offs = [o + (side or 0) for _, o_b in plans for o in o_b]
-    outs = []
-    for g in groups:
-        oshape = list(shape)
-        oshape[ax] = P * g
-        outs.append(torch.empty(oshape, dtype=x.dtype, device=x.device))
-    if min(groups) < 1 or outer * inner == 0:
-        return outs
-    table = _tap_table(plans, x.device)
-    lens = _build.ints_arg([taps.shape[1] for taps, _ in plans
-                            for _ in range(P)])
-    offs = _build.ints_arg(offs)
-    fn = getattr(_build.library(), "dtcwt_" + name)
-    err = fn(x.data_ptr(), outs[0].data_ptr(),
-             outs[1].data_ptr() if len(outs) == 2 else None, outer, n_in,
-             inner, groups[0], groups[-1], int(side is None),
-             table.data_ptr(), lens.ctypes.data, offs.ctypes.data, code,
-             _build.stream_ptr(x.device))
+    ax, outer, n_in, inner, code = _axis_view(name, [x], axis)
+    _check_reach(name, [plan], [g], D, S, n_in, side)
+    _check_sizes(name, outer, n_in, inner, P * g)
+    shape = list(x.shape)
+    shape[ax] = P * g
+    y = torch.empty(shape, dtype=x.dtype, device=x.device)
+    if g < 1 or outer * inner == 0:
+        return y
+    table = _tap_table([plan], x.device)
+    lens = _build.ints_arg([plan[0].shape[1]] * P)
+    offs = _build.ints_arg([o + (side or 0) for o in plan[1]])
+    err = getattr(_build.library(), "dtcwt_" + name)(
+        x.data_ptr(), y.data_ptr(), outer, n_in, inner, g,
+        int(side is None), table.data_ptr(), lens.ctypes.data,
+        offs.ctypes.data, code, _build.stream_ptr(x.device))
     _build.check(name, err)
     _build.count(name)
-    return outs
+    return y
 
 
 # ---------------------------------------------------------------------------
-# the synthesis sums' kernel (csrc/streamsum.cuh): plans, tiling, launch
+# the dual entries' kernels (csrc/streamana.cuh, csrc/streamsum.cuh): plans,
+# tiling, launch
 # ---------------------------------------------------------------------------
 
 def _inv_taps(plans, P: int, mt: int):
@@ -288,58 +282,64 @@ def _inv_taps(plans, P: int, mt: int):
     return t, sw
 
 
-#: Tap bounds of the sums' instances by streams P, every dtype
+#: Tap bounds of the dual entries' instances by streams P, every dtype
 #: (csrc/taps.cuh st_bound): filter 5 (legall), 7 (near_sym_a), 9
 #: (antonini), 19 (near_sym_b) or 33, whose halo holds 32 taps of either
-#: parity; ifilt 5 (qshift_a), 7 (qshift_b), 9 (qshift_c, qshift_d), 17
-#: (qshift_32) or 33, which holds qshift pairs of 64
-_SUM_BOUNDS = {1: (5, 7, 9, 19, 33), 4: (5, 7, 9, 17, 33)}
+#: parity; dfilt a stream's window in sample pairs, 10 (qshift_06,
+#: qshift_a), 14 (qshift_b), 16 (qshift_c), 18 (qshift_d) or 32
+#: (qshift_32), which holds qshift pairs of 32; ifilt 5 (qshift_a), 7
+#: (qshift_b), 9 (qshift_c, qshift_d), 17 (qshift_32) or 33, which holds
+#: qshift pairs of 64
+_TAP_BOUNDS = {1: (5, 7, 9, 19, 33), 2: (10, 14, 16, 18, 32),
+               4: (5, 7, 9, 17, 33)}
 
 
-def _sum_tap_bound(plans, P: int) -> int:
-    """The least tap bound of the sums' instances that holds the plans."""
-    for mt in _SUM_BOUNDS[P]:
+def _tap_bound(plans, P: int) -> int:
+    """The least tap bound of the dual entries' instances that holds the
+    plans."""
+    for mt in _TAP_BOUNDS[P]:
         if _inv_taps(plans, P, mt) is not None:
             return mt
-    raise ValueError("the stream sums' largest tap bound, %d, does not hold "
-                     "these filters" % _SUM_BOUNDS[P][-1])
+    raise ValueError("the dual kernels' largest tap bound, %d, does not "
+                     "hold these filters" % _TAP_BOUNDS[P][-1])
 
 
-class _SumPlan(NamedTuple):
+class _Plan(NamedTuple):
     """A filter set's launch arguments: the host tap table, lens and
     offsets (kept alive here across launches), the plans, the parity of
-    filter2_sum's filters and the tap bound."""
+    each branch's filter (filter2, filter2_sum) and the tap bound."""
     taps: np.ndarray
     lens: np.ndarray
     offs: np.ndarray
     plans: list
-    odd: int
+    odd: Tuple[int, int]
     mt: int
 
 
-_SUM_PLANS = {}
+_PLANS = {}
 
 
-def _sum_plan(name: str, filters) -> _SumPlan:
-    """The launch arguments of sum *name*'s filter set (*filters*: the two
-    filters, or the two pairs' four), planned once per filter set (keyed by
-    the filters' values) and cached."""
+def _plan(name: str, filters) -> _Plan:
+    """The launch arguments of dual entry *name*'s filter set (*filters*:
+    the two filters, or the two pairs' four), planned once per filter set
+    (keyed by the filters' values) and cached."""
     f = [fb._as_taps(v) for v in filters]
     key = (name,) + tuple(v.tobytes() for v in f)
-    plan = _SUM_PLANS.get(key)
+    plan = _PLANS.get(key)
     if plan is not None:
         return plan
-    P = _SUM_GEOM[name][0]
+    P = _STREAM_GEOM[name][0]
     if P == 1:
         plans = [_filter_plan(f[0]), _filter_plan(f[1])]
     else:
-        plans = [ifilt_streams(*p) for p in _pairs(f[:2], f[2:])]
+        streams = dfilt_streams if P == 2 else ifilt_streams
+        plans = [streams(*p) for p in _pairs(f[:2], f[2:])]
     taps, lens, offs = _table(plans)
-    plan = _SumPlan(taps, lens, offs, plans, f[0].size % 2,
-                    _sum_tap_bound(plans, P))
-    if len(_SUM_PLANS) >= 64:
-        _SUM_PLANS.clear()
-    _SUM_PLANS[key] = plan
+    plan = _Plan(taps, lens, offs, plans, (f[0].size % 2, f[1].size % 2),
+                 _tap_bound(plans, P))
+    if len(_PLANS) >= 64:
+        _PLANS.clear()
+    _PLANS[key] = plan
     return plan
 
 
@@ -348,21 +348,28 @@ _THREADS = 256          # csrc/streamtile.cuh ST_THREADS
 # spans four group rows, whose windows overlap in L1; float64 runs faster
 # on rows of 256 threads)
 _COL_TX = {2: 64, 4: 64, 8: 256}
-_COL_GROUPS = {1: 8, 4: 4}   # st_col_groups: groups a columns-path thread
+# st_col_groups: groups a columns-path thread by (streams P, inputs): the
+# analysis entries (their two branches' accumulators) filter 4 outputs,
+# dfilt 2 groups of 2; the sums filter 8, ifilt 4 groups of 4
+_COL_GROUPS = {(1, 1): 4, (2, 1): 2, (1, 2): 8, (4, 2): 4}
 # columns path: a grid of fewer blocks than this (under one an SM of the
 # H100's 132) takes one column a thread, 2-4 times the blocks
-_FEW_BLOCKS = 128
+_FEW_BLOCKS = 132
 _STAGE_BYTES = 16384    # an input a rows-path block stages
+# streams P -> (samples a group steps D, samples a tap steps S):
+# csrc/streamtile.cuh st_step, st_tap_step
+_STEPS = {geo[0]: geo[1:] for geo in _STREAM_GEOM.values()}
 
 
-class SumGeometry(NamedTuple):
-    """The tiling of one sum launch (``csrc/streamsum.cuh``), over the
-    output groups (filter: an output; ifilt: four, one of each stream).
+class StreamGeometry(NamedTuple):
+    """The tiling of one dual launch (``csrc/streamtile.cuh``), over the
+    output groups (filter: an output; dfilt: two, ifilt: four, one of each
+    stream).
 
     *path* ``"rows"`` (``inner = 1``): block ``b`` takes segment ``b %
     grid[1]`` (groups ``[s * seg, s * seg + seg)``) of the *rows* outer
     rows from ``(b // grid[1]) * rows``, each input's flat range staged in
-    a region of *smem* / 2 bytes; its threads take items of *v*
+    a region of *smem* / inputs bytes; its threads take items of *v*
     consecutive groups of one row in turn.  *path* ``"cols"``: block ``b``
     is (outer, group tile, column tile) ``b`` in ``grid`` (the last
     fastest); thread ``(tid % tx, tid // tx)`` owns *vc* columns from
@@ -395,39 +402,43 @@ def _cdiv(a: int, b: int) -> int:
 
 
 @functools.lru_cache(maxsize=4096)
-def _sum_geometry(P: int, outer: int, n_in: int, inner: int, g: int,
-                  mt: int, itemsize: int, aligned: bool) -> SumGeometry:
-    """The tiling of a sum with *P* streams a branch (1: filter2_sum, 4:
-    ifilt2_sum) on two ``[outer, n_in, inner]`` inputs into ``[outer, P
-    g, inner]`` at tap bound *mt*, for elements of *itemsize* bytes;
-    *aligned*: the inputs and the output start on a column vector (16
-    bytes, bfloat16 8).  Rows path for ``inner = 1``; else the columns
-    path, a thread owning a column vector where inner and *aligned* allow
-    it and the grid keeps ``_FEW_BLOCKS`` blocks, one column otherwise.
-    Cached: the transforms ask for the same tiling at every call."""
-    D = 1 if P == 1 else 2
+def _stream_geometry(P: int, outer: int, n_in: int, inner: int, g: int,
+                     mt: int, itemsize: int, aligned: bool,
+                     inputs: int = 2) -> StreamGeometry:
+    """The tiling of a dual entry with *P* streams a branch (1: filter2 or
+    filter2_sum, 2: dfilt2, 4: ifilt2_sum) on *inputs* ``[outer, n_in,
+    inner]`` inputs (2: a sum; 1: an analysis entry) into outputs of ``g``
+    groups (the longer branch's) at tap bound *mt*, for elements of
+    *itemsize* bytes; *aligned*: the inputs and the outputs start on a
+    column vector (16 bytes, bfloat16 8).  Rows path for ``inner = 1``;
+    else the columns path, a thread owning a column vector where inner and
+    *aligned* allow it and the grid keeps ``_FEW_BLOCKS`` blocks, one
+    column otherwise.  Cached: the transforms ask for the same tiling at
+    every call."""
+    D, S = _STEPS[P]
     vec = 16 // itemsize
     if inner == 1:
         # several whole rows of a short axis, or segments of a long one
-        gv = vec if P == 1 else max(1, vec // 4)
+        gv = max(1, vec // P)
         tgt = _STAGE_BYTES // itemsize
         if n_in <= tgt:
             seg, rows = _cdiv(g, gv) * gv, max(1, min(outer, tgt // n_in))
         else:
             seg, rows = tgt // D, 1
         region = _cdiv(vec + (rows - 1) * n_in
-                       + min(n_in, D * (seg + mt - 1)), vec) * vec
-        return SumGeometry("rows", mt, gv, 1, rows, seg, 1,
-                           (_cdiv(outer, rows), _cdiv(g, seg)),
-                           2 * region * itemsize)
-    rv = _COL_GROUPS[P]
+                       + min(n_in, D * (seg - 1) + S * mt), vec) * vec
+        return StreamGeometry("rows", mt, gv, 1, rows, seg, 1,
+                              (_cdiv(outer, rows), _cdiv(g, seg)),
+                              inputs * region * itemsize)
+    rv = _COL_GROUPS[P, inputs]
 
     def cols(vc):
         tx = min(_COL_TX[itemsize],
                  1 << (_cdiv(inner, vc) - 1).bit_length())
         seg = _THREADS // tx * rv
-        return SumGeometry("cols", mt, rv, vc, 1, seg, tx,
-                           (outer, _cdiv(g, seg), _cdiv(inner, tx * vc)), 0)
+        return StreamGeometry("cols", mt, rv, vc, 1, seg, tx,
+                              (outer, _cdiv(g, seg), _cdiv(inner, tx * vc)),
+                              0)
     vc = 2 if itemsize == 8 else 4
     if inner % vc or not aligned:
         vc = 1
@@ -435,41 +446,48 @@ def _sum_geometry(P: int, outer: int, n_in: int, inner: int, g: int,
     return cols(1) if vc > 1 and geo.blocks < _FEW_BLOCKS else geo
 
 
-def _sum_output(shape, dtype, device) -> torch.Tensor:
+def _output(shape, dtype, device) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device=device)
 
 
-def _launch_sum(name: str, a: torch.Tensor, b: torch.Tensor, filters,
-                axis: int, n: int, side=None) -> torch.Tensor:
-    """Run sum *name* (``filter2_sum``: *filters* the two filters;
-    ``ifilt2_sum``: the two pairs' four) on the contiguous CUDA tensors
-    *a*, *b* along *axis* whose signal has *n* samples; *side*: the
-    inputs are extended by that many samples per side (from-extension
-    mode) instead of reflected."""
-    _build.check_no_grad(name, (a, b))
-    P, D, S = _SUM_GEOM[name]
-    plan = _sum_plan(name, filters)
-    ax, outer, n_in, inner, code = _axis_view(name, [a, b], axis)
-    g = n + 1 - plan.odd if P == 1 else n // 2
-    _check_reach(name, plan.plans, [g, g], D, S, n_in, side)
-    _check_sizes(name, outer, n_in, inner, P * g)
-    shape = list(a.shape)
-    shape[ax] = P * g
-    y = _sum_output(shape, a.dtype, a.device)
-    if g < 1 or outer * inner == 0:
-        return y
-    size = a.element_size()
+def _launch_stream(name: str, ins, filters, n: int, axis: int, side=None):
+    """Run dual entry *name* on the contiguous CUDA tensors *ins* (the
+    analysis entries one input, the sums two) along *axis* whose signal has
+    *n* samples; *filters*: the two filters, or the two pairs' four.
+    *side*: the inputs are extended by that many samples per side
+    (from-extension mode) instead of reflected.  Returns the list of
+    outputs: both branches' (analysis), or the sum."""
+    _build.check_no_grad(name, ins)
+    P, D, S = _STREAM_GEOM[name]
+    plan = _plan(name, filters)
+    x = ins[0]
+    ax, outer, n_in, inner, code = _axis_view(name, ins, axis)
+    # filter: n + 1 - m % 2 outputs a branch; dfilt, ifilt: n // D groups
+    groups = [n + 1 - odd for odd in plan.odd] if P == 1 else [n // D] * 2
+    _check_reach(name, plan.plans, groups, D, S, n_in, side)
+    _check_sizes(name, outer, n_in, inner, P * max(groups))
+    # an analysis entry writes both branches, a sum one output
+    g_out = groups if len(ins) == 1 else groups[:1]
+    outs = []
+    for g in g_out:
+        shape = list(x.shape)
+        shape[ax] = P * g
+        outs.append(_output(shape, x.dtype, x.device))
+    if min(groups) < 1 or outer * inner == 0:
+        return outs
+    size = x.element_size()
     vb = 8 if size == 2 else 16
-    geo = _sum_geometry(P, outer, n_in, inner, g, plan.mt, size,
-                        all(t.data_ptr() % vb == 0 for t in (a, b, y)))
+    geo = _stream_geometry(P, outer, n_in, inner, max(groups), plan.mt,
+                           size, all(t.data_ptr() % vb == 0
+                                     for t in ins + outs), len(ins))
     err = getattr(_build.library(), "dtcwt_" + name)(
-        a.data_ptr(), b.data_ptr(), y.data_ptr(), outer, n_in, inner, g,
-        side or 0, int(side is None), plan.taps.ctypes.data,
-        plan.lens.ctypes.data, plan.offs.ctypes.data, code, *geo.args(),
-        _build.stream_ptr(a.device))
+        *(t.data_ptr() for t in ins + outs), outer, n_in, inner,
+        *g_out, side or 0, int(side is None),
+        plan.taps.ctypes.data, plan.lens.ctypes.data, plan.offs.ctypes.data,
+        code, *geo.args(), _build.stream_ptr(x.device))
     _build.check(name, err)
     _build.count(name)
-    return y
+    return outs
 
 
 # ---------------------------------------------------------------------------
@@ -477,9 +495,7 @@ def _launch_sum(name: str, a: torch.Tensor, b: torch.Tensor, filters,
 # ---------------------------------------------------------------------------
 
 def _filter2(x, h0, h1, axis, n, side=None):
-    plans = [_filter_plan(h0), _filter_plan(h1)]
-    groups = [n + 1 - taps.shape[1] % 2 for taps, _ in plans]
-    return tuple(_launch("filter2", [x], plans, groups, axis, side))
+    return tuple(_launch_stream("filter2", [x], (h0, h1), n, axis, side))
 
 
 def filter2_axis(x: torch.Tensor, h0, h1, axis: int):
@@ -498,8 +514,8 @@ def filter2_fromext_axis(ext: torch.Tensor, side: int, h0, h1, axis: int):
 
 
 def _dfilt2(x, pair0, pair1, axis, n, side=None):
-    plans = [dfilt_streams(ha, hb) for ha, hb in _pairs(pair0, pair1)]
-    return tuple(_launch("dfilt2", [x], plans, [n // 4] * 2, axis, side))
+    return tuple(_launch_stream("dfilt2", [x], (*pair0, *pair1), n, axis,
+                                side))
 
 
 def dfilt2_axis(x: torch.Tensor, pair0, pair1, axis: int):
@@ -522,7 +538,8 @@ def dfilt2_fromext_axis(ext: torch.Tensor, side: int, pair0, pair1,
 
 
 def _filter2_sum(a, b, h0, h1, axis, n, side=None):
-    return _launch_sum("filter2_sum", a, b, (h0, h1), axis, n, side)
+    return _launch_stream("filter2_sum", [a, b], (h0, h1), n, axis,
+                          side)[0]
 
 
 def _check_parity(h0, h1) -> None:
@@ -551,7 +568,8 @@ def filter2_sum_fromext_axis(a: torch.Tensor, b: torch.Tensor, side: int,
 
 
 def _ifilt2_sum(a, b, pair0, pair1, axis, n, side=None):
-    return _launch_sum("ifilt2_sum", a, b, (*pair0, *pair1), axis, n, side)
+    return _launch_stream("ifilt2_sum", [a, b], (*pair0, *pair1), n, axis,
+                          side)[0]
 
 
 def ifilt2_sum_axis(a: torch.Tensor, b: torch.Tensor, pair0, pair1,

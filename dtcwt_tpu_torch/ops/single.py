@@ -24,10 +24,10 @@ the JAX package's low-level API, on these entries.
 An entry takes its route from the input's device: a CPU tensor runs the
 plain version, a CUDA tensor launches the kernel or raises.  ``filter``'s
 kernel is ``csrc/filter.cu``, tiled by :func:`_filter_geometry` here;
-``dfilt`` and ``ifilt`` are the one-branch instances in ``csrc/single.cu``
-of the stream kernel whose two-branch instances are :mod:`dual`'s analysis
-entries (``filter2``, ``dfilt2``; the sums ``filter2_sum`` and
-``ifilt2_sum`` have a kernel of their own, ``csrc/streamsum.cuh``).  The
+``dfilt`` and ``ifilt`` are the instances in ``csrc/single.cu`` of the
+stream kernel of ``csrc/streams.cuh`` (:mod:`dual`'s four entries have
+kernels of their own, ``csrc/streamana.cuh`` and
+``csrc/streamsum.cuh``).  The
 nine names of the low-level API (``filter_axis``, ``dfilt_axis``,
 ``ifilt_axis`` and the column / row aliases) also take a non-tensor input,
 a numpy array or a list, as the JAX package's do, and a keyword *device*:
@@ -209,8 +209,7 @@ def filter_fromext_axis(ext: torch.Tensor, side: int, h,
 
 
 def _dfilt(x, ha, hb, axis, n, side=None):
-    return _launch("dfilt", [x], [dfilt_streams(ha, hb)], [n // 4], axis,
-                   side)[0]
+    return _launch("dfilt", x, dfilt_streams(ha, hb), n // 4, axis, side)
 
 
 def dfilt_axis(x, ha, hb, axis: int, device=None) -> torch.Tensor:
@@ -238,8 +237,7 @@ def dfilt_fromext_axis(ext: torch.Tensor, side: int, ha, hb,
 
 
 def _ifilt(x, ha, hb, axis, n, side=None):
-    return _launch("ifilt", [x], [ifilt_streams(ha, hb)], [n // 2], axis,
-                   side)[0]
+    return _launch("ifilt", x, ifilt_streams(ha, hb), n // 2, axis, side)
 
 
 def ifilt_axis(x, ha, hb, axis: int, device=None) -> torch.Tensor:

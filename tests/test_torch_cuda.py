@@ -502,14 +502,18 @@ def _dual_calls(kind, fam):
     """(kernel wrapper, plain version) of one dual kernel on one filter
     case, both taking ``(inputs, axis, side)``; side None is the axis form.
     "even" is an explicit pair of 4 and 6 taps; "mixed" takes branch 0 from
-    qshift_a (10 taps) and branch 1 from qshift_d (14 taps).  The sums
-    also take the longest filters they accept, every tap random: "odd31"
-    and "even32" (filter2_sum), "long64", two qshift pairs of 64 taps
-    (ifilt2_sum)."""
+    qshift_a (10 taps) and branch 1 from qshift_d (18 taps), or for
+    filter2 near_sym_a's 7-tap filter with the 6-tap one (outputs of n and
+    n + 1 samples).  The longest filters taken, every tap random: "odd31"
+    and "even32" (filter2, filter2_sum), "long32", two qshift pairs of 32
+    taps whose sum(ha * hb) differ in sign (dfilt2), "long64", two pairs
+    of 64 (ifilt2_sum)."""
     rs = np.random.RandomState(6)
     if kind in ("filter2", "filter2_sum"):
         if fam == "even":
             h0, h1 = _EVEN
+        elif fam == "mixed":
+            h0, h1 = biort("near_sym_a")[2], _EVEN[1]
         elif fam in ("odd31", "even32"):
             h0, h1 = rs.randn(int(fam[-2:])), rs.randn(int(fam[-2:]))
         else:
@@ -528,14 +532,17 @@ def _dual_calls(kind, fam):
                 lambda x, ax, s: dual.filter2_sum_axis_reference(
                     *x, h0, h1, ax) if s is None else
                 dual.filter2_sum_fromext_axis_reference(*x, s, h0, h1, ax))
-    if fam == "long64":
-        p0, p1 = (rs.randn(64), rs.randn(64)), (rs.randn(64), rs.randn(64))
+    if fam.startswith("long"):
+        m = int(fam[4:])
+        p0, p1 = (rs.randn(m), rs.randn(m)), (rs.randn(m), rs.randn(m))
+        if np.sum(p0[0] * p0[1]) * np.sum(p1[0] * p1[1]) > 0:
+            p1 = (p1[0], -p1[1])
     else:
         q0 = qshift("qshift_a" if fam == "mixed" else fam)
         q1 = qshift("qshift_d" if fam == "mixed" else fam)
-        p0, p1 = (q0[3], q0[2]), (q1[7], q1[6])
+        p0, p1 = (((q0[1], q0[0]), (q1[5], q1[4])) if kind == "dfilt2"
+                  else ((q0[3], q0[2]), (q1[7], q1[6])))
     if kind == "dfilt2":
-        p0, p1 = (q0[1], q0[0]), (q1[5], q1[4])
         return (lambda x, ax, s: dual.dfilt2_axis(x[0], p0, p1, ax)
                 if s is None else
                 dual.dfilt2_fromext_axis(x[0], s, p0, p1, ax),
@@ -550,7 +557,8 @@ def _dual_calls(kind, fam):
             dual.ifilt2_sum_fromext_axis_reference(*x, s, p0, p1, ax))
 
 
-_DUAL_FAMS = {"filter2": ("near_sym_a", "near_sym_b", "legall", "even"),
+_DUAL_FAMS = {"filter2": ("near_sym_a", "near_sym_b", "legall", "even",
+                          "mixed"),
               "filter2_sum": ("near_sym_a", "near_sym_b", "antonini",
                               "even"),
               "dfilt2": ("qshift_a", "qshift_d", "qshift_32", "mixed"),
@@ -560,9 +568,9 @@ _DUAL_FAMS = {"filter2": ("near_sym_a", "near_sym_b", "legall", "even"),
 # inner 130, more than one column tile
 _DUAL_SHAPES = [((8, 20, 36), (-1, -2, -3)), ((4, 8, 4), (-1, -2, -3)),
                 ((1028, 1), (0,)), ((12, 130), (0,))]
-# and for the sums (ops/dual.py _sum_geometry): columns tiles partial across
-# inner (136 of 256 columns) and along the axis (70 and 35 of 32 and 16
-# groups); a grid large enough to keep its column vectors (228 blocks,
+# and for every entry (ops/dual.py _stream_geometry): columns tiles
+# partial across inner (136 of 256 columns) and along the axis (70 and 35
+# of 32 and 16 groups); a grid large enough to keep its column vectors (228 blocks,
 # float64 600), its tiles partial both ways (520 of 768 columns, 300
 # groups of 32 or 16); staged rows whose last block of whole rows is
 # partial (45 rows of 100, 40 a block in float32), and segments of a long
@@ -580,12 +588,14 @@ _DUAL_SUM_SHAPES = [((3, 70, 136), (-2,)), ((4, 600, 520), (-2,)),
 def test_cuda_dual_matches_plain(cuda, kind, dtype):
     """Every dual kernel in its axis and from-extension modes, for every
     filter case, on axes -1, -2 and -3, inner 1 and signals shorter than the
-    filter.  The sums also on shapes whose last tile is partial on both of
-    their paths, and with every input a contiguous view one element off
-    16-byte alignment."""
+    filter; also on shapes whose last tile is partial on both paths (dfilt2
+    where the axis is a multiple of 4), and with every input a contiguous
+    view one element off 16-byte alignment."""
     n_in = 2 if kind.endswith("_sum") else 1
     side = 32       # covers qshift_32's 32-tap decimator
-    shapes = _DUAL_SHAPES + (_DUAL_SUM_SHAPES if n_in == 2 else [])
+    shapes = _DUAL_SHAPES + [
+        (shape, axes) for shape, axes in _DUAL_SUM_SHAPES
+        if kind != "dfilt2" or shape[axes[0]] % 4 == 0]
     for fam in _DUAL_FAMS[kind]:
         kern, plain = _dual_calls(kind, fam)
         for seed, (shape, axes) in enumerate(shapes):
@@ -593,8 +603,6 @@ def test_cuda_dual_matches_plain(cuda, kind, dtype):
             for axis in axes:
                 for s, odd in ((None, False), (side, False), (None, True),
                                (side, True)):
-                    if odd and n_in == 1:
-                        continue
                     ins = xs if s is None else [
                         fb.symmetric_extend(x, s, axis).contiguous()
                         for x in xs]
@@ -616,7 +624,7 @@ def test_cuda_dual_sum_writes_its_outputs_whole(cuda, monkeypatch, kind,
     elements, a vector store's reach), equal to the plain version after
     the launch, the tail still NaN.  On both paths, aligned and one element
     off, in both modes, for a short and the longest filters."""
-    make, heads = dual._sum_output, []
+    make, heads = dual._output, []
 
     def sentinel(shape, dt, device):
         t = make(shape, dt, device)
@@ -624,7 +632,7 @@ def test_cuda_dual_sum_writes_its_outputs_whole(cuda, monkeypatch, kind,
                          dtype=dt, device=device)
         heads.append((buf, t.numel()))
         return buf[:t.numel()].view(t.shape)
-    monkeypatch.setattr(dual, "_sum_output", sentinel)
+    monkeypatch.setattr(dual, "_output", sentinel)
     fams = (("near_sym_a", "even32") if kind == "filter2_sum"
             else ("qshift_a", "long64"))
     side = 40       # covers the 64-tap pairs' reach
@@ -652,10 +660,10 @@ def test_cuda_dual_sum_writes_its_outputs_whole(cuda, monkeypatch, kind,
 
 @pytest.mark.cuda
 def test_cuda_dual_sum_refuses_a_tiling_not_the_hosts(cuda, monkeypatch):
-    """The sums' C entries take the tap bound and tiling of _sum_geometry
-    and refuse any other with a CUDA error, launching nothing; the host's
-    own launch then runs."""
-    geometry = dual._sum_geometry
+    """The sums' C entries take the tap bound and tiling of
+    _stream_geometry and refuse any other with a CUDA error, launching
+    nothing; the host's own launch then runs."""
+    geometry = dual._stream_geometry
     cols, rows = ((8, 20, 36), -2), ((3, 5000), -1)
     for kind, dtype, (shape, axis), bad in (
             ("filter2_sum", torch.float32, cols, dict(mt=9)),
@@ -672,13 +680,13 @@ def test_cuda_dual_sum_refuses_a_tiling_not_the_hosts(cuda, monkeypatch):
         kern, plain = _dual_calls(kind, fam)
         xs = [_rand(shape, i, cuda, dtype) for i in range(2)]
         monkeypatch.setattr(
-            dual, "_sum_geometry",
+            dual, "_stream_geometry",
             lambda *a, **k: geometry(*a, **k)._replace(**bad))
         _build.reset_launches()
         with pytest.raises(RuntimeError, match="CUDA error"):
             kern(xs, axis, None)
         assert not _build.launches
-        monkeypatch.setattr(dual, "_sum_geometry", geometry)
+        monkeypatch.setattr(dual, "_stream_geometry", geometry)
         got = kern(xs, axis, None)
         torch.cuda.synchronize()
         assert _kerr(got, plain(xs, axis, None)) < _KTOL[dtype], (kind, bad)
@@ -706,6 +714,121 @@ def test_cuda_dual_sum_takes_the_longest_filters(cuda, kind, dtype):
                     fb.symmetric_extend(x, s, axis).contiguous() for x in xs]
                 if seed % 2:
                     ins = [_at_odd_offset(x) for x in ins]
+                _build.reset_launches()
+                got = kern(ins, axis, s)
+                torch.cuda.synchronize()
+                assert dict(_build.launches) == {kind: 1}
+                assert _kerr(got, plain(ins, axis, s)) < _KTOL[dtype], (
+                    fam, shape, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["filter2", "dfilt2"])
+def test_cuda_dual_analysis_writes_its_outputs_whole(cuda, monkeypatch,
+                                                     kind, dtype):
+    """The analysis entries write every element of both outputs and
+    nothing past their ends: each output is the head of a NaN-filled
+    buffer one row longer (at least 16 elements, a vector store's reach),
+    equal to the plain version after the launch, the tail still NaN.  On
+    both paths, aligned and one element off, in both modes, for a short
+    filter, the mixed ones (filter2's outputs of two lengths) and the
+    longest."""
+    make, heads = dual._output, []
+
+    def sentinel(shape, dt, device):
+        t = make(shape, dt, device)
+        buf = torch.full((t.numel() + max(16, t.shape[-1]),), float("nan"),
+                         dtype=dt, device=device)
+        heads.append((buf, t.numel()))
+        return buf[:t.numel()].view(t.shape)
+    monkeypatch.setattr(dual, "_output", sentinel)
+    fams = (("near_sym_a", "mixed", "even32") if kind == "filter2"
+            else ("qshift_a", "mixed", "long32"))
+    side = 32       # covers the 32-tap filters' reach
+    for fam in fams:
+        kern, plain = _dual_calls(kind, fam)
+        for seed, (shape, axis) in enumerate(
+                [((3, 72, 136), -2), ((12, 132), 0), ((4, 600, 520), -2),
+                 ((45, 100), -1), ((3, 5000), -1), ((4, 8, 4), -3)]):
+            x = _rand(shape, seed, cuda, dtype)
+            for s in (None, side):
+                ins = [x if s is None else
+                       fb.symmetric_extend(x, s, axis).contiguous()]
+                if seed % 2:
+                    ins = [_at_odd_offset(ins[0])]
+                heads.clear()
+                got = kern(ins, axis, s)
+                torch.cuda.synchronize()
+                assert _kerr(got, plain(ins, axis, s)) < _KTOL[dtype], (
+                    fam, shape, s)
+                assert len(heads) == 2
+                for buf, n in heads:
+                    assert not torch.isnan(buf[:n]).any(), (fam, shape, s)
+                    assert torch.isnan(buf[n:]).all(), (fam, shape, s)
+
+
+@pytest.mark.cuda
+def test_cuda_dual_analysis_refuses_a_tiling_not_the_hosts(cuda,
+                                                           monkeypatch):
+    """The analysis entries' C entries take the tap bound and tiling of
+    _stream_geometry and refuse any other with a CUDA error, launching
+    nothing; the host's own launch then runs."""
+    geometry = dual._stream_geometry
+    cols, rows = ((8, 20, 36), -2), ((3, 5000), -1)
+    for kind, dtype, (shape, axis), bad in (
+            ("filter2", torch.float32, cols, dict(mt=9)),
+            ("filter2", torch.float32, cols, dict(seg=64)),
+            ("filter2", torch.float32, cols, dict(vc=2)),
+            ("filter2", torch.float64, rows, dict(smem=1)),
+            ("filter2", torch.bfloat16, rows, dict(v=4)),
+            ("dfilt2", torch.float32, cols, dict(mt=14)),
+            ("dfilt2", torch.float32, cols, dict(tx=24)),
+            ("dfilt2", torch.float32, cols, dict(v=8)),
+            ("dfilt2", torch.float32, cols, dict(path="rows")),
+            ("dfilt2", torch.float64, rows, dict(smem=1)),
+            ("dfilt2", torch.float32, rows, dict(path="cols"))):
+        fam = "near_sym_a" if kind == "filter2" else "qshift_a"
+        kern, plain = _dual_calls(kind, fam)
+        x = [_rand(shape, 0, cuda, dtype)]
+        monkeypatch.setattr(
+            dual, "_stream_geometry",
+            lambda *a, **k: geometry(*a, **k)._replace(**bad))
+        _build.reset_launches()
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            kern(x, axis, None)
+        assert not _build.launches
+        monkeypatch.setattr(dual, "_stream_geometry", geometry)
+        got = kern(x, axis, None)
+        torch.cuda.synchronize()
+        assert _kerr(got, plain(x, axis, None)) < _KTOL[dtype], (kind, bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("kind", ["filter2", "dfilt2"])
+def test_cuda_dual_analysis_takes_the_longest_filters(cuda, kind, dtype):
+    """The longest filters the analysis entries took before their
+    redesign, every tap random, at the largest tap bound: filter2's 31 and
+    32 taps (bound 33), dfilt2's qshift pairs of 32 (bound 32, the two
+    pairs' sum(ha * hb) of either sign), on both paths, both modes,
+    aligned and one element off, against the plain version, one launch a
+    call."""
+    side = 32       # covers the 32-tap filters' reach
+    for fam in (("odd31", "even32") if kind == "filter2" else ("long32",)):
+        kern, plain = _dual_calls(kind, fam)
+        for seed, (shape, axis) in enumerate(
+                [((2, 4, 4), -2), ((3, 70, 136), -2), ((12, 130), 0),
+                 ((4, 600, 520), -2), ((45, 100), -1), ((9000,), 0)]):
+            if kind == "dfilt2" and shape[axis] % 4:
+                continue
+            x = _rand(shape, seed, cuda, dtype)
+            for s in (None, side):
+                ins = [x if s is None else
+                       fb.symmetric_extend(x, s, axis).contiguous()]
+                if seed % 2:
+                    ins = [_at_odd_offset(ins[0])]
                 _build.reset_launches()
                 got = kern(ins, axis, s)
                 torch.cuda.synchronize()

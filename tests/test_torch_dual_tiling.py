@@ -1,25 +1,30 @@
-"""The tiling of the dual kernels' synthesis sums, ``filter2_sum`` and
-``ifilt2_sum`` (``csrc/streamsum.cuh``), replayed on the CPU in numpy at
-float64.
+"""The tiling of the four dual kernels, the analysis entries ``filter2``
+and ``dfilt2`` (``csrc/streamana.cuh``) and the synthesis sums
+``filter2_sum`` and ``ifilt2_sum`` (``csrc/streamsum.cuh``), replayed on
+the CPU in numpy at float64.
 
-The kernel cannot run here, so this replays, block by block, what
-``ops/dual.py:_sum_geometry`` and ``_sum_plan`` tell it to do.  On the
-columns path (inner > 1): each thread's columns and groups, the rows (ifilt:
-row pairs) of both inputs its window loads, where each loaded row reaches
-(the taps centred on the bound's halo, ifilt's parity swap), and the
-outputs it stores, a warp's lanes on consecutive columns.  On the rows
-path (inner = 1): each block's staging of a flat range of both inputs
-(a head and a tail a value at a time, 16-byte chunks between, every chunk
-aligned on both sides), each item's register windows (inside the row, or
-read at the reflected index, or as zero past an extended buffer, the
-clamp moving no read a stored output takes) and its vector or scalar
-stores.  Every staged cell must be written at most once, every cell a
-window reads must have been written, every output sample written exactly
-once, and the result must equal the plain versions
-(:func:`dual.filter2_sum_axis_reference`,
+The kernels cannot run here, so this replays, block by block, what
+``ops/dual.py:_stream_geometry`` and ``_plan`` tell them to do.  On the
+columns path (inner > 1): each thread's columns and groups, the rows
+(qshift: row pairs) of the inputs its window loads, where each loaded row
+reaches (the taps centred on the bound's halo; ifilt's parity swap, or
+dfilt's taps placed by parity and each branch's swap applied at the
+store), and the outputs it stores, a warp's lanes on consecutive columns.
+On the rows path (inner = 1): each block's staging of a flat range of
+each input (a head and a tail a value at a time, 16-byte chunks between,
+every chunk aligned on both sides), each item's register windows (inside
+the row, or read at the reflected index, or as zero past an extended
+buffer, the clamp moving no read a stored output takes) and its vector or
+scalar stores, to both outputs of an analysis entry, whose two branches
+may differ in length (filter2's filters of two parities).  Every staged
+cell must be written at most once, every cell a window reads must have
+been written, every output sample written exactly once, and the result
+must equal the plain versions (:func:`dual.filter2_axis_reference`,
+:func:`dual.dfilt2_axis_reference`, :func:`dual.filter2_sum_axis_reference`,
 :func:`dual.ifilt2_sum_axis_reference` and their from-extension forms)
-within 1e-12.  Edit the replay together with the kernel.  The file takes
-about 10 s in one process.
+within 1e-12.  Edit the replay together with the kernels.  The file takes
+about 20-28 s in one process, the analysis kernels' 17 tests (``-k
+analysis``) about 14 s.
 """
 
 import numpy as np
@@ -220,7 +225,7 @@ def _replay(name, xs, filters, axis, side, size, eoff=(0, 0, 0)):
     the from-extension mode), for elements of *size* bytes whose pointers
     sit *eoff* elements past 16-byte alignment (a, b, y)."""
     P = 1 if name == "filter2_sum" else 4
-    plan = dual._sum_plan(name, filters)
+    plan = dual._plan(name, filters)
     mt = plan.mt
     T, sw = dual._inv_taps(plan.plans, P, mt)
     ax = axis % xs[0].ndim
@@ -230,9 +235,9 @@ def _replay(name, xs, filters, axis, side, size, eoff=(0, 0, 0)):
     n_in = shape[ax]
     X = [x.reshape(outer, n_in, inner) for x in xs]
     n = n_in - 2 * (side or 0)
-    g = n + 1 - plan.odd if P == 1 else n // 2
+    g = n + 1 - plan.odd[0] if P == 1 else n // 2
     vb = 8 if size == 2 else 16
-    geo = dual._sum_geometry(P, outer, n_in, inner, g, mt, size,
+    geo = dual._stream_geometry(P, outer, n_in, inner, g, mt, size,
                              all(e * size % vb == 0 for e in eoff))
     y = np.full((outer, P * g, inner), np.nan)
     cnt = np.zeros(y.shape, np.int64)
@@ -301,9 +306,9 @@ def any_grid(monkeypatch):
     """Small grids keep their column vectors (``_FEW_BLOCKS`` 0), so that
     the replay's small shapes take the vector columns path too."""
     monkeypatch.setattr(dual, "_FEW_BLOCKS", 0)
-    dual._sum_geometry.cache_clear()
+    dual._stream_geometry.cache_clear()
     yield
-    dual._sum_geometry.cache_clear()
+    dual._stream_geometry.cache_clear()
 
 
 @pytest.mark.parametrize("name,fam", _CASES)
@@ -367,10 +372,10 @@ def test_dual_sum_tap_bounds(name, fams):
     P = 1 if name == "filter2_sum" else 4
     for fam, mt in fams.items():
         f = _filters(name, fam)
-        plan = dual._sum_plan(name, f)
+        plan = dual._plan(name, f)
         assert plan.mt == mt, fam
-        assert dual._sum_plan(name, tuple(np.copy(v) for v in f)) is plan
-        smaller = [b for b in dual._SUM_BOUNDS[P] if b < mt]
+        assert dual._plan(name, tuple(np.copy(v) for v in f)) is plan
+        smaller = [b for b in dual._TAP_BOUNDS[P] if b < mt]
         assert all(dual._inv_taps(plan.plans, P, b) is None
                    for b in smaller), fam
     rs = np.random.RandomState(1)
@@ -378,47 +383,48 @@ def test_dual_sum_tap_bounds(name, fams):
         for m in range(1, 41):
             f = (rs.randn(m), rs.randn(m))
             if m <= 32:
-                assert dual._sum_plan(name, f).mt <= 33
+                assert dual._plan(name, f).mt <= 33
             else:
                 with pytest.raises(ValueError, match="at most 32 taps"):
-                    dual._sum_plan(name, f)
+                    dual._plan(name, f)
     else:
         for m in range(2, 72, 2):
             f = tuple(rs.randn(m) for _ in range(4))
             if m <= 64:
-                assert dual._sum_plan(name, f).mt <= 33
+                assert dual._plan(name, f).mt <= 33
             else:
                 with pytest.raises(ValueError, match="at most 32 taps"):
-                    dual._sum_plan(name, f)
+                    dual._plan(name, f)
 
 
 def test_dual_sum_geometry_main_path():
     """The tiling of every launch shape of the main paths: the 1-D
     [131072, 128] round trip's columns (16-byte vectors, 32 threads across
-    the 128 columns; its three smallest ifilt levels, under 128 blocks, a
+    the 128 columns; its four smallest ifilt levels, under 132 blocks, a
     column a thread), the 3-D 256^3 round trip's depth axis (64 threads
     across H x W, four group rows a block; float64 256 threads), the
     sharded one's shards and the 4M vector's staged segments."""
-    geo = dual._sum_geometry
+    geo = dual._stream_geometry
     g = geo(1, 1, 131072, 128, 131072, 7, 4, True)
-    assert g == dual.SumGeometry("cols", 7, 8, 4, 1, 64, 32, (1, 2048, 1), 0)
+    assert g == dual.StreamGeometry("cols", 7, 8, 4, 1, 64, 32,
+                                    (1, 2048, 1), 0)
     for k in range(7):
         n = 1024 << k
         g = geo(4, 1, n, 128, n // 2, 5, 4, True)
-        if k < 3:
+        if k < 4:
             assert (g.vc, g.tx, g.seg, g.grid) == (1, 64, 16,
                                                    (1, n // 32, 2))
         else:
             assert (g.path, g.vc, g.tx, g.seg, g.grid) == (
                 "cols", 4, 32, 32, (1, n // 64, 1))
     g = geo(1, 1, 256, 65536, 256, 7, 4, True)
-    assert g == dual.SumGeometry("cols", 7, 8, 4, 1, 32, 64, (1, 8, 256), 0)
+    assert g == dual.StreamGeometry("cols", 7, 8, 4, 1, 32, 64, (1, 8, 256), 0)
     g = geo(1, 1, 256, 65536, 256, 7, 8, True)
     assert (g.vc, g.tx, g.seg, g.grid) == (2, 256, 8, (1, 32, 128))
     g = geo(4, 1, 128, 65536, 64, 5, 4, True)
     assert (g.v, g.vc, g.seg, g.grid) == (4, 4, 16, (1, 4, 256))
     g = geo(4, 1, 64, 16384, 32, 5, 4, True)
-    assert (g.v, g.vc, g.seg, g.grid) == (4, 4, 16, (1, 2, 64))
+    assert (g.v, g.vc, g.seg, g.grid) == (4, 1, 16, (1, 2, 256))
     # the sharded round trip's shards (side 8): 64 and 16 blocks of vectors
     # become 256 and 64 of single columns
     g = geo(1, 1, 80, 65536, 64, 7, 4, True)
@@ -428,10 +434,10 @@ def test_dual_sum_geometry_main_path():
     # unaligned or ragged columns: one column a thread
     assert geo(1, 1, 256, 65536, 256, 7, 4, False).vc == 1
     assert geo(1, 1, 256, 130, 256, 7, 4, True).vc == 1
-    assert geo(1, 1, 2048, 130, 2048, 7, 8, True).vc == 2
+    assert geo(1, 1, 4096, 130, 4096, 7, 8, True).vc == 2
     # the vector: segments of 16 KB of each input, 16-byte items
     g = geo(1, 1, 4194304, 1, 4194304, 7, 4, True)
-    assert g == dual.SumGeometry("rows", 7, 4, 1, 1, 4096, 1, (1, 1024),
+    assert g == dual.StreamGeometry("rows", 7, 4, 1, 1, 4096, 1, (1, 1024),
                                  2 * 4108 * 4)
     g = geo(4, 1, 2097152, 1, 1048576, 5, 4, True)
     assert (g.v, g.seg, g.grid, g.smem) == (1, 2048, (1, 512),
@@ -441,3 +447,413 @@ def test_dual_sum_geometry_main_path():
     # short rows: whole rows a block
     g = geo(4, 64, 100, 1, 50, 5, 4, True)
     assert (g.rows, g.seg, g.grid) == (40, 50, (2, 1))
+
+
+# ---------------------------------------------------------------------------
+# the analysis entries, filter2 and dfilt2 (csrc/streamana.cuh)
+# ---------------------------------------------------------------------------
+
+def _ana_taps(plan, P):
+    """The kernel's taps: the plans centred on the bound's halo, dfilt's
+    placed by parity (csrc/taps.cuh hs_taps_by_parity: a branch whose
+    first stream reads the odd samples has its streams swapped), and the
+    branch swaps."""
+    T, sw = dual._inv_taps(plan.plans, P, plan.mt)
+    if P == 2:
+        T = np.stack([T[b, ::-1] if sw[b] else T[b] for b in range(2)])
+    return T, sw
+
+
+def _ana_fir(acc, T, b, w, P, mt, nv):
+    """Branch b's taps over windows w [items, samples] into acc [items,
+    nv groups, P], acc[..., p] the sum of parity p (dfilt)."""
+    for m in range(mt):
+        for v in range(nv):
+            if P == 1:
+                acc[:, v, 0] += T[b, 0, m] * w[:, v + m]
+            else:
+                for p in range(2):
+                    acc[:, v, p] += T[b, p, m] * w[:, 4 * v + p + 2 * m]
+
+
+def _replay_ana_cols(X, T, sw, P, mt, gs, side, refl, geo, ys, cnts):
+    outer, n_in, inner = X.shape
+    D, S = dual._STEPS[P]
+    ph = (mt - 1) // 2
+    RV, VC, TX = geo.v, geo.vc, geo.tx
+    TY = _THREADS // TX
+    gn = max(gs)
+    assert geo.seg == TY * RV and geo.rows == 1 and geo.smem == 0
+    assert geo.grid == (outer, _cdiv(gn, geo.seg), _cdiv(inner, TX * VC))
+    n_rt, n_ct = geo.grid[1:]
+    blk, tid = np.meshgrid(np.arange(geo.blocks), np.arange(_THREADS),
+                           indexing="ij")
+    blk, tid = blk.reshape(-1), tid.reshape(-1)
+    ct, rt, o = blk % n_ct, (blk // n_ct) % n_rt, blk // (n_ct * n_rt)
+    tx, ty = tid % TX, tid // TX
+    col, g0 = (ct * TX + tx) * VC, (rt * TY + ty) * RV
+    # a warp's lanes of one group row on consecutive vectors
+    nxt = (tid % 32 != 31) & (np.roll(ty, -1) == ty)
+    assert (np.roll(col, -1)[nxt] - col[nxt] == VC).all()
+    live = (col < inner) & (g0 < gn)
+    o, col, g0 = o[live], col[live], g0[live]
+    cols = col[:, None] + np.arange(VC)
+    assert (cols < inner).all()   # a vector stays inside the row
+    j0 = D * g0 - S * ph + side
+    acc = np.zeros((2, o.size, RV, P, VC))
+    loaded = []                   # the window rows a thread loads
+
+    def load(j):
+        loaded.append(j)
+        jj = _source(j, n_in, refl)
+        val = X[o[:, None], np.maximum(jj, 0)[:, None], cols]
+        return np.where((jj >= 0)[:, None], val, 0.0)
+
+    if P == 1:
+        for r in range(RV + mt - 1):
+            w = load(j0 + r)
+            for b in range(2):
+                for v in range(RV):
+                    if 0 <= r - v < mt:
+                        acc[b, :, v, 0] += T[b, 0, r - v] * w
+    else:
+        for r in range(2 * RV + mt - 2):
+            e, od = load(j0 + 2 * r), load(j0 + 2 * r + 1)
+            for b in range(2):
+                for v in range(RV):
+                    m = r - 2 * v
+                    if 0 <= m < mt:
+                        acc[b, :, v, 0] += T[b, 0, m] * e
+                        acc[b, :, v, 1] += T[b, 1, m] * od
+    # each thread loads each row of its window once, the whole window
+    rows = np.stack(loaded, 1) - j0[:, None]
+    assert (np.sort(rows, 1) == np.arange(rows.shape[1])).all()
+    assert rows.shape[1] == D * (RV - 1) + S * mt
+    for b in range(2):
+        for v in range(RV):
+            ok = g0 + v < gs[b]
+            for p in range(P):
+                row = P * (g0[ok] + v) + (p ^ (sw[b] if P == 2 else 0))
+                idx = (o[ok][:, None], row[:, None], cols[ok])
+                np.add.at(cnts[b], idx, 1)
+                ys[b][idx] = acc[b, ok, v, p]
+
+
+def _replay_ana_rows(X, T, sw, P, mt, gs, side, refl, geo, ys, cnts, size,
+                     eoff):
+    outer, n_in, inner = X.shape
+    assert inner == 1
+    flat = X.reshape(-1)
+    D, S = dual._STEPS[P]
+    ph = (mt - 1) // 2
+    vec = 16 // size
+    GV, R, L = geo.v, geo.rows, geo.seg
+    NW = D * (GV - 1) + S * mt
+    gn = max(gs)
+    assert geo.vc == 1 and geo.tx == 1 and L % GV == 0 and GV * P % vec == 0
+    assert geo.grid == (_cdiv(outer, R), _cdiv(gn, L))
+    n_seg = geo.grid[1]
+    assert n_seg == 1 or R == 1
+    rb = geo.smem // size
+    assert rb * size == geo.smem and rb % vec == 0
+    assert rb >= vec + (R - 1) * n_in + min(n_in, D * (L - 1) + S * mt)
+    vec_out = [(P * g) % vec == 0 and (eoff[1 + b] * size) % 16 == 0
+               for b, g in enumerate(gs)]
+    for blk in range(geo.blocks):
+        s0, o0 = (blk % n_seg) * L, (blk // n_seg) * R
+        rows, lr = min(R, outer - o0), min(L, gn - s0)
+        j00 = D * s0 - S * ph + side
+        sa, sb = max(j00, 0), min(n_in, j00 + D * (L - 1) + S * mt)
+        f0, ln = o0 * n_in + sa, (rows - 1) * n_in + (sb - sa)
+        # the staging: a head and a tail a value at a time, 16-byte chunks
+        # between, each chunk aligned on both sides
+        xs = _Img(rb)
+        pad = (eoff[0] + f0) * size % 16 // size
+        head = min((vec - pad) % vec, ln)
+        nvec = (ln - head) // vec
+        xs.put(pad + np.arange(head), flat[f0:f0 + head])
+        for q in range(nvec):
+            e = head + q * vec
+            assert (pad + e) % vec == 0                   # shared side
+            assert (eoff[0] + f0 + e) * size % 16 == 0     # device side
+            xs.put(pad + e + np.arange(vec), flat[f0 + e:f0 + e + vec])
+        e = head + nvec * vec
+        xs.put(pad + np.arange(e, ln), flat[f0 + e:f0 + ln])
+        assert pad + ln <= rb and xs.n.max() <= 1
+        items = _cdiv(lr, GV)
+        lo, hi = -j00, n_in - NW - j00
+        q_lo = min(items, _cdiv(lo, D * GV)) if lo > 0 else 0
+        q_hi = max(q_lo, min(items, 0 if hi < 0 else hi // (D * GV) + 1))
+        q = np.arange(items)
+        fast = (q >= q_lo) & (q < q_hi)
+        j = (j00 + D * GV * q)[:, None] + np.arange(NW)
+        assert ((j[fast] >= 0) & (j[fast] < n_in)).all()
+        gq = s0 + GV * q
+        # each branch's stored groups of an item, and the window samples
+        # the stored outputs take
+        nvg = [np.clip(min(g, s0 + lr) - gq, 0, GV) for g in gs]
+        top = np.maximum(nvg[0], nvg[1])
+        used = np.arange(NW)[None, :] < (D * (top - 1) + S * mt)[:, None]
+        jj = np.where(fast[:, None], j, _source(j, n_in, refl))
+        for r in range(rows):
+            c = pad - sa + r * n_in + np.maximum(jj, 0)
+            cc = np.clip(c, pad, pad + ln - 1)
+            assert ((c == cc) | ~used | (jj < 0)).all()
+            w = np.where(jj >= 0, xs.get(cc), 0.0)
+            for b in range(2):
+                acc = np.zeros((items, GV, P))
+                _ana_fir(acc, T, b, w, P, mt, GV)
+                if P == 2 and sw[b]:
+                    acc = acc[:, :, ::-1]
+                out = acc.reshape(items, GV * P)
+                start = (o0 + r) * P * gs[b] + P * gq   # flat output index
+                yf, cf = ys[b].reshape(-1), cnts[b].reshape(-1)
+                for qi in np.flatnonzero(nvg[b]):
+                    nv = P * nvg[b][qi]
+                    if vec_out[b] and nv == GV * P:
+                        assert (eoff[1 + b] + start[qi]) * size % 16 == 0
+                    idx = start[qi] + np.arange(nv)
+                    np.add.at(cf, idx, 1)
+                    yf[idx] = out[qi, :nv]
+
+
+def _replay_ana(name, x, filters, axis, side, size, eoff=(0, 0, 0)):
+    """The analysis kernel's two outputs on the numpy input *x* along
+    *axis* (side: the from-extension mode), for elements of *size* bytes
+    whose pointers sit *eoff* elements past 16-byte alignment (x, y0,
+    y1)."""
+    P = 1 if name == "filter2" else 2
+    plan = dual._plan(name, filters)
+    T, sw = _ana_taps(plan, P)
+    ax = axis % x.ndim
+    outer = int(np.prod(x.shape[:ax], dtype=np.int64))
+    inner = int(np.prod(x.shape[ax + 1:], dtype=np.int64))
+    n_in = x.shape[ax]
+    X = x.reshape(outer, n_in, inner)
+    n = n_in - 2 * (side or 0)
+    gs = [n + 1 - o for o in plan.odd] if P == 1 else [n // 4] * 2
+    vb = 8 if size == 2 else 16
+    geo = dual._stream_geometry(P, outer, n_in, inner, max(gs), plan.mt,
+                                size, all(e * size % vb == 0 for e in eoff),
+                                1)
+    ys = [np.full((outer, P * g, inner), np.nan) for g in gs]
+    cnts = [np.zeros(y.shape, np.int64) for y in ys]
+    refl = side is None
+    if geo.path == "cols":
+        _replay_ana_cols(X, T, sw, P, plan.mt, gs, side or 0, refl, geo, ys,
+                         cnts)
+    else:
+        assert geo.path == "rows"
+        _replay_ana_rows(X, T, sw, P, plan.mt, gs, side or 0, refl, geo, ys,
+                         cnts, size, eoff)
+    outs = []
+    for y, cnt in zip(ys, cnts):
+        assert (cnt == 1).all(), "an output written other than once"
+        shape = list(x.shape)
+        shape[ax] = y.shape[1]
+        outs.append(y.reshape(shape))
+    return outs, geo
+
+
+def _ana_plain(name, x, filters, axis, side):
+    t = torch.from_numpy(x)
+    f = (filters if name == "filter2"
+         else (tuple(filters[:2]), tuple(filters[2:])))
+    if side is None:
+        ref = getattr(dual, name + "_axis_reference")(t, *f, axis)
+    else:
+        ref = getattr(dual, name + "_fromext_axis_reference")(t, side, *f,
+                                                              axis)
+    return [r.numpy() for r in ref]
+
+
+# the mixed-parity pair of filter2: 7 and 6 taps (outputs n and n + 1)
+_MIXED = (biort("near_sym_a")[2], _EVEN[1])
+
+
+def _ana_filters(name, fam, seed=0):
+    """The filter set of an analysis case: a biort family's analysis pair,
+    the even pair of 4 and 6 taps, the mixed-parity pair, random filters
+    of 31 or 32 taps; a qshift family's decimating pairs (mixed: qshift_a's
+    first, qshift_d's second), random pairs of 32 taps with sum(ha hb) of
+    either sign ("long32": positive then negative, "long32n" the
+    reverse)."""
+    rs = np.random.RandomState(seed)
+    if name == "filter2":
+        if fam == "even":
+            return _EVEN
+        if fam == "mixed":
+            return _MIXED
+        if fam in ("odd31", "even32"):
+            m = 31 if fam == "odd31" else 32
+            return rs.randn(m), rs.randn(m)
+        b = biort(fam)
+        return b[0], b[2]
+    if fam.startswith("long32"):
+        pairs = []
+        for sign in ((1, -1) if fam == "long32" else (-1, 1)):
+            ha, hb = rs.randn(32), rs.randn(32)
+            if np.sign(np.sum(ha * hb)) != sign:
+                hb = -hb
+            pairs += [ha, hb]
+        return tuple(pairs)
+    q0 = qshift("qshift_a" if fam == "mixed" else fam)
+    q1 = qshift("qshift_d" if fam == "mixed" else fam)
+    return q0[1], q0[0], q1[5], q1[4]
+
+
+_ANA_CASES = ([("filter2", f) for f in ("near_sym_a", "near_sym_b",
+                                         "legall", "even", "mixed",
+                                         "odd31", "even32")]
+              + [("dfilt2", f) for f in ("qshift_a", "qshift_d",
+                                          "qshift_32", "mixed", "long32",
+                                          "long32n")])
+
+
+@pytest.mark.parametrize("name,fam", _ANA_CASES)
+def test_dual_analysis_tiling_replay(any_grid, name, fam):
+    """Both paths, both modes, every itemsize's tiling, aligned and odd
+    element offsets, both outputs against the plain version at 1e-12."""
+    f = _ana_filters(name, fam)
+    side = 32           # covers the 32-tap filters' reach
+    rs = np.random.RandomState(8)
+    paths = set()
+    for k, (shape, axis) in enumerate(_SHAPES):
+        if name == "dfilt2" and shape[axis] % 4:
+            continue
+        x = rs.rand(*shape)
+        size = (4, 2, 8)[k % 3]
+        eoff = (0, 0, 0) if k % 2 else (1, 3, 1)
+        for s in (None, side):
+            ins = x if s is None else fb.symmetric_extend(
+                torch.from_numpy(x), s, axis).numpy()
+            got, geo = _replay_ana(name, ins, f, axis, s, size, eoff)
+            paths.add((geo.path, geo.vc > 1))
+            for g, w in zip(got, _ana_plain(name, ins, f, axis, s)):
+                assert g.shape == w.shape
+                assert np.abs(g - w).max() <= 1e-12 * np.abs(w).max(), (
+                    shape, axis, s, size, geo)
+    assert paths == {("rows", False), ("cols", True), ("cols", False)}
+
+
+def test_dual_analysis_replay_fails_an_inverted_stream_order():
+    """The replay sees a wrong parity: the branch swaps of the mixed
+    qshift pairs inverted give outputs off the plain version, on both
+    paths."""
+    f = _ana_filters("dfilt2", "mixed")
+    inv = dual._inv_taps
+
+    def swapped(plans, P, mt):
+        out = inv(plans, P, mt)
+        return None if out is None else (out[0], [1 - v for v in out[1]])
+    for shape in ((12, 128), (1028,)):
+        x = np.random.RandomState(2).rand(*shape)
+        dual._inv_taps = swapped
+        try:
+            got, _ = _replay_ana("dfilt2", x, f, 0, None, 4)
+        finally:
+            dual._inv_taps = inv
+        want = _ana_plain("dfilt2", x, f, 0, None)
+        for g, w in zip(got, want):
+            assert np.abs(g - w).max() > 1e-3
+
+
+@pytest.mark.parametrize("name,fams", [
+    ("filter2", {"legall": 5, "near_sym_a": 7, "antonini": 9,
+                 "near_sym_b": 19, "even": 7, "mixed": 7, "odd31": 33,
+                 "even32": 33}),
+    ("dfilt2", {"qshift_06": 10, "qshift_a": 10, "qshift_b": 14,
+                "qshift_c": 16, "qshift_d": 18, "qshift_32": 32,
+                "mixed": 18, "long32": 32, "long32n": 32})])
+def test_dual_analysis_tap_bounds(name, fams):
+    """Each family's least tap bound (csrc/taps.cuh st_bound), none
+    smaller holding it; the filters taken before the redesign are taken
+    (filter2: up to 32 taps of either parity, the two branches of either
+    parity each; dfilt2: qshift pairs of up to 32 taps) and longer ones
+    refused with ValueError, as before; the plan is cached by the
+    filters' values."""
+    P = 1 if name == "filter2" else 2
+    for fam, mt in fams.items():
+        if fam in ("legall", "antonini"):
+            b = biort(fam)
+            f = (b[0], b[2])
+        elif fam.startswith("qshift") and fam not in ("qshift_a",
+                                                      "qshift_d",
+                                                      "qshift_32"):
+            q = qshift(fam)
+            f = (q[1], q[0], q[5], q[4])
+        else:
+            f = _ana_filters(name, fam)
+        plan = dual._plan(name, f)
+        assert plan.mt == mt, fam
+        assert dual._plan(name, tuple(np.copy(v) for v in f)) is plan
+        smaller = [b for b in dual._TAP_BOUNDS[P] if b < mt]
+        assert all(dual._inv_taps(plan.plans, P, b) is None
+                   for b in smaller), fam
+    rs = np.random.RandomState(3)
+    if P == 1:
+        for m0 in range(1, 41):
+            for m1 in (m0, max(1, m0 - 1)):
+                f = (rs.randn(m0), rs.randn(m1))
+                if m0 <= 32:
+                    assert dual._plan(name, f).mt <= 33
+                else:
+                    with pytest.raises(ValueError, match="at most 32 taps"):
+                        dual._plan(name, f)
+    else:
+        for m in range(2, 42, 2):
+            f = tuple(rs.randn(m) for _ in range(4))
+            if m <= 32:
+                assert dual._plan(name, f).mt <= 32
+            else:
+                with pytest.raises(ValueError, match="at most 32 taps"):
+                    dual._plan(name, f)
+
+
+def test_dual_analysis_geometry_main_path():
+    """The tiling of every launch shape of the main paths, one input
+    staged: the 1-D [131072, 128] round trip's columns (filter2: 16-byte
+    vectors, 32 threads across the 128 columns, 4 outputs a thread;
+    dfilt2: 2 groups of 2 a thread; its levels under 132 blocks a column a
+    thread), the 3-D 256^3 round trip's depth axis (64 threads across H x
+    W; float64 256), the sharded shards (a vector grid of 128 blocks, under
+    one an SM, a column a thread) and the 4M vector's staged segments."""
+    geo = dual._stream_geometry
+    g = geo(1, 1, 131072, 128, 131072, 7, 4, True, 1)
+    assert g == dual.StreamGeometry("cols", 7, 4, 4, 1, 32, 32,
+                                    (1, 4096, 1), 0)
+    for k in range(7):
+        n = 131072 >> k
+        g = geo(2, 1, n, 128, n // 4, 10, 4, True, 1)
+        if n // 4 // 16 >= 132:
+            assert (g.v, g.vc, g.tx, g.seg, g.grid) == (
+                2, 4, 32, 16, (1, n // 64, 1))
+        else:
+            assert (g.v, g.vc, g.tx, g.seg, g.grid) == (
+                2, 1, 64, 8, (1, n // 32, 2))
+    g = geo(1, 1, 256, 65536, 256, 7, 4, True, 1)
+    assert g == dual.StreamGeometry("cols", 7, 4, 4, 1, 16, 64,
+                                    (1, 16, 256), 0)
+    g = geo(2, 1, 256, 65536, 64, 10, 4, True, 1)
+    assert g == dual.StreamGeometry("cols", 10, 2, 4, 1, 8, 64,
+                                    (1, 8, 256), 0)
+    assert geo(2, 1, 128, 16384, 32, 10, 4, True, 1).grid == (1, 4, 64)
+    g = geo(2, 1, 256, 65536, 64, 10, 8, True, 1)
+    assert (g.vc, g.tx, g.seg, g.grid) == (2, 256, 2, (1, 32, 128))
+    # the sharded shards (side 8 and 16): vectors kept; 128 vector blocks
+    # become 256 of single columns
+    assert geo(1, 1, 80, 65536, 64, 7, 4, True, 1).grid == (1, 4, 256)
+    g = geo(2, 1, 96, 16384, 16, 10, 4, True, 1)
+    assert (g.vc, g.grid) == (1, (1, 2, 256))
+    # the vector: segments of 16 KB of the one input, 16-byte items
+    g = geo(1, 1, 4194304, 1, 4194304, 7, 4, True, 1)
+    assert g == dual.StreamGeometry("rows", 7, 4, 1, 1, 4096, 1, (1, 1024),
+                                    4108 * 4)
+    g = geo(2, 1, 4194304, 1, 1048576, 10, 4, True, 1)
+    assert g == dual.StreamGeometry("rows", 10, 2, 1, 1, 1024, 1,
+                                    (1, 1024), 4116 * 4)
+    assert geo(2, 1, 4194304, 1, 1048576, 10, 2, True, 1).v == 4
+    assert geo(2, 1, 4194304, 1, 1048576, 10, 8, True, 1).v == 1
+    # short rows: whole rows a block
+    g = geo(2, 64, 100, 1, 25, 10, 4, True, 1)
+    assert (g.rows, g.seg, g.grid) == (40, 26, (2, 1))

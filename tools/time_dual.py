@@ -1,35 +1,37 @@
-"""Time the synthesis sums of the dual kernels, ``filter2_sum`` and
-``ifilt2_sum`` (rows 10 and 11 of PERF.md's kernel table), on one NVIDIA
-GPU at every launch shape of the round trips that run them, beside their
-byte bound and, for ``filter2_sum``, one ``F.conv2d`` call.
+"""Time the analysis entries of the dual kernels, ``filter2`` and
+``dfilt2`` (rows 8 and 9 of PERF.md's kernel table), on one NVIDIA GPU at
+every launch shape of the round trips that run them, beside their byte
+bound and, for ``filter2``, one ``F.conv2d`` call.
 
     python tools/time_dual.py            # from the repository's root
     python tools/time_dual.py kernels    # stop after the kernel lines
-    python tools/time_dual.py longest    # only the largest tap bound
+    python tools/time_dual.py longest    # only the largest tap bounds
 
 Prints the card (``nvidia-smi`` name and power limit), the kernels' build
 time and, where it built the library, what ``nvcc -Xptxas -v`` reports
-for each kernel instance of ``dual.cu`` (registers, shared memory,
-spills).  Then it records the dual
-kernels' launches of four float32 round trips (the 1-D ``[131072, 128]``
-one at 8 levels, the 4 194 304-sample vector, the 3-D 256^3 one at 3
-levels and the sharded 256^3 one on the (1, 4) card mesh) and replays
-each entry's launches with the stream held, in float32, bfloat16 and
-float64 (the recorded inputs cast): one line per entry, path, dtype and
-launch shape (its launches' device time, the bound of their bytes at 3.35
-TB/s, the share of it and ``F.conv2d``'s time in the same dtype, TF32 off)
-and the sum over the round trip.  Then, unless ``kernels`` is given, the
-controls: the analysis entries ``filter2`` and ``dfilt2`` replayed on the
-same paths (float32), ``dfilt`` and ``ifilt`` at the low-level path's
-4096^2, the four hw kernels at their shard shapes, the 3-D, sharded, 1-D
-and 2-D 4096^2 round trips traced (device time, idle share, wall).  The
-helpers come from this checkout's ``chip_smoke.py``, the package from the
-working directory: run from the root of another checkout (``python
-/path/to/tools/time_dual.py``), it times that checkout's kernels.
-``longest`` times, after the build, only both sums at their largest tap
-bound (random odd filters of 31 taps, qshift pairs of 64) on the 3-D
-round trip's depth axis in the three dtypes.  Exits 1 if a replayed
-launch disagrees with its plain version.
+for each kernel instance of ``dual.cu`` and ``single.cu`` (registers,
+shared memory, spills).  Then it records the dual kernels' launches of
+four float32 round trips (the 1-D ``[131072, 128]`` one at 8 levels, the
+4 194 304-sample vector, the 3-D 256^3 one at 3 levels and the sharded
+256^3 one on the (1, 4) card mesh) and replays each entry's launches with
+the stream held, in float32, bfloat16 and float64 (the recorded inputs
+cast): one line per entry, path, dtype and launch shape (its launches'
+device time, the bound of their bytes at 3.35 TB/s, the share of it and
+``F.conv2d``'s time in the same dtype, TF32 off) and the sum over the
+round trip.  Then, unless ``kernels`` is given, the controls: the
+synthesis sums ``filter2_sum`` and ``ifilt2_sum`` replayed on the same
+paths (float32), ``dfilt`` and ``ifilt`` at the low-level path's 4096^2,
+the four hw kernels at their shard shapes, the 3-D, sharded, 1-D and 2-D
+4096^2 round trips traced (device time, idle share, wall).  The helpers
+come from this checkout's ``chip_smoke.py``, the package from the working
+directory: run from the root of another checkout (``python
+/path/to/tools/time_dual.py``), it times that checkout's kernels (an
+older checkout's launches are recorded as its wrappers made them).
+``longest`` times, after the build, only the four entries at their
+largest tap bound (random filters of 31 taps, qshift pairs of 32 for
+``dfilt2`` and of 64 for ``ifilt2_sum``) on the 3-D round trip's depth
+axis in the three dtypes.  Exits 1 if a replayed launch disagrees with
+its plain version.
 """
 
 import collections
@@ -55,18 +57,23 @@ _spec.loader.exec_module(cs)
 import dtcwt_tpu_torch as dt  # noqa: E402
 from dtcwt_tpu_torch.ops import _build, dual, fb, single  # noqa: E402
 
-SUBJECTS = ("filter2_sum", "ifilt2_sum")
-CONTROLS = ("filter2", "dfilt2")
+SUBJECTS = ("filter2", "dfilt2")
+CONTROLS = ("filter2_sum", "ifilt2_sum")
+# the package's launch functions of the dual entries, recorded: this
+# checkout's _launch_stream, and an older checkout's _launch (analysis
+# entries) and _launch_sum (sums)
+LAUNCHERS = ("_launch", "_launch_sum", "_launch_stream")
 DTYPES = (("f32", torch.float32), ("bf16", torch.bfloat16),
           ("f64", torch.float64))
 
 
-def ptxas_start(work):
-    """Start ``nvcc -Xptxas -v`` on ``dual.cu`` (an object in *work*)."""
-    src = os.path.join(_build.CSRC, "dual.cu")
+def ptxas_start(work, name):
+    """Start ``nvcc -Xptxas -v`` on ``csrc/<name>.cu`` (an object in
+    *work*)."""
+    src = os.path.join(_build.CSRC, name + ".cu")
     return subprocess.Popen(
         [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
-         _build.CSRC, "-c", "-o", os.path.join(work, "dual.o"), src],
+         _build.CSRC, "-c", "-o", os.path.join(work, name + ".o"), src],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
@@ -90,11 +97,10 @@ def ptxas_print(proc) -> None:
 def record(run):
     """The dual kernels' launches of one call of *run*: {entry: [(launch
     function, args, kwargs)]}, each launch as the wrappers made it
-    (``dual._launch`` for every entry of a package whose sums are stream
-    kernels, ``dual._launch_sum`` for the sums where it exists)."""
+    (``dual._launch_stream``, or an older package's ``dual._launch`` and
+    ``dual._launch_sum``)."""
     calls = collections.defaultdict(list)
-    saved = {n: getattr(dual, n) for n in ("_launch", "_launch_sum")
-             if hasattr(dual, n)}
+    saved = {n: getattr(dual, n) for n in LAUNCHERS if hasattr(dual, n)}
 
     def recorder(fn):
         def rec(name, *a, **k):
@@ -132,7 +138,9 @@ def inputs(args):
 def shape_key(args, kwargs):
     """(input shape, axis, side) of a recorded launch."""
     x = inputs(args)[0]
-    if isinstance(args[1], list):   # _launch(name, ins, plans, groups, ...)
+    if isinstance(args[1], list):   # _launch_stream(name, ins, f, n, axis,
+        #                             side); an older _launch(name, ins,
+        #                             plans, groups, axis, side)
         axis, side = args[4], (args[5] if len(args) > 5 else
                                 kwargs.get("side"))
     else:                           # _launch_sum(name, a, b, f, axis, n, ..)
@@ -141,46 +149,66 @@ def shape_key(args, kwargs):
     return tuple(x.shape), axis, side
 
 
-def plain_of(name, args, kwargs):
-    """The plain version of a recorded sum launch, or None (the parent's
-    stream-kernel launches, an analysis entry)."""
-    if name not in SUBJECTS or isinstance(args[1], list):
+def filter_args(fn, args, kwargs):
+    """(inputs, filters, n, axis, side) of a recorded launch, the filters
+    as the entries take them (two filters or two pairs), or None for an
+    older package's analysis launch (its filters are plans)."""
+    name = args[0]
+    if fn.__name__ == "_launch_stream":
+        _, ins, f, n, axis = args[:5]
+        side = args[5] if len(args) > 5 else kwargs.get("side")
+    elif fn.__name__ == "_launch_sum":
+        _, a, b, f, axis, n = args[:6]
+        ins, side = [a, b], args[6] if len(args) > 6 else kwargs.get("side")
+    else:
         return None
-    _, a, b, f, axis, n = args[:6]
-    side = args[6] if len(args) > 6 else kwargs.get("side")
-    f = (tuple(f) if name == "filter2_sum" else (tuple(f[:2]), tuple(f[2:])))
+    f = (tuple(f) if name in ("filter2", "filter2_sum")
+         else (tuple(f[:2]), tuple(f[2:])))
+    return ins, f, n, axis, side
+
+
+def plain_of(fn, args, kwargs):
+    """The plain version of a recorded launch, or None."""
+    got = filter_args(fn, args, kwargs)
+    if got is None:
+        return None
+    ins, f, _, axis, side = got
+    name = args[0]
     if side is None:
-        return lambda: getattr(dual, name + "_axis_reference")(a, b, *f,
+        return lambda: getattr(dual, name + "_axis_reference")(*ins, *f,
                                                                axis)
     return lambda: getattr(dual, name + "_fromext_axis_reference")(
-        a, b, side, *f, axis)
+        *ins, side, *f, axis)
 
 
-def conv_call(args, dtype):
-    """One F.conv2d computing a recorded filter2_sum launch of the changed
-    package (both branches' reversed taps on a 2-channel input extended
-    outside the timed call), or None."""
-    if isinstance(args[1], list):
+def conv_call(fn, args, kwargs, dtype):
+    """One F.conv2d computing a recorded filter2 launch (both branches'
+    reversed taps as two output channels) or filter2_sum launch (as two
+    input channels), on inputs extended outside the timed call, or None."""
+    got = filter_args(fn, args, kwargs)
+    if got is None or args[0] not in ("filter2", "filter2_sum"):
         return None
-    _, a, b, f, axis, n = args[:6]
-    side = args[6] if len(args) > 6 else None
-    h = [np.asarray(v, np.float64).reshape(-1) for v in f]
+    ins, h, n, axis, side = got
+    h = [np.asarray(v, np.float64).reshape(-1) for v in h]
     p = max(v.size for v in h) // 2
-    w = torch.zeros((1, 2, 2 * p + 1, 1), dtype=torch.float64)
+    w = torch.zeros((2, 1, 2 * p + 1, 1), dtype=torch.float64)
     for c, v in enumerate(h):
         off = p - v.size // 2
-        w[0, c, off:off + v.size, 0] = torch.from_numpy(v[::-1].copy())
-    ax = fb._norm_axis(axis, a.ndim)
-    outer = int(np.prod(a.shape[:ax], dtype=np.int64))
+        w[c, 0, off:off + v.size, 0] = torch.from_numpy(v[::-1].copy())
+    x = ins[0]
+    ax = fb._norm_axis(axis, x.ndim)
+    outer = int(np.prod(x.shape[:ax], dtype=np.int64))
     ext = []
-    for x in (a, b):
+    for t in ins:
         if side is None:
-            e = fb.symmetric_extend(x, p, axis)
+            e = fb.symmetric_extend(t, p, axis)
         else:
-            e = x.narrow(axis, side - p, n + 2 * p)
+            e = t.narrow(axis, side - p, n + 2 * p)
         ext.append(e.reshape(outer, e.shape[ax], -1))
     inp = torch.stack(ext, 1).to(dtype).contiguous()
-    weight = w.to(a.device, dtype)
+    weight = w.to(x.device, dtype)
+    if len(ins) == 2:
+        weight = weight.transpose(0, 1).contiguous()
     return lambda: F.conv2d(inp, weight)
 
 
@@ -197,10 +225,12 @@ def time_entry(name, path, calls, dtypes, conv=True) -> int:
             cl = [(fn, cast(a, dtype), k) for fn, a, k in cl]
             outs = [fn(*a, **k) for fn, a, k in cl]
             torch.cuda.synchronize()
-            plain = plain_of(name, cl[0][1], cl[0][2])
+            plain = plain_of(*cl[0])
             err = float("nan")
             if plain is not None:
-                err = cs.rel_err(outs[0], plain())
+                got = outs[0]
+                err = cs.rel_err(tuple(got) if isinstance(got, list)
+                                 else got, plain())
                 bad += err > cs.TOL[dtype]
             nbytes = sum(cs.nbytes(inputs(a)) + cs.nbytes(o)
                          for (_, a, _), o in zip(cl, outs))
@@ -209,8 +239,7 @@ def time_entry(name, path, calls, dtypes, conv=True) -> int:
             ms = cs.cuda_ms(lambda: [fn(*a, **k) for fn, a, k in cl],
                             hold=True, reps=20)
             lms = float("nan")
-            lib = conv_call(cl[0][1], dtype) if (
-                conv and name == "filter2_sum") else None
+            lib = conv_call(*cl[0], dtype) if conv else None
             if lib is not None:
                 try:
                     lms = len(cl) * cs.cuda_ms(lib, hold=True, reps=10)
@@ -298,34 +327,38 @@ def time_controls(dev, trips) -> None:
 
 
 def time_longest(dev) -> int:
-    """Both sums at their largest tap bound (33), every tap random: odd
-    filters of 31 taps (filter2_sum) and qshift pairs of 64 (ifilt2_sum),
-    along the depth axis of the 3-D 256^3 round trip's volumes, in the
-    three dtypes, against their byte bound and plain version; returns the
-    number over tolerance."""
+    """The four entries at their largest tap bound, every tap random:
+    filters of 31 taps (filter2, filter2_sum; bound 33), qshift pairs of 32
+    (dfilt2; bound 32) and of 64 (ifilt2_sum; bound 33), along the depth
+    axis of the 3-D 256^3 round trip's volumes, in the three dtypes,
+    against their byte bound and plain version; returns the number over
+    tolerance."""
     rs = np.random.RandomState(5)
-    cases = (("filter2_sum", (1, 256, 256, 256),
+    cases = (("filter2", (1, 256, 256, 256), 1,
               (rs.randn(31), rs.randn(31))),
-             ("ifilt2_sum", (1, 128, 256, 256),
+             ("dfilt2", (1, 256, 256, 256), 1,
+              ((rs.randn(32), rs.randn(32)), (rs.randn(32), rs.randn(32)))),
+             ("filter2_sum", (1, 256, 256, 256), 2,
+              (rs.randn(31), rs.randn(31))),
+             ("ifilt2_sum", (1, 128, 256, 256), 2,
               ((rs.randn(64), rs.randn(64)), (rs.randn(64), rs.randn(64)))))
     bad = 0
-    for name, shape, f in cases:
+    for name, shape, n_in, f in cases:
         kern = getattr(dual, name + "_axis")
         plain = getattr(dual, name + "_axis_reference")
         for label, dtype in DTYPES:
-            a = cs.rand(shape, 51, dev, dtype)
-            b = cs.rand(shape, 52, dev, dtype)
-            out = kern(a, b, *f, -3)
-            err = cs.rel_err(out, plain(a, b, *f, -3))
+            ins = [cs.rand(shape, 51 + i, dev, dtype) for i in range(n_in)]
+            out = kern(*ins, *f, -3)
+            err = cs.rel_err(out, plain(*ins, *f, -3))
             bad += err > cs.TOL[dtype]
-            bms, _ = cs.bound(cs.nbytes([a, b]) + cs.nbytes(out), 0)
+            bms, _ = cs.bound(cs.nbytes(ins) + cs.nbytes(out), 0)
             del out
-            ms = cs.cuda_ms(lambda: kern(a, b, *f, -3), hold=True, reps=20)
+            ms = cs.cuda_ms(lambda: kern(*ins, *f, -3), hold=True, reps=20)
             print("%s longest %s %s axis -3: kernel %.4f ms, bound %.4f ms, "
                   "%.1f%% of the bound, rel err %.3g" % (
                       name, label, "x".join(map(str, shape)), ms, bms,
                       100 * bms / ms, err), flush=True)
-            del a, b
+            del ins
     return bad
 
 
@@ -347,11 +380,12 @@ def main() -> int:
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as work:
         built = glob.glob(os.path.join(_build.BUILD_DIR, "*.so"))
-        proc = None if built else ptxas_start(work)
+        procs = [] if built else [ptxas_start(work, n)
+                                  for n in ("dual", "single")]
         t0 = time.perf_counter()
         _build.library()
         print("build: %.1f s" % (time.perf_counter() - t0), flush=True)
-        if proc is not None:
+        for proc in procs:
             ptxas_print(proc)
     if sys.argv[1:] == ["longest"]:
         with torch.no_grad():

@@ -10,9 +10,9 @@ kernels, on one NVIDIA GPU.
     python tools/time_variant.py VARIANT.cu \
         dtcwt_filter_hw22,dtcwt_dfilt_hw22 hw kernels
     python tools/time_variant.py VARIANT.cu \
-        dtcwt_filter2_sum,dtcwt_ifilt2_sum dual kernels
-    python tools/time_variant.py VARIANT.cu dtcwt_filter2_sum dual \
-        kernels --set 'dual._COL_GROUPS={1: 16, 4: 4}'
+        dtcwt_filter2,dtcwt_dfilt2 dual kernels
+    python tools/time_variant.py VARIANT.cu dtcwt_filter2,dtcwt_dfilt2 \
+        dual kernels --set 'dual._COL_TX={2: 64, 4: 32, 8: 256}'
 
 Compiles ``VARIANT.cu`` (an edited copy of a ``csrc/*.cu`` file; its
 includes are searched in its own directory first, then in ``csrc/``, so a
@@ -23,8 +23,9 @@ or several, comma-separated: ``dtcwt_level2``, ``dtcwt_level1``,
 ``dtcwt_ilevel1``, ``dtcwt_ilevel2``, ``dtcwt_fwd_level1_pack``,
 ``dtcwt_fwd_level2_pack``, ``dtcwt_inv_level1_pack``,
 ``dtcwt_inv_level2_pack``, ``dtcwt_filter_hw22``, ``dtcwt_dfilt_hw22``,
-``dtcwt_filter_sum_hw22``, ``dtcwt_ifilt_sum_hw22``, ``dtcwt_filter2_sum``,
-``dtcwt_ifilt2_sum``) to it and every other entry to the package's
+``dtcwt_filter_sum_hw22``, ``dtcwt_ifilt_sum_hw22``, ``dtcwt_filter2``,
+``dtcwt_dfilt2``, ``dtcwt_filter2_sum``, ``dtcwt_ifilt2_sum``) to it and
+every other entry to the package's
 library, then runs ``tools/time_level1.py`` in the given mode,
 ``tools/time_pack3d.py`` for the mode ``pack3d``, ``tools/time_hw.py`` for
 the mode ``hw`` or ``tools/time_dual.py`` for the mode ``dual`` (a last
