@@ -25,7 +25,8 @@ complex float32, float32 planes, bfloat16 planes):
   (near_sym_a's h0o and h1o), ``coldfilt`` / ``rowdfilt`` (qshift_a's
   (h0b, h0a)) and ``colifilt`` / ``rowifilt`` ((g0b, g0a)) on a 4096 x 4096
   image, float32 and bfloat16 (``filter`` of ``csrc/filter.cu``, ``dfilt``
-  and ``ifilt`` of ``csrc/single.cu``);
+  and ``ifilt`` of ``csrc/single.cu``: the one-branch instances of the
+  dual kernels' ``csrc/streamana.cuh`` and ``csrc/streamsum.cuh``);
 * ``compat``: ``dtwavexfm3(v, 3, discard_level_1=True)`` / ``dtwaveifm3``
   at 256^3, ``dtwavexfm2`` / ``dtwaveifm2`` at 4096^2 and ``dtwavexfm`` /
   ``dtwaveifm`` at ``[131072, 128]``, and ``Transform2d.forward_channels``
@@ -159,7 +160,6 @@ _ANA_SRC = "dtcwt_tpu_torch/csrc/streamana.cuh"
 _SUM_SRC = "dtcwt_tpu_torch/csrc/streamsum.cuh"
 _PACK_SRC = "dtcwt_tpu_torch/csrc/pack3d.cu"
 _IPACK_SRC = "dtcwt_tpu_torch/csrc/ipack.cuh"
-_SINGLE_SRC = "dtcwt_tpu_torch/csrc/single.cu"
 _FILTER_SRC = "dtcwt_tpu_torch/csrc/filter.cu"
 _HWANA_SRC = "dtcwt_tpu_torch/csrc/hwana.cuh"
 _HWSUM_SRC = "dtcwt_tpu_torch/csrc/hwsum.cuh"
@@ -181,8 +181,8 @@ KERNELS = {   # name -> (CUDA source, the TPU kernel it replaces)
     "fwd_level2_pack": (_PACK_SRC, "dtcwt_tpu/ops/pallas_pack3d.py:503"),
     "inv_level2_pack": (_IPACK_SRC, "dtcwt_tpu/ops/pallas_pack3d.py:549"),
     "filter": (_FILTER_SRC, "dtcwt_tpu/ops/pallas_fb.py:492"),
-    "dfilt": (_SINGLE_SRC, "dtcwt_tpu/ops/pallas_fb.py:642"),
-    "ifilt": (_SINGLE_SRC, "dtcwt_tpu/ops/pallas_fb.py:791"),
+    "dfilt": (_ANA_SRC, "dtcwt_tpu/ops/pallas_fb.py:642"),
+    "ifilt": (_SUM_SRC, "dtcwt_tpu/ops/pallas_fb.py:791"),
     "filter_hw22": (_HWANA_SRC, "dtcwt_tpu/ops/pallas_hw.py:145"),
     "dfilt_hw22": (_HWANA_SRC, "dtcwt_tpu/ops/pallas_hw.py:155"),
     "filter_sum_hw22": (_HWSUM_SRC, "dtcwt_tpu/ops/pallas_hw.py:223"),

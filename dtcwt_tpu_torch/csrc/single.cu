@@ -9,15 +9,21 @@
 // _build_dfilt, _build_ifilt; entries dfilt_axis, ifilt_axis and their
 // *_fromext_axis forms).  The TPU kernels' banded MXU operators, sublane
 // transposes and 128-lane envelope are not carried over: on the H100 these
-// are direct FIRs on the stream plans.  The third, the non-decimating
-// filter (_build_filter), has a kernel of its own in filter.cu.
+// are direct FIRs on the host's stream plans.  The third, the
+// non-decimating filter (_build_filter), has a kernel of its own in
+// filter.cu.
 //
-// Each is an instance of the stream-plan kernel in streams.cuh, which
-// holds the design (stream plans, [outer, n, inner] tiling, reflect and
-// from-extension modes) and its bound: device memory bytes, each input
-// read once and each output written once.
-#include "streams.cuh"
+// Each is the one-branch instance of a dual kernel's design: dfilt that of
+// dual.cu's dfilt2 (streamana.cuh, NB = 1), ifilt that of its ifilt2_sum
+// (streamsum.cuh, NIN = 1), on the pieces of streamtile.cuh and taps.cuh:
+// taps by value under a compile-time bound, columns or staged rows, every
+// output written once, the tiling chosen by ops/dual.py _stream_geometry.
+// Their bound is device memory bytes, each input read once and each output
+// written once.  dual.cu includes the same headers, and both objects link
+// into one library: what the headers define is a template or inline.
+#include "streamana.cuh"
+#include "streamsum.cuh"
 
-//                  name         P  D  S
-DTCWT_STREAM_EXPORT(dtcwt_dfilt, 2, 4, 2)
-DTCWT_STREAM_EXPORT(dtcwt_ifilt, 4, 2, 2)
+//                name         P
+DTCWT_ANA1_EXPORT(dtcwt_dfilt, 2)
+DTCWT_SUM1_EXPORT(dtcwt_ifilt, 4)

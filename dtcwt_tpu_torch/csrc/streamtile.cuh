@@ -1,9 +1,11 @@
 // The pieces of the Hopper tiling of the 1-D stream kernels (CUDA C++,
-// sm_90a): filter.cu's two paths, for two branch filters whose taps travel
-// by value under a compile-time bound MT (taps.cuh).  The analysis entries
-// of dual.cu (streamana.cuh: filter2, dfilt2: one input, two branch
-// outputs) and its synthesis sums (streamsum.cuh: filter2_sum, ifilt2_sum:
-// two inputs, one output) run on them.
+// sm_90a): filter.cu's two paths, for NB branch filters (two, or one)
+// whose taps travel by value under a compile-time bound MT (taps.cuh).
+// The analysis kernels of streamana.cuh (dual.cu's filter2 and dfilt2: one
+// input, two branch outputs; single.cu's dfilt: one input, one output) and
+// the synthesis kernels of streamsum.cuh (dual.cu's filter2_sum and
+// ifilt2_sum: two inputs summed into one output; single.cu's ifilt: one
+// input, one output) run on them.
 //
 // The filtered axis of a contiguous tensor is viewed as [outer, n_in,
 // inner].  A branch is P output streams of groups g (taps.cuh): filter P =
@@ -23,11 +25,13 @@
 //   from each input, coalesced across the warp (st_load_row), and adds
 //   each row into every output it reaches (st_fir, st_fir_dec,
 //   st_fir_pairs): no shared memory.
-// * Rows (inner = 1): a block stages a flat range of each input, its halo
+// * Rows (inner = 1): a block takes a segment of groups of some outer rows
+//   (st_row_block) and stages a flat range of each input, its halo
 //   included, into shared memory with 16-byte cp.async copies, a head and
-//   a tail a value at a time taking any alignment (st_stage_flat); a
-//   thread then takes GV consecutive groups from a register window of
-//   each input (st_row_window).
+//   a tail a value at a time taking any alignment (st_stage_flat,
+//   st_stage_rows); a thread then takes items of GV consecutive groups
+//   (st_row_items), each from a register window of each input
+//   (st_row_window).
 //
 // The host chooses the path and the tiling (ops/dual.py _stream_geometry)
 // and passes them in as an StTile; the C entries refuse any other.
@@ -41,6 +45,9 @@ namespace dtcwt {
 
 constexpr int ST_THREADS = 256;
 constexpr int ST_SMEM_MAX = 227 * 1024;  // dynamic shared memory a block
+// Rows path, the one-branch entries: above this tap bound an item's window
+// is read and summed in chunks of taps (st_row_chunk).
+constexpr int ST_ROW_CHUNK_ABOVE = 18;
 
 // Samples a group steps: filter 1, dfilt 4, ifilt 2.
 template <int P> __host__ __device__ constexpr int st_step() {
@@ -50,13 +57,14 @@ template <int P> __host__ __device__ constexpr int st_step() {
 template <int P> __host__ __device__ constexpr int st_tap_step() {
   return P == 1 ? 1 : 2;
 }
-// Columns path: output groups a thread, by the inputs NIN: the analysis
-// entries (one input, two branches' accumulators) filter 4 outputs, dfilt
-// 2 groups of 2; the sums (two inputs, one set) filter 8, ifilt 4 groups
-// of 4.
-template <int P, int NIN>
+// Columns path: output groups a thread, by streams P, inputs NIN and
+// branches NB (ops/dual.py _COL_GROUPS): the analysis entries (one input,
+// two branches' accumulators) filter 4 outputs, dfilt 2 groups of 2; the
+// sums (two inputs, one set) filter 8, ifilt 4 groups of 4; the one-branch
+// entries (one input, one set) dfilt 2 groups of 2, ifilt 2 groups of 4.
+template <int P, int NIN, int NB>
 __host__ __device__ constexpr int st_col_groups() {
-  return NIN == 1 ? (P == 1 ? 4 : 2) : (P == 1 ? 8 : 4);
+  return NB == 1 ? 2 : NIN == 1 ? (P == 1 ? 4 : 2) : (P == 1 ? 8 : 4);
 }
 // Rows path: groups a thread item, P GV outputs of 16 bytes of storage
 // (float64 ifilt: one group, 32 bytes).
@@ -187,17 +195,116 @@ __device__ __forceinline__ int st_stage_flat(const T* src, T* region,
   return pad;
 }
 
+// Rows path, the one-branch entries: taps a chunk, 128 bytes of a
+// branch's P streams' taps in the accumulator type A (dfilt 16, float64
+// 8; ifilt float64 4), the chunk size that ran fastest at the largest tap
+// bound against half and twice it.
+template <typename A, int P> __host__ __device__ constexpr int st_row_chunk() {
+  return 128 / (P * static_cast<int>(sizeof(A)));
+}
+
+// Rows path: the share of block blockIdx.x, segment blockIdx.x % n_seg
+// (groups [s0, s0 + L) of gn, lr of them) of the R outer rows from o0
+// (rows of them), and the flat range it stages of each input: len values
+// from in-row sample sa of row o0, the windows of its groups, group s0's
+// starting at in-row sample j00.
+struct StRowBlock {
+  int64_t o0;
+  int rows, s0, lr, j00, sa, len;
+};
+
+template <int P, int MT>
+__device__ __forceinline__ StRowBlock st_row_block(int outer, int n_in,
+                                                   int gn, int side, int R,
+                                                   int L, int n_seg) {
+  StRowBlock b;
+  b.s0 = static_cast<int>(blockIdx.x % n_seg) * L;
+  b.o0 = static_cast<int64_t>(blockIdx.x / n_seg) * R;
+  b.rows = static_cast<int>(
+      outer - b.o0 < static_cast<int64_t>(R) ? outer - b.o0 : R);
+  b.lr = gn - b.s0 < L ? gn - b.s0 : L;
+  b.j00 = st_step<P>() * b.s0 - st_tap_step<P>() * ((MT - 1) / 2) + side;
+  b.sa = b.j00 > 0 ? b.j00 : 0;
+  const int sb = b.j00 + st_span<P, MT>(L) < n_in ? b.j00 + st_span<P, MT>(L)
+                                                   : n_in;
+  b.len = (b.rows - 1) * n_in + (sb - b.sa);
+  return b;
+}
+
+// Rows path: stage block bk's flat range of the input a, and of b where
+// NIN = 2, into the regions xs and xs + rb, pad[i] values in
+// (st_stage_flat), and wait for them.
+template <typename T, int NIN>
+__device__ __forceinline__ void st_stage_rows(const T* a, const T* b,
+                                              T* xs, int rb, int n_in,
+                                              const StRowBlock& bk,
+                                              int (&pad)[NIN]) {
+  const int64_t f0 = bk.o0 * n_in + bk.sa;
+  pad[0] = st_stage_flat(a + f0, xs, bk.len);
+  if constexpr (NIN == 2) pad[1] = st_stage_flat(b + f0, xs + rb, bk.len);
+  cp_async_wait_all();
+  __syncthreads();
+}
+
+// Whether an item's windows lie inside their row, as a type.
+template <bool B> struct StFast {
+  static constexpr bool value = B;
+};
+
+// Rows path: block b's items of GV groups, item(r, q, StFast<FAST>) for
+// staged row r and item q (groups s0 + q GV ..) in turn over the block's
+// threads.  Items [q_lo, q_hi) read inside their row (FAST); the others,
+// at the row's ends, reflect or read zero, in a loop of their own so that
+// no warp of the interior diverges.
+template <int P, int MT, int GV, typename Item>
+__device__ __forceinline__ void st_row_items(const StRowBlock& b, int n_in,
+                                             Item&& item) {
+  constexpr int D = st_step<P>();
+  constexpr int NW = st_span<P, MT>(GV);  // an item's window samples
+  const int items = (b.lr + GV - 1) / GV;
+  const int lo = -b.j00;             // j0 >= 0 <=> q D GV >= lo
+  const int hi = n_in - NW - b.j00;  // j0 + NW <= n_in <=> q D GV <= hi
+  const int q_lo = lo > 0 ? min(items, (lo + D * GV - 1) / (D * GV)) : 0;
+  const int q_hi =
+      max(q_lo, min(items, hi < 0 ? 0 : hi / (D * GV) + 1));
+  const int ni = q_hi - q_lo, ne = items - ni;
+  for (int it = threadIdx.x; it < b.rows * ni; it += ST_THREADS) {
+    const int r = it / ni;
+    item(r, q_lo + it - r * ni, StFast<true>{});
+  }
+  for (int it = threadIdx.x; it < b.rows * ne; it += ST_THREADS) {
+    const int r = it / ne, k = it - r * ne;
+    item(r, k < q_lo ? k : q_hi + k - q_lo, StFast<false>{});
+  }
+}
+
 // Rows path: w[t] = sample j0 + t of a staged row whose in-row sample j
-// is xs[rbase + j], t < NW.  FAST: the window lies inside the row.
-// Otherwise each sample is read at source() of the axis, zero where it
-// reads as zero, its cell clamped to the staged cells [lo, hi]: the clamp
-// moves only reads that no stored output takes.
-template <typename T, typename A, int NW, bool FAST>
+// is xs[rbase + j], t < NW.  FAST: the window lies inside the row; VEC: it
+// is read in 16-byte vectors where it starts on one (the last vector may
+// run up to a vector's end past the window, inside the staged region,
+// whose size is a multiple of a vector).  Otherwise each sample is read at
+// source() of the axis, zero where it reads as zero, its cell clamped to
+// the staged cells [lo, hi]: the clamp moves only reads that no stored
+// output takes.
+template <typename T, typename A, int NW, bool FAST, bool VEC = false>
 __device__ __forceinline__ void st_row_window(const T* xs, int rbase,
                                               int j0, int n_in, int refl,
                                               int lo, int hi, A (&w)[NW]) {
   if constexpr (FAST) {
     const T* p = xs + rbase + j0;
+    if constexpr (VEC) {
+      constexpr int V = vec16<T>();
+      if (reinterpret_cast<uintptr_t>(p) % 16 == 0) {
+#pragma unroll
+        for (int c = 0; c < (NW + V - 1) / V; ++c) {
+          const Vec<T, V> pk = *reinterpret_cast<const Vec<T, V>*>(p + c * V);
+#pragma unroll
+          for (int u = 0; u < V; ++u)
+            if (c * V + u < NW) w[c * V + u] = load(&pk.v[u]);
+        }
+        return;
+      }
+    }
 #pragma unroll
     for (int t = 0; t < NW; ++t) w[t] = load(p + t);
   } else {
@@ -257,9 +364,9 @@ bool st_rows_tile(const StTile& t, int inner, int n_in, int gn, int inputs,
 // Columns path: whether the host's tiling t is one the instance runs (RV
 // groups a thread, a power of two of threads across inner, seg groups a
 // block), and lgTX.
-template <int P, int NIN>
+template <int P, int NIN, int NB>
 bool st_cols_tile(const StTile& t, int inner, int* lgTX) {
-  constexpr int RV = st_col_groups<P, NIN>();
+  constexpr int RV = st_col_groups<P, NIN, NB>();
   if (t.path != 1 || inner < 2 || t.v != RV || t.rows != 1 || t.tx < 1 ||
       t.tx > ST_THREADS || (t.tx & (t.tx - 1)) ||
       t.seg != (ST_THREADS / t.tx) * RV || t.smem != 0)
@@ -271,8 +378,8 @@ bool st_cols_tile(const StTile& t, int inner, int* lgTX) {
 
 // The plans' taps at the least tap bound of the instance set st_bound<P>
 // that holds them; returns it, 0 where none does.
-template <typename A, int P>
-int st_fill_taps(HsTaps<A, P>* tp, const double* taps, const int* lens,
+template <typename A, int P, int NB>
+int st_fill_taps(HsTaps<A, P, NB>* tp, const double* taps, const int* lens,
                  const int* offs) {
   for (int e = 0; e < HS_BOUNDS; ++e)
     if (make_hs_taps<A, P>(tp, taps, lens, offs, st_bound<P>(e)))

@@ -1,8 +1,9 @@
-// Taps by value under a compile-time bound, for the kernels whose two
-// branch filters run as host stream plans (CUDA C++, sm_90a): the hw
-// kernels of hw.cu (hwtile.cuh) and the 1-D stream kernels of dual.cu
+// Taps by value under a compile-time bound, for the kernels whose branch
+// filters run as host stream plans (CUDA C++, sm_90a): the hw kernels of
+// hw.cu (hwtile.cuh) and the 1-D stream kernels of dual.cu and single.cu
 // (streamtile.cuh: the analysis entries of streamana.cuh, the sums of
-// streamsum.cuh).
+// streamsum.cuh, each with two branches or, single.cu's dfilt and ifilt,
+// one).
 //
 // A branch's filter is P output streams (host plans: dual._filter_plan,
 // level2.dfilt_streams, ilevel2.ifilt_streams),
@@ -23,12 +24,13 @@ namespace dtcwt {
 
 constexpr int HS_K = 33;     // the largest tap bound
 
-// The two branch filters' taps by value: t[b][s][m] multiplies the window
-// sample m of stream s of branch b (ifilt: of the parity (s & 1) ^ sw[b];
-// dfilt: of the parity s, the host having swapped the streams where sw[b]).
-template <typename A, int P> struct HsTaps {
-  A t[2][P][HS_K];
-  int sw[2];
+// The NB branch filters' taps by value (two, or one for single.cu's
+// entries): t[b][s][m] multiplies the window sample m of stream s of
+// branch b (ifilt: of the parity (s & 1) ^ sw[b]; dfilt: of the parity s,
+// the host having swapped the streams where sw[b]).
+template <typename A, int P, int NB = 2> struct HsTaps {
+  A t[NB][P][HS_K];
+  int sw[NB];
 };
 
 // The tap bounds of an instance set, 5 of each: P = 1 (filter, both
@@ -51,15 +53,15 @@ template <int P> constexpr int st_bound(int e) {
   return P == 1 && e == HS_BOUNDS - 1 ? HS_K : hs_bound<P>(e);
 }
 
-// Fill *tp from the host plan (taps [2][P][MAX_TAPS], lens and offs
-// [2][P]: stream s of branch b reads x[D g + offs + S k], k < lens) centred
-// on the halo of bound mt; false where a stream does not fit in it.
-template <typename A, int P>
-bool make_hs_taps(HsTaps<A, P>* tp, const double* taps, const int* lens,
+// Fill *tp from the host plan (taps [NB][P][MAX_TAPS], lens and offs
+// [NB][P]: stream s of branch b reads x[D g + offs + S k], k < lens)
+// centred on the halo of bound mt; false where a stream does not fit in it.
+template <typename A, int P, int NB>
+bool make_hs_taps(HsTaps<A, P, NB>* tp, const double* taps, const int* lens,
                   const int* offs, int mt) {
   if (mt > HS_K) return false;
   const int ph = (mt - 1) / 2;
-  for (int b = 0; b < 2; ++b) {
+  for (int b = 0; b < NB; ++b) {
     // qshift: the parity of stream 0's first sample sets the swap
     const int sw = P == 1 ? 0 : (offs[b * P] + 2 * ph) & 1;
     tp->sw[b] = sw;
@@ -86,10 +88,10 @@ bool make_hs_taps(HsTaps<A, P>* tp, const double* taps, const int* lens,
 
 // dfilt's taps by parity: stream s reads the parity s ^ sw, so a branch
 // whose first stream reads the odd samples has its two streams swapped.
-template <typename A, int P>
-void hs_taps_by_parity(HsTaps<A, P>* tp) {
+template <typename A, int P, int NB>
+void hs_taps_by_parity(HsTaps<A, P, NB>* tp) {
   if constexpr (P == 2) {
-    for (int b = 0; b < 2; ++b)
+    for (int b = 0; b < NB; ++b)
       if (tp->sw[b])
         for (int k = 0; k < HS_K; ++k) {
           const A t = tp->t[b][0][k];

@@ -63,11 +63,13 @@ _SIGNATURES = {
     "dtcwt_ilevel1": (_P,) * 4 + (_I,) * 3 + (_P, _I) * 3 + (_I,) * 6 + (
         _P,),
 }
-# the stream kernel of csrc/single.cu (csrc/streams.cuh): in0, out0, outer,
-# n_in, inner, g, refl, taps, lens, offs, dtype, stream
+# the one-branch entries of csrc/single.cu (dfilt of csrc/streamana.cuh,
+# ifilt of csrc/streamsum.cuh): x, y, outer, n_in, inner, g, side, refl,
+# taps, lens, offs, dtype, then the tiling (mt, path, v, vc, rows, seg, tx,
+# smem), and stream
 for _name in ("dfilt", "ifilt"):
-    _SIGNATURES["dtcwt_" + _name] = (_P, _P) + (_I,) * 5 + (_P,) * 3 + (
-        _I, _P)
+    _SIGNATURES["dtcwt_" + _name] = (_P,) * 2 + (_I,) * 6 + (_P,) * 3 + (
+        _I,) * 9 + (_P,)
 # the analysis entries of csrc/dual.cu (csrc/streamana.cuh): x, y0, y1,
 # outer, n_in, inner, g0, g1, side, refl, taps, lens, offs, dtype, then the
 # tiling (mt, path, v, vc, rows, seg, tx, smem), and stream

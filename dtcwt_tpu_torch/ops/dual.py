@@ -41,11 +41,11 @@ bound (:func:`_plan`, cached per filter set) and their tiling comes from
 filters of up to 32 taps of either parity (``filter2``, whose two
 branches may differ in parity and so in output length, and
 ``filter2_sum``), qshift pairs of up to 32 taps (``dfilt2``, two streams
-of 32) and of up to 64 (``ifilt2_sum``, four streams of up to 32).  The
-stream kernel of ``csrc/streams.cuh`` runs :mod:`single`'s ``dfilt`` and
-``ifilt`` (``csrc/single.cu``), launched by :func:`_launch` with the
-streams' taps in a device table; :mod:`single`'s ``filter`` has a kernel
-of its own (``csrc/filter.cu``).
+of 32) and of up to 64 (``ifilt2_sum``, four streams of up to 32).
+:mod:`single`'s ``dfilt`` and ``ifilt`` (``csrc/single.cu``) are the
+one-branch instances of the same two kernels, launched here too, and take
+the same pairs; :mod:`single`'s ``filter`` has a kernel of its own
+(``csrc/filter.cu``).
 """
 
 from __future__ import annotations
@@ -74,14 +74,12 @@ __all__ = [
 
 _MAX_TAPS = 32      # csrc/common.cuh MAX_TAPS, per output stream
 _INT_MAX = 2 ** 31 - 1
-# stream kernel (ops/single) -> (streams P, input step per group D, tap step
-# S): its one branch writes Y[P g + s] = sum_k t[s][k] x[D g + c[s] + S k]
-_GEOM = {"dfilt": (2, 4, 2), "ifilt": (4, 2, 2)}
-# dual entry -> (streams P, D, S) of its two branches' plans
+# stream entry -> (streams P, input step per group D, tap step S) of its
+# branches' plans, each writing Y[P g + s] = sum_k t[s][k] x[D g + c[s] +
+# S k]: the dual entries' two branches, single's dfilt and ifilt one
 _STREAM_GEOM = {"filter2": (1, 1, 1), "dfilt2": (2, 4, 2),
-                "filter2_sum": (1, 1, 1), "ifilt2_sum": (4, 2, 2)}
-
-_device_taps = {}   # (taps bytes, device) -> float64 tap table on the card
+                "filter2_sum": (1, 1, 1), "ifilt2_sum": (4, 2, 2),
+                "dfilt": (2, 4, 2), "ifilt": (4, 2, 2)}
 
 
 # ---------------------------------------------------------------------------
@@ -135,8 +133,8 @@ def _filter_plan(h):
     return h[::-1][None, :], (-(h.size // 2),)
 
 
-def _pairs(pair0, pair1):
-    pairs = [tuple(fb._as_taps(h) for h in p) for p in (pair0, pair1)]
+def _pairs(*pairs):
+    pairs = [tuple(fb._as_taps(h) for h in p) for p in pairs]
     for ha, hb in pairs:
         fb._check_pair(ha, hb)
     return pairs
@@ -170,17 +168,6 @@ def _table(plans):
         lens += [t.shape[1]] * P
         offs += list(o)
     return taps, _build.ints_arg(lens), _build.ints_arg(offs)
-
-
-def _tap_table(plans, device) -> torch.Tensor:
-    """The streams' taps as the stream kernel's [P][MAX_TAPS] float64 table
-    on *device*, built once per filter set and device."""
-    buf = _table(plans)[0]
-    key = (buf.tobytes(), str(device))
-    table = _device_taps.get(key)
-    if table is None:
-        table = _device_taps[key] = torch.from_numpy(buf).to(device)
-    return table
 
 
 def _axis_view(name: str, ins, axis: int):
@@ -225,49 +212,20 @@ def _check_sizes(name: str, outer: int, n_in: int, inner: int,
                          "kernel's 32-bit sizes" % (name, outer, n_in, inner))
 
 
-def _launch(name: str, x: torch.Tensor, plan, g: int, axis: int,
-            side=None) -> torch.Tensor:
-    """Run stream kernel *name* (``dfilt`` or ``ifilt`` of
-    :mod:`single`) on the contiguous CUDA tensor *x* along *axis*: the
-    streams ``plan = (taps [P, m], offsets)`` write ``P * g`` samples.
-    *side*: the input is extended by that many samples per side
-    (from-extension mode) instead of reflected."""
-    _build.check_no_grad(name, [x])
-    P, D, S = _GEOM[name]
-    ax, outer, n_in, inner, code = _axis_view(name, [x], axis)
-    _check_reach(name, [plan], [g], D, S, n_in, side)
-    _check_sizes(name, outer, n_in, inner, P * g)
-    shape = list(x.shape)
-    shape[ax] = P * g
-    y = torch.empty(shape, dtype=x.dtype, device=x.device)
-    if g < 1 or outer * inner == 0:
-        return y
-    table = _tap_table([plan], x.device)
-    lens = _build.ints_arg([plan[0].shape[1]] * P)
-    offs = _build.ints_arg([o + (side or 0) for o in plan[1]])
-    err = getattr(_build.library(), "dtcwt_" + name)(
-        x.data_ptr(), y.data_ptr(), outer, n_in, inner, g,
-        int(side is None), table.data_ptr(), lens.ctypes.data,
-        offs.ctypes.data, code, _build.stream_ptr(x.device))
-    _build.check(name, err)
-    _build.count(name)
-    return y
-
-
 # ---------------------------------------------------------------------------
-# the dual entries' kernels (csrc/streamana.cuh, csrc/streamsum.cuh): plans,
-# tiling, launch
+# the stream kernels (csrc/streamana.cuh, csrc/streamsum.cuh) of the dual
+# entries and of single's dfilt and ifilt: plans, tiling, launch
 # ---------------------------------------------------------------------------
 
 def _inv_taps(plans, P: int, mt: int):
     """The plans' taps centred on the halo of tap bound *mt*
     (csrc/taps.cuh make_hs_taps, csrc/ipack.cuh make_ip_taps): ``(t
-    [2][P][mt], sw [2])``, t[b][s][k] multiplying window sample k of stream
-    s of branch b (qshift streams: of the parity ``(s & 1) ^ sw[b]``), or
-    None where a stream does not fit."""
+    [branches][P][mt], sw [branches])``, t[b][s][k] multiplying window
+    sample k of stream s of branch b (qshift streams: of the parity ``(s &
+    1) ^ sw[b]``), or None where a stream does not fit."""
     ph = (mt - 1) // 2
-    t = np.zeros((2, P, mt))
-    sw = [0, 0]
+    t = np.zeros((len(plans), P, mt))
+    sw = [0] * len(plans)
     for b, (taps, offs) in enumerate(plans):
         if P > 1:
             sw[b] = (offs[0] + 2 * ph) & 1
@@ -282,7 +240,7 @@ def _inv_taps(plans, P: int, mt: int):
     return t, sw
 
 
-#: Tap bounds of the dual entries' instances by streams P, every dtype
+#: Tap bounds of the stream kernels' instances by streams P, every dtype
 #: (csrc/taps.cuh st_bound): filter 5 (legall), 7 (near_sym_a), 9
 #: (antonini), 19 (near_sym_b) or 33, whose halo holds 32 taps of either
 #: parity; dfilt a stream's window in sample pairs, 10 (qshift_06,
@@ -295,7 +253,7 @@ _TAP_BOUNDS = {1: (5, 7, 9, 19, 33), 2: (10, 14, 16, 18, 32),
 
 
 def _tap_bound(plans, P: int) -> int:
-    """The least tap bound of the dual entries' instances that holds the
+    """The least tap bound of the stream kernels' instances that holds the
     plans."""
     for mt in _TAP_BOUNDS[P]:
         if _inv_taps(plans, P, mt) is not None:
@@ -306,8 +264,9 @@ def _tap_bound(plans, P: int) -> int:
 
 class _Plan(NamedTuple):
     """A filter set's launch arguments: the host tap table, lens and
-    offsets (kept alive here across launches), the plans, the parity of
-    each branch's filter (filter2, filter2_sum) and the tap bound."""
+    offsets (kept alive here across launches), the plans (a branch each),
+    the parity of each branch's filter (filter2, filter2_sum) and the tap
+    bound."""
     taps: np.ndarray
     lens: np.ndarray
     offs: np.ndarray
@@ -320,9 +279,10 @@ _PLANS = {}
 
 
 def _plan(name: str, filters) -> _Plan:
-    """The launch arguments of dual entry *name*'s filter set (*filters*:
-    the two filters, or the two pairs' four), planned once per filter set
-    (keyed by the filters' values) and cached."""
+    """The launch arguments of stream entry *name*'s filter set
+    (*filters*: the two filters, the two pairs' four, or single's dfilt and
+    ifilt one pair's two), planned once per filter set (keyed by the
+    filters' values) and cached."""
     f = [fb._as_taps(v) for v in filters]
     key = (name,) + tuple(v.tobytes() for v in f)
     plan = _PLANS.get(key)
@@ -333,7 +293,7 @@ def _plan(name: str, filters) -> _Plan:
         plans = [_filter_plan(f[0]), _filter_plan(f[1])]
     else:
         streams = dfilt_streams if P == 2 else ifilt_streams
-        plans = [streams(*p) for p in _pairs(f[:2], f[2:])]
+        plans = [streams(*p) for p in _pairs(*zip(f[::2], f[1::2]))]
     taps, lens, offs = _table(plans)
     plan = _Plan(taps, lens, offs, plans, (f[0].size % 2, f[1].size % 2),
                  _tap_bound(plans, P))
@@ -348,10 +308,12 @@ _THREADS = 256          # csrc/streamtile.cuh ST_THREADS
 # spans four group rows, whose windows overlap in L1; float64 runs faster
 # on rows of 256 threads)
 _COL_TX = {2: 64, 4: 64, 8: 256}
-# st_col_groups: groups a columns-path thread by (streams P, inputs): the
-# analysis entries (their two branches' accumulators) filter 4 outputs,
-# dfilt 2 groups of 2; the sums filter 8, ifilt 4 groups of 4
-_COL_GROUPS = {(1, 1): 4, (2, 1): 2, (1, 2): 8, (4, 2): 4}
+# st_col_groups: groups a columns-path thread by (streams P, inputs,
+# branches): the analysis entries (their two branches' accumulators)
+# filter 4 outputs, dfilt 2 groups of 2; the sums filter 8, ifilt 4 groups
+# of 4; single's one-branch dfilt 2 groups of 2, ifilt 2 groups of 4
+_COL_GROUPS = {(1, 1, 2): 4, (2, 1, 2): 2, (1, 2, 2): 8, (4, 2, 2): 4,
+               (2, 1, 1): 2, (4, 1, 1): 2}
 # columns path: a grid of fewer blocks than this (under one an SM of the
 # H100's 132) takes one column a thread, 2-4 times the blocks
 _FEW_BLOCKS = 132
@@ -362,7 +324,7 @@ _STEPS = {geo[0]: geo[1:] for geo in _STREAM_GEOM.values()}
 
 
 class StreamGeometry(NamedTuple):
-    """The tiling of one dual launch (``csrc/streamtile.cuh``), over the
+    """The tiling of one stream launch (``csrc/streamtile.cuh``), over the
     output groups (filter: an output; dfilt: two, ifilt: four, one of each
     stream).
 
@@ -404,13 +366,15 @@ def _cdiv(a: int, b: int) -> int:
 @functools.lru_cache(maxsize=4096)
 def _stream_geometry(P: int, outer: int, n_in: int, inner: int, g: int,
                      mt: int, itemsize: int, aligned: bool,
-                     inputs: int = 2) -> StreamGeometry:
-    """The tiling of a dual entry with *P* streams a branch (1: filter2 or
-    filter2_sum, 2: dfilt2, 4: ifilt2_sum) on *inputs* ``[outer, n_in,
-    inner]`` inputs (2: a sum; 1: an analysis entry) into outputs of ``g``
-    groups (the longer branch's) at tap bound *mt*, for elements of
-    *itemsize* bytes; *aligned*: the inputs and the outputs start on a
-    column vector (16 bytes, bfloat16 8).  Rows path for ``inner = 1``;
+                     inputs: int = 2, branches: int = 2) -> StreamGeometry:
+    """The tiling of a stream entry with *P* streams a branch (1: filter2
+    or filter2_sum, 2: dfilt2 or dfilt, 4: ifilt2_sum or ifilt) on *inputs*
+    ``[outer, n_in, inner]`` inputs (2: a sum; 1: an analysis entry or
+    single's dfilt and ifilt) and *branches* filters (2: a dual entry; 1:
+    single's) into outputs of ``g`` groups (the longer branch's) at tap
+    bound *mt*, for elements of *itemsize* bytes; *aligned*: the inputs and
+    the outputs start on a column vector (16 bytes, bfloat16 8).  Rows path
+    for ``inner = 1``;
     else the columns path, a thread owning a column vector where inner and
     *aligned* allow it and the grid keeps ``_FEW_BLOCKS`` blocks, one
     column otherwise.  Cached: the transforms ask for the same tiling at
@@ -430,7 +394,7 @@ def _stream_geometry(P: int, outer: int, n_in: int, inner: int, g: int,
         return StreamGeometry("rows", mt, gv, 1, rows, seg, 1,
                               (_cdiv(outer, rows), _cdiv(g, seg)),
                               inputs * region * itemsize)
-    rv = _COL_GROUPS[P, inputs]
+    rv = _COL_GROUPS[P, inputs, branches]
 
     def cols(vc):
         tx = min(_COL_TX[itemsize],
@@ -451,22 +415,24 @@ def _output(shape, dtype, device) -> torch.Tensor:
 
 
 def _launch_stream(name: str, ins, filters, n: int, axis: int, side=None):
-    """Run dual entry *name* on the contiguous CUDA tensors *ins* (the
-    analysis entries one input, the sums two) along *axis* whose signal has
-    *n* samples; *filters*: the two filters, or the two pairs' four.
-    *side*: the inputs are extended by that many samples per side
-    (from-extension mode) instead of reflected.  Returns the list of
-    outputs: both branches' (analysis), or the sum."""
+    """Run stream entry *name* on the contiguous CUDA tensors *ins* (the
+    analysis entries and single's dfilt and ifilt one input, the sums two)
+    along *axis* whose signal has *n* samples; *filters*: the two filters,
+    the two pairs' four, or one pair's two (dfilt, ifilt).  *side*: the
+    inputs are extended by that many samples per side (from-extension
+    mode) instead of reflected.  Returns the list of outputs: each
+    branch's (analysis, dfilt, ifilt), or the sum."""
     _build.check_no_grad(name, ins)
     P, D, S = _STREAM_GEOM[name]
     plan = _plan(name, filters)
+    nb = len(plan.plans)
     x = ins[0]
     ax, outer, n_in, inner, code = _axis_view(name, ins, axis)
     # filter: n + 1 - m % 2 outputs a branch; dfilt, ifilt: n // D groups
-    groups = [n + 1 - odd for odd in plan.odd] if P == 1 else [n // D] * 2
+    groups = [n + 1 - odd for odd in plan.odd] if P == 1 else [n // D] * nb
     _check_reach(name, plan.plans, groups, D, S, n_in, side)
     _check_sizes(name, outer, n_in, inner, P * max(groups))
-    # an analysis entry writes both branches, a sum one output
+    # an analysis entry writes each branch, a sum one output
     g_out = groups if len(ins) == 1 else groups[:1]
     outs = []
     for g in g_out:
@@ -479,7 +445,7 @@ def _launch_stream(name: str, ins, filters, n: int, axis: int, side=None):
     vb = 8 if size == 2 else 16
     geo = _stream_geometry(P, outer, n_in, inner, max(groups), plan.mt,
                            size, all(t.data_ptr() % vb == 0
-                                     for t in ins + outs), len(ins))
+                                     for t in ins + outs), len(ins), nb)
     err = getattr(_build.library(), "dtcwt_" + name)(
         *(t.data_ptr() for t in ins + outs), outer, n_in, inner,
         *g_out, side or 0, int(side is None),

@@ -24,17 +24,19 @@ the JAX package's low-level API, on these entries.
 An entry takes its route from the input's device: a CPU tensor runs the
 plain version, a CUDA tensor launches the kernel or raises.  ``filter``'s
 kernel is ``csrc/filter.cu``, tiled by :func:`_filter_geometry` here;
-``dfilt`` and ``ifilt`` are the instances in ``csrc/single.cu`` of the
-stream kernel of ``csrc/streams.cuh`` (:mod:`dual`'s four entries have
-kernels of their own, ``csrc/streamana.cuh`` and
-``csrc/streamsum.cuh``).  The
+``dfilt`` and ``ifilt`` (``csrc/single.cu``) are the one-branch instances
+of :mod:`dual`'s kernels, ``dfilt`` of ``dfilt2``'s
+(``csrc/streamana.cuh``), ``ifilt`` of ``ifilt2_sum``'s
+(``csrc/streamsum.cuh``), launched by :func:`dual._launch_stream` with
+their plan, tap bound and tiling from :mod:`dual`.  The
 nine names of the low-level API (``filter_axis``, ``dfilt_axis``,
 ``ifilt_axis`` and the column / row aliases) also take a non-tensor input,
 a numpy array or a list, as the JAX package's do, and a keyword *device*:
 a tensor stays on its device unless *device* is given, a non-tensor input
 goes to *device*, the card (``"cuda"``) by default.  The
 kernels take any axis of a contiguous tensor, float32, bfloat16 or
-float64, filters of up to 32 taps per stream of any length and parity, and
+float64, filters of up to 32 taps per stream of any length and parity
+(``dfilt`` qshift pairs of up to 32 taps, ``ifilt`` of up to 64), and
 signals shorter than the filter; the host plans
 (:func:`level2.dfilt_streams`, :func:`ilevel2.ifilt_streams`) and
 :func:`_filter` hold every parity rule.
@@ -49,9 +51,8 @@ import torch
 
 from dtcwt_tpu_torch.ops import _build, fb
 from dtcwt_tpu_torch.ops.dual import (
-    _INT_MAX, _MAX_TAPS, _axis_view, _ext_len, _launch, _on_cpu, _plain)
-from dtcwt_tpu_torch.ops.ilevel2 import ifilt_streams
-from dtcwt_tpu_torch.ops.level2 import dfilt_streams
+    _INT_MAX, _MAX_TAPS, _axis_view, _ext_len, _launch_stream, _on_cpu,
+    _plain)
 
 __all__ = [
     "filter_axis", "dfilt_axis", "ifilt_axis",
@@ -209,7 +210,7 @@ def filter_fromext_axis(ext: torch.Tensor, side: int, h,
 
 
 def _dfilt(x, ha, hb, axis, n, side=None):
-    return _launch("dfilt", x, dfilt_streams(ha, hb), n // 4, axis, side)
+    return _launch_stream("dfilt", [x], (ha, hb), n, axis, side)[0]
 
 
 def dfilt_axis(x, ha, hb, axis: int, device=None) -> torch.Tensor:
@@ -237,7 +238,7 @@ def dfilt_fromext_axis(ext: torch.Tensor, side: int, ha, hb,
 
 
 def _ifilt(x, ha, hb, axis, n, side=None):
-    return _launch("ifilt", x, ifilt_streams(ha, hb), n // 2, axis, side)
+    return _launch_stream("ifilt", [x], (ha, hb), n, axis, side)[0]
 
 
 def ifilt_axis(x, ha, hb, axis: int, device=None) -> torch.Tensor:

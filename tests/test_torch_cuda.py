@@ -1172,7 +1172,7 @@ def test_cuda_transform3d_discard_level_1_matches_cpu(cuda, layout):
     assert t.inverse(pb).dtype == torch.bfloat16
 
 
-# --- the single-stream kernels (csrc/single.cu) ----------------------------
+# --- the single-stream kernels (csrc/filter.cu, csrc/single.cu) ------------
 
 def _single_cases(kind):
     """The filters of every family for one single-stream kernel, the
@@ -1208,6 +1208,18 @@ def _at_odd_offset(t):
     return buf[1:].view(t.shape).copy_(t)
 
 
+# dfilt's and ifilt's tiles (the one-branch stream kernels, ops/dual.py
+# _stream_geometry): columns tiles partial across inner and along the axis
+# (136 of 256 columns, 18 groups of 16), a grid large enough to keep its
+# column vectors with tiles partial both ways (520 of 1024 columns, 150
+# groups), staged rows whose last block of whole rows is partial (45 rows
+# of 100) and segments of a long row whose last is partial (5000 and 9000
+# samples)
+_SINGLE_STREAM_SHAPES = [((3, 72, 136), (-2,)), ((4, 600, 520), (-2,)),
+                         ((45, 100), (-1,)), ((3, 5000), (-1,)),
+                         ((9000,), (0,))]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
                                    torch.bfloat16])
@@ -1217,24 +1229,29 @@ def test_cuda_single_matches_plain(cuda, kind, dtype):
     every family's filters (bandpass included, both tap orders of each
     pair, so both signs of sum(ha*hb)), on axes -1, -2 and -3, inner 1 and
     signals shorter than the filter, the extension a contiguous view at an
-    odd storage offset; ``filter`` also on the shapes of its tiles.  Each
-    call makes one launch."""
+    odd storage offset; ``filter`` also on the shapes of its tiles, dfilt
+    and ifilt on shapes whose last tiles are partial on both paths and
+    with the axis form's input at an odd storage offset too.  Each call
+    makes one launch."""
     kern = getattr(single, kind + "_axis")
     plain = getattr(single, kind + "_axis_reference")
     kern_x = getattr(single, kind + "_fromext_axis")
     plain_x = getattr(single, kind + "_fromext_axis_reference")
     side = 32       # covers qshift_32's 32-tap decimator
-    shapes = _DUAL_SHAPES + (_FILTER_SHAPES if kind == "filter" else [])
+    shapes = _DUAL_SHAPES + (_FILTER_SHAPES if kind == "filter"
+                             else _SINGLE_STREAM_SHAPES)
     for label, f in _single_cases(kind):
         for seed, (shape, axes) in enumerate(shapes):
             x = _rand(shape, seed, cuda, dtype)
             for axis in axes:
-                _build.reset_launches()
-                got = kern(x, *f, axis)
-                torch.cuda.synchronize()
-                assert dict(_build.launches) == {kind: 1}
-                assert _kerr(got, plain(x, *f, axis)) < _KTOL[dtype], \
-                    (label, shape, axis)
+                for xin in ((x,) if kind == "filter"
+                            else (x, _at_odd_offset(x))):
+                    _build.reset_launches()
+                    got = kern(xin, *f, axis)
+                    torch.cuda.synchronize()
+                    assert dict(_build.launches) == {kind: 1}
+                    assert _kerr(got, plain(xin, *f, axis)) < _KTOL[dtype], \
+                        (label, shape, axis, xin.data_ptr() % 16)
                 e = _at_odd_offset(fb.symmetric_extend(x, side, axis))
                 _build.reset_launches()
                 got = kern_x(e, side, *f, axis)
@@ -1242,6 +1259,145 @@ def test_cuda_single_matches_plain(cuda, kind, dtype):
                 assert dict(_build.launches) == {kind: 1}
                 assert _kerr(got, plain_x(e, side, *f, axis)) < \
                     _KTOL[dtype], (label, shape, axis, side)
+
+
+def _single_stream_long(kind, seed=6):
+    """Random pairs of the longest length dfilt (32 taps) or ifilt (64)
+    takes, sum(ha * hb) positive then negative."""
+    rs = np.random.RandomState(seed)
+    m = 32 if kind == "dfilt" else 64
+    out = []
+    for sign in (1, -1):
+        ha, hb = rs.randn(m), rs.randn(m)
+        if np.sign(np.sum(ha * hb)) != sign:
+            hb = -hb
+        out.append((ha, hb))
+    return out
+
+
+def _single_stream_call(kind, x, f, axis, side):
+    """(kernel, plain) results of dfilt or ifilt on *x*, in the axis form
+    (*side* None) or from an extension by *side*."""
+    if side is None:
+        return (getattr(single, kind + "_axis")(x, *f, axis),
+                lambda: getattr(single, kind + "_axis_reference")(x, *f,
+                                                                  axis))
+    return (getattr(single, kind + "_fromext_axis")(x, side, *f, axis),
+            lambda: getattr(single, kind + "_fromext_axis_reference")(
+                x, side, *f, axis))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["dfilt", "ifilt"])
+def test_cuda_single_streams_write_their_outputs_whole(cuda, monkeypatch,
+                                                       kind, dtype):
+    """dfilt and ifilt write every output element and nothing past the
+    end: the output is the head of a NaN-filled buffer one row longer (at
+    least 16 elements, a vector store's reach), equal to the plain version
+    after the launch, the tail still NaN.  On both paths, aligned and one
+    element off, in both modes, for qshift_a's pair and the longest."""
+    make, heads = dual._output, []
+
+    def sentinel(shape, dt, device):
+        t = make(shape, dt, device)
+        buf = torch.full((t.numel() + max(16, t.shape[-1]),), float("nan"),
+                         dtype=dt, device=device)
+        heads.append((buf, t.numel()))
+        return buf[:t.numel()].view(t.shape)
+    monkeypatch.setattr(dual, "_output", sentinel)
+    q = qshift("qshift_a")
+    first = 0 if kind == "dfilt" else 2
+    sets = [(q[first + 1], q[first])] + _single_stream_long(kind)
+    side = 40       # covers the 64-tap pairs' reach
+    for f in sets:
+        for seed, (shape, axis) in enumerate(
+                [((3, 72, 136), -2), ((12, 132), 0), ((4, 600, 520), -2),
+                 ((45, 100), -1), ((3, 5000), -1), ((4, 8, 4), -3)]):
+            x = _rand(shape, seed, cuda, dtype)
+            for s in (None, side):
+                xin = x if s is None else fb.symmetric_extend(
+                    x, s, axis).contiguous()
+                if seed % 2:
+                    xin = _at_odd_offset(xin)
+                heads.clear()
+                got, plain = _single_stream_call(kind, xin, f, axis, s)
+                torch.cuda.synchronize()
+                assert _kerr(got, plain()) < _KTOL[dtype], (shape, s)
+                assert len(heads) == 1
+                buf, n = heads[0]
+                assert not torch.isnan(buf[:n]).any(), (f[0].size, shape, s)
+                assert torch.isnan(buf[n:]).all(), (f[0].size, shape, s)
+
+
+@pytest.mark.cuda
+def test_cuda_single_streams_refuse_a_tiling_not_the_hosts(cuda,
+                                                           monkeypatch):
+    """dfilt's and ifilt's C entries take the tap bound and tiling of
+    _stream_geometry and refuse any other with a CUDA error, launching
+    nothing; the host's own launch then runs."""
+    geometry = dual._stream_geometry
+    cols, rows = ((8, 20, 36), -2), ((3, 5000), -1)
+    for kind, dtype, (shape, axis), bad in (
+            ("dfilt", torch.float32, cols, dict(mt=14)),
+            ("dfilt", torch.float32, cols, dict(tx=24)),
+            ("dfilt", torch.float32, cols, dict(v=4)),
+            ("dfilt", torch.float32, cols, dict(vc=2)),
+            ("dfilt", torch.float32, cols, dict(path="rows")),
+            ("dfilt", torch.float64, rows, dict(smem=1)),
+            ("dfilt", torch.bfloat16, rows, dict(v=2)),
+            ("dfilt", torch.float32, rows, dict(path="cols")),
+            ("ifilt", torch.float32, cols, dict(mt=7)),
+            ("ifilt", torch.float32, cols, dict(seg=64)),
+            ("ifilt", torch.float32, cols, dict(v=4)),
+            ("ifilt", torch.float32, cols, dict(path="rows")),
+            ("ifilt", torch.float64, rows, dict(smem=1)),
+            ("ifilt", torch.float32, rows, dict(rows=2)),
+            ("ifilt", torch.float32, rows, dict(path="cols"))):
+        q = qshift("qshift_a")
+        f = (q[1], q[0]) if kind == "dfilt" else (q[3], q[2])
+        x = _rand(shape, 0, cuda, dtype)
+        monkeypatch.setattr(
+            dual, "_stream_geometry",
+            lambda *a, **k: geometry(*a, **k)._replace(**bad))
+        _build.reset_launches()
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _single_stream_call(kind, x, f, axis, None)
+        assert not _build.launches
+        monkeypatch.setattr(dual, "_stream_geometry", geometry)
+        got, plain = _single_stream_call(kind, x, f, axis, None)
+        torch.cuda.synchronize()
+        assert _kerr(got, plain()) < _KTOL[dtype], (kind, bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("kind", ["dfilt", "ifilt"])
+def test_cuda_single_streams_take_the_longest_filters(cuda, kind, dtype):
+    """The longest pairs dfilt and ifilt took before their redesign, every
+    tap random, at the largest tap bound: dfilt's qshift pairs of 32 taps
+    (bound 32), ifilt's of 64 (bound 33), sum(ha * hb) of either sign and
+    both tap orders, on both paths, both modes, aligned and one element
+    off, against the plain version, one launch a call."""
+    side = 40       # covers the 64-tap pairs' reach
+    for ha, hb in _single_stream_long(kind):
+        for f in ((ha, hb), (hb, ha)):
+            for seed, (shape, axis) in enumerate(
+                    [((2, 4, 4), -2), ((3, 72, 136), -2), ((12, 132), 0),
+                     ((4, 600, 520), -2), ((45, 100), -1), ((9000,), 0)]):
+                x = _rand(shape, seed, cuda, dtype)
+                for s in (None, side):
+                    xin = x if s is None else fb.symmetric_extend(
+                        x, s, axis).contiguous()
+                    if seed % 2:
+                        xin = _at_odd_offset(xin)
+                    _build.reset_launches()
+                    got, plain = _single_stream_call(kind, xin, f, axis, s)
+                    torch.cuda.synchronize()
+                    assert dict(_build.launches) == {kind: 1}
+                    assert _kerr(got, plain()) < _KTOL[dtype], (
+                        f[0].size, shape, s)
 
 
 @pytest.mark.cuda

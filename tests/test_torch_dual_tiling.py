@@ -1,7 +1,8 @@
-"""The tiling of the four dual kernels, the analysis entries ``filter2``
-and ``dfilt2`` (``csrc/streamana.cuh``) and the synthesis sums
-``filter2_sum`` and ``ifilt2_sum`` (``csrc/streamsum.cuh``), replayed on
-the CPU in numpy at float64.
+"""The tiling of the stream kernels, the analysis entries ``filter2``
+and ``dfilt2`` (``csrc/streamana.cuh``), the synthesis sums
+``filter2_sum`` and ``ifilt2_sum`` (``csrc/streamsum.cuh``) and their
+one-branch instances ``dfilt`` and ``ifilt`` (``csrc/single.cu``),
+replayed on the CPU in numpy at float64.
 
 The kernels cannot run here, so this replays, block by block, what
 ``ops/dual.py:_stream_geometry`` and ``_plan`` tell them to do.  On the
@@ -15,24 +16,28 @@ each input (a head and a tail a value at a time, 16-byte chunks between,
 every chunk aligned on both sides), each item's register windows (inside
 the row, or read at the reflected index, or as zero past an extended
 buffer, the clamp moving no read a stored output takes) and its vector or
-scalar stores, to both outputs of an analysis entry, whose two branches
-may differ in length (filter2's filters of two parities).  Every staged
+scalar stores, to each output of an analysis entry, whose two branches
+may differ in length (filter2's filters of two parities), and where one
+branch reads its window in vectors, that the last stays in its region.  Every staged
 cell must be written at most once, every cell a window reads must have
 been written, every output sample written exactly once, and the result
 must equal the plain versions (:func:`dual.filter2_axis_reference`,
 :func:`dual.dfilt2_axis_reference`, :func:`dual.filter2_sum_axis_reference`,
-:func:`dual.ifilt2_sum_axis_reference` and their from-extension forms)
+:func:`dual.ifilt2_sum_axis_reference`, :func:`single.dfilt_axis_reference`,
+:func:`single.ifilt_axis_reference` and their from-extension forms)
 within 1e-12.  Edit the replay together with the kernels.  The file takes
-about 20-28 s in one process, the analysis kernels' 17 tests (``-k
-analysis``) about 14 s.
+about 18-24 s in one process, the analysis kernels' 17 tests (``-k
+analysis``) about 7 s, the one-branch instances' 21 (``-k single``)
+about 7-10 s.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import dtcwt_tpu_torch as dt
 from dtcwt_tpu_torch.coeffs import biort, qshift
-from dtcwt_tpu_torch.ops import dual, fb
+from dtcwt_tpu_torch.ops import dual, fb, single
 
 _THREADS = 256
 _EVEN = (np.array([1.0, 3.0, 3.0, 1.0]) / 8,
@@ -92,6 +97,7 @@ def _fir(acc, T, sw, bb, w, P, mt, nv):
 
 def _replay_cols(X, T, sw, P, mt, g, side, refl, geo, y, cnt):
     outer, n_in, inner = X[0].shape
+    nin = len(X)
     D, ph = (1 if P == 1 else 2), (mt - 1) // 2
     RV, VC, TX = geo.v, geo.vc, geo.tx
     TY = _THREADS // TX
@@ -121,7 +127,7 @@ def _replay_cols(X, T, sw, P, mt, g, side, refl, geo, y, cnt):
         return np.where((jj >= 0)[:, None], val, 0.0)
 
     for r in range(RV + mt - 1):
-        for bb in range(2):
+        for bb in range(nin):
             if P == 1:
                 w = load(X[bb], j0 + r)
                 for m in range(mt):
@@ -148,6 +154,7 @@ def _replay_rows(X, T, sw, P, mt, g, side, refl, geo, y, cnt, size,
                  eoff):
     outer, n_in, inner = X[0].shape
     assert inner == 1
+    nin = len(X)
     flat = [x.reshape(-1) for x in X]
     D, ph = (1 if P == 1 else 2), (mt - 1) // 2
     vec = 16 // size
@@ -157,29 +164,29 @@ def _replay_rows(X, T, sw, P, mt, g, side, refl, geo, y, cnt, size,
     assert geo.grid == (_cdiv(outer, R), _cdiv(g, L))
     n_seg = geo.grid[1]
     assert n_seg == 1 or R == 1
-    rb = geo.smem // (2 * size)
-    assert 2 * rb * size == geo.smem and rb % vec == 0
+    rb = geo.smem // (nin * size)
+    assert nin * rb * size == geo.smem and rb % vec == 0
     assert rb >= vec + (R - 1) * n_in + min(n_in, D * (L + mt - 1))
-    vec_out = (P * g) % vec == 0 and (eoff[2] * size) % 16 == 0
+    vec_out = (P * g) % vec == 0 and (eoff[nin] * size) % 16 == 0
     for blk in range(geo.blocks):
         s0, o0 = (blk % n_seg) * L, (blk // n_seg) * R
         rows, lr = min(R, outer - o0), min(L, g - s0)
         j00 = D * (s0 - ph) + side
         sa, sb = max(j00, 0), min(n_in, j00 + D * (L + mt - 1))
         f0, ln = o0 * n_in + sa, (rows - 1) * n_in + (sb - sa)
-        xs, pads = _Img(2 * rb), []
-        for i in range(2):
+        xs, pads = _Img(nin * rb), []
+        for i in range(nin):
             pad = (eoff[i] + f0) * size % 16 // size
             head = min((vec - pad) % vec, ln)
             nvec = (ln - head) // vec
             dst0 = i * rb + pad
             xs.put(dst0 + np.arange(head), flat[i][f0:f0 + head])
-            for q in range(nvec):
-                e = head + q * vec
-                assert (dst0 + e) % vec == 0               # shared side
-                assert (eoff[i] + f0 + e) * size % 16 == 0  # device side
-                xs.put(dst0 + e + np.arange(vec),
-                       flat[i][f0 + e:f0 + e + vec])
+            # the 16-byte chunks, each aligned on both sides
+            e = head + vec * np.arange(nvec)
+            assert ((dst0 + e) % vec == 0).all()               # shared side
+            assert ((eoff[i] + f0 + e) * size % 16 == 0).all()  # device side
+            xs.put(dst0 + head + np.arange(nvec * vec),
+                   flat[i][f0 + head:f0 + head + nvec * vec])
             e = head + nvec * vec
             xs.put(dst0 + np.arange(e, ln), flat[i][f0 + e:f0 + ln])
             assert dst0 + ln <= (i + 1) * rb
@@ -197,7 +204,7 @@ def _replay_rows(X, T, sw, P, mt, g, side, refl, geo, y, cnt, size,
         used = (np.arange(NW) // D)[None, :] <= (nvg + mt - 2)[:, None]
         for r in range(rows):
             acc = np.zeros((items, GV, P))
-            for bb in range(2):
+            for bb in range(nin):
                 base = bb * rb + pads[bb] - sa + r * n_in
                 lo_c, hi_c = bb * rb + pads[bb], bb * rb + pads[bb] + ln - 1
                 jj = _source(j, n_in, refl)
@@ -207,25 +214,26 @@ def _replay_rows(X, T, sw, P, mt, g, side, refl, geo, y, cnt, size,
                 assert ((c == cc) | ~used | (jj < 0)).all()
                 w = np.where(jj >= 0, xs.get(cc), 0.0)
                 _fir(acc, T, sw, bb, w, P, mt, GV)
-            for qi in range(items):
-                gq = s0 + GV * qi
-                nv = P * nvg[qi]
-                start = (o0 + r) * P * g + P * gq   # flat output index
-                if vec_out and nv == GV * P:
-                    for e in range(GV * P // vec):
-                        assert (eoff[2] + start + e * vec) * size % 16 == 0
-                yf, cf = y.reshape(-1), cnt.reshape(-1)
-                out = acc[qi].reshape(-1)[:nv]
-                np.add.at(cf, start + np.arange(nv), 1)
-                yf[start:start + nv] = out
+            # each item's outputs, its first nv; the whole ones as vectors
+            nv = P * nvg
+            start = (o0 + r) * P * g + P * (s0 + GV * q)  # flat indices
+            if vec_out:
+                vs = start[nv == GV * P, None] + vec * np.arange(GV * P // vec)
+                assert ((eoff[nin] + vs) * size % 16 == 0).all()
+            keep = np.arange(GV * P)[None, :] < nv[:, None]
+            idx = (start[:, None] + np.arange(GV * P))[keep]
+            np.add.at(cnt.reshape(-1), idx, 1)
+            y.reshape(-1)[idx] = acc.reshape(items, GV * P)[keep]
 
 
 def _replay(name, xs, filters, axis, side, size, eoff=(0, 0, 0)):
-    """The kernel's result on the numpy inputs *xs* along *axis* (side:
-    the from-extension mode), for elements of *size* bytes whose pointers
-    sit *eoff* elements past 16-byte alignment (a, b, y)."""
+    """The kernel's result on the numpy inputs *xs* (the sums two, ifilt
+    one) along *axis* (side: the from-extension mode), for elements of
+    *size* bytes whose pointers sit *eoff* elements past 16-byte alignment
+    (each input's, then the output's)."""
     P = 1 if name == "filter2_sum" else 4
     plan = dual._plan(name, filters)
+    assert len(plan.plans) == len(xs)
     mt = plan.mt
     T, sw = dual._inv_taps(plan.plans, P, mt)
     ax = axis % xs[0].ndim
@@ -238,7 +246,8 @@ def _replay(name, xs, filters, axis, side, size, eoff=(0, 0, 0)):
     g = n + 1 - plan.odd[0] if P == 1 else n // 2
     vb = 8 if size == 2 else 16
     geo = dual._stream_geometry(P, outer, n_in, inner, g, mt, size,
-                             all(e * size % vb == 0 for e in eoff))
+                                all(e * size % vb == 0 for e in eoff),
+                                len(xs), len(xs))
     y = np.full((outer, P * g, inner), np.nan)
     cnt = np.zeros(y.shape, np.int64)
     refl = side is None
@@ -255,14 +264,15 @@ def _replay(name, xs, filters, axis, side, size, eoff=(0, 0, 0)):
 
 
 def _plain(name, xs, filters, axis, side):
-    a, b = (torch.from_numpy(x) for x in xs)
-    f = (filters if name == "filter2_sum"
+    ts = [torch.from_numpy(x) for x in xs]
+    mod = single if name == "ifilt" else dual
+    f = (filters if name in ("filter2_sum", "ifilt")
          else (tuple(filters[:2]), tuple(filters[2:])))
     if side is None:
-        ref = getattr(dual, name + "_axis_reference")(a, b, *f, axis)
+        ref = getattr(mod, name + "_axis_reference")(*ts, *f, axis)
     else:
-        ref = getattr(dual, name + "_fromext_axis_reference")(a, b, side, *f,
-                                                              axis)
+        ref = getattr(mod, name + "_fromext_axis_reference")(*ts, side, *f,
+                                                             axis)
     return ref.numpy()
 
 
@@ -460,7 +470,7 @@ def _ana_taps(plan, P):
     branch swaps."""
     T, sw = dual._inv_taps(plan.plans, P, plan.mt)
     if P == 2:
-        T = np.stack([T[b, ::-1] if sw[b] else T[b] for b in range(2)])
+        T = np.stack([T[b, ::-1] if sw[b] else T[b] for b in range(len(T))])
     return T, sw
 
 
@@ -500,7 +510,8 @@ def _replay_ana_cols(X, T, sw, P, mt, gs, side, refl, geo, ys, cnts):
     cols = col[:, None] + np.arange(VC)
     assert (cols < inner).all()   # a vector stays inside the row
     j0 = D * g0 - S * ph + side
-    acc = np.zeros((2, o.size, RV, P, VC))
+    nb = len(gs)
+    acc = np.zeros((nb, o.size, RV, P, VC))
     loaded = []                   # the window rows a thread loads
 
     def load(j):
@@ -512,14 +523,14 @@ def _replay_ana_cols(X, T, sw, P, mt, gs, side, refl, geo, ys, cnts):
     if P == 1:
         for r in range(RV + mt - 1):
             w = load(j0 + r)
-            for b in range(2):
+            for b in range(nb):
                 for v in range(RV):
                     if 0 <= r - v < mt:
                         acc[b, :, v, 0] += T[b, 0, r - v] * w
     else:
         for r in range(2 * RV + mt - 2):
             e, od = load(j0 + 2 * r), load(j0 + 2 * r + 1)
-            for b in range(2):
+            for b in range(nb):
                 for v in range(RV):
                     m = r - 2 * v
                     if 0 <= m < mt:
@@ -529,7 +540,7 @@ def _replay_ana_cols(X, T, sw, P, mt, gs, side, refl, geo, ys, cnts):
     rows = np.stack(loaded, 1) - j0[:, None]
     assert (np.sort(rows, 1) == np.arange(rows.shape[1])).all()
     assert rows.shape[1] == D * (RV - 1) + S * mt
-    for b in range(2):
+    for b in range(nb):
         for v in range(RV):
             ok = g0 + v < gs[b]
             for p in range(P):
@@ -572,11 +583,11 @@ def _replay_ana_rows(X, T, sw, P, mt, gs, side, refl, geo, ys, cnts, size,
         head = min((vec - pad) % vec, ln)
         nvec = (ln - head) // vec
         xs.put(pad + np.arange(head), flat[f0:f0 + head])
-        for q in range(nvec):
-            e = head + q * vec
-            assert (pad + e) % vec == 0                   # shared side
-            assert (eoff[0] + f0 + e) * size % 16 == 0     # device side
-            xs.put(pad + e + np.arange(vec), flat[f0 + e:f0 + e + vec])
+        e = head + vec * np.arange(nvec)
+        assert ((pad + e) % vec == 0).all()                   # shared side
+        assert ((eoff[0] + f0 + e) * size % 16 == 0).all()     # device side
+        xs.put(pad + head + np.arange(nvec * vec),
+               flat[f0 + head:f0 + head + nvec * vec])
         e = head + nvec * vec
         xs.put(pad + np.arange(e, ln), flat[f0 + e:f0 + ln])
         assert pad + ln <= rb and xs.n.max() <= 1
@@ -592,38 +603,45 @@ def _replay_ana_rows(X, T, sw, P, mt, gs, side, refl, geo, ys, cnts, size,
         # each branch's stored groups of an item, and the window samples
         # the stored outputs take
         nvg = [np.clip(min(g, s0 + lr) - gq, 0, GV) for g in gs]
-        top = np.maximum(nvg[0], nvg[1])
+        top = np.max(nvg, 0)
         used = np.arange(NW)[None, :] < (D * (top - 1) + S * mt)[:, None]
         jj = np.where(fast[:, None], j, _source(j, n_in, refl))
         for r in range(rows):
             c = pad - sa + r * n_in + np.maximum(jj, 0)
             cc = np.clip(c, pad, pad + ln - 1)
             assert ((c == cc) | ~used | (jj < 0)).all()
+            if len(gs) == 1:
+                # one branch: an item inside its row that starts on a
+                # vector reads whole vectors, its last inside the region
+                vec_item = fast & (c[:, 0] % vec == 0)
+                assert (_cdiv(c[vec_item, -1] + 1, vec) * vec <= rb).all()
             w = np.where(jj >= 0, xs.get(cc), 0.0)
-            for b in range(2):
+            for b in range(len(gs)):
                 acc = np.zeros((items, GV, P))
                 _ana_fir(acc, T, b, w, P, mt, GV)
                 if P == 2 and sw[b]:
                     acc = acc[:, :, ::-1]
-                out = acc.reshape(items, GV * P)
+                # each item's outputs, its first nv; the whole ones as
+                # vectors
+                nv = P * nvg[b]
                 start = (o0 + r) * P * gs[b] + P * gq   # flat output index
-                yf, cf = ys[b].reshape(-1), cnts[b].reshape(-1)
-                for qi in np.flatnonzero(nvg[b]):
-                    nv = P * nvg[b][qi]
-                    if vec_out[b] and nv == GV * P:
-                        assert (eoff[1 + b] + start[qi]) * size % 16 == 0
-                    idx = start[qi] + np.arange(nv)
-                    np.add.at(cf, idx, 1)
-                    yf[idx] = out[qi, :nv]
+                if vec_out[b]:
+                    assert ((eoff[1 + b] + start[nv == GV * P]) * size
+                            % 16 == 0).all()
+                keep = np.arange(GV * P)[None, :] < nv[:, None]
+                idx = (start[:, None] + np.arange(GV * P))[keep]
+                np.add.at(cnts[b].reshape(-1), idx, 1)
+                ys[b].reshape(-1)[idx] = acc.reshape(items, GV * P)[keep]
 
 
 def _replay_ana(name, x, filters, axis, side, size, eoff=(0, 0, 0)):
-    """The analysis kernel's two outputs on the numpy input *x* along
-    *axis* (side: the from-extension mode), for elements of *size* bytes
-    whose pointers sit *eoff* elements past 16-byte alignment (x, y0,
-    y1)."""
+    """The analysis kernel's outputs on the numpy input *x* along *axis*
+    (side: the from-extension mode), a branch each (filter2 and dfilt2
+    two, dfilt one), for elements of *size* bytes whose pointers sit *eoff*
+    elements past 16-byte alignment (x, then each output)."""
     P = 1 if name == "filter2" else 2
     plan = dual._plan(name, filters)
+    nb = len(plan.plans)
     T, sw = _ana_taps(plan, P)
     ax = axis % x.ndim
     outer = int(np.prod(x.shape[:ax], dtype=np.int64))
@@ -631,11 +649,11 @@ def _replay_ana(name, x, filters, axis, side, size, eoff=(0, 0, 0)):
     n_in = x.shape[ax]
     X = x.reshape(outer, n_in, inner)
     n = n_in - 2 * (side or 0)
-    gs = [n + 1 - o for o in plan.odd] if P == 1 else [n // 4] * 2
+    gs = [n + 1 - o for o in plan.odd] if P == 1 else [n // 4] * nb
     vb = 8 if size == 2 else 16
     geo = dual._stream_geometry(P, outer, n_in, inner, max(gs), plan.mt,
                                 size, all(e * size % vb == 0 for e in eoff),
-                                1)
+                                1, nb)
     ys = [np.full((outer, P * g, inner), np.nan) for g in gs]
     cnts = [np.zeros(y.shape, np.int64) for y in ys]
     refl = side is None
@@ -657,14 +675,15 @@ def _replay_ana(name, x, filters, axis, side, size, eoff=(0, 0, 0)):
 
 def _ana_plain(name, x, filters, axis, side):
     t = torch.from_numpy(x)
-    f = (filters if name == "filter2"
+    mod = single if name == "dfilt" else dual
+    f = (filters if name in ("filter2", "dfilt")
          else (tuple(filters[:2]), tuple(filters[2:])))
     if side is None:
-        ref = getattr(dual, name + "_axis_reference")(t, *f, axis)
+        ref = getattr(mod, name + "_axis_reference")(t, *f, axis)
     else:
-        ref = getattr(dual, name + "_fromext_axis_reference")(t, side, *f,
-                                                              axis)
-    return [r.numpy() for r in ref]
+        ref = getattr(mod, name + "_fromext_axis_reference")(t, side, *f,
+                                                             axis)
+    return [r.numpy() for r in (ref if isinstance(ref, tuple) else (ref,))]
 
 
 # the mixed-parity pair of filter2: 7 and 6 taps (outputs n and n + 1)
@@ -857,3 +876,191 @@ def test_dual_analysis_geometry_main_path():
     # short rows: whole rows a block
     g = geo(2, 64, 100, 1, 25, 10, 4, True, 1)
     assert (g.rows, g.seg, g.grid) == (40, 26, (2, 1))
+
+
+# ---------------------------------------------------------------------------
+# single's one-branch entries, dfilt (csrc/streamana.cuh, NB = 1) and ifilt
+# (csrc/streamsum.cuh, NIN = 1), exported by csrc/single.cu
+# ---------------------------------------------------------------------------
+
+def _single_sets(name, fam, seed=0):
+    """The pairs of a one-branch case, each in both tap orders: a qshift
+    family's two decimating pairs (dfilt: (h0b, h0a), (h1b, h1a)) or
+    interpolating pairs (ifilt: (g0b, g0a), (g1b, g1a)), sum(ha hb)
+    positive for the first and negative for the second; "long": random
+    pairs of the longest length (dfilt 32 taps, ifilt 64) with sum(ha hb)
+    of either sign."""
+    if fam == "long":
+        rs = np.random.RandomState(seed)
+        m = 32 if name == "dfilt" else 64
+        pairs = []
+        for sign in (1, -1):
+            ha, hb = rs.randn(m), rs.randn(m)
+            if np.sign(np.sum(ha * hb)) != sign:
+                hb = -hb
+            pairs.append((ha, hb))
+    else:
+        q = qshift(fam)
+        first = 0 if name == "dfilt" else 2
+        pairs = [(q[first + 1], q[first]), (q[first + 5], q[first + 4])]
+    return [p for ha, hb in pairs for p in ((ha, hb), (hb, ha))]
+
+
+def _single_replay(name, x, f, axis, side, size, eoff):
+    """(output, geometry) of dfilt's or ifilt's kernel on the numpy input
+    *x*: the analysis replay with one branch, or the sums' with one
+    input."""
+    if name == "dfilt":
+        got, geo = _replay_ana(name, x, f, axis, side, size, eoff)
+        assert len(got) == 1
+        return got[0], geo
+    return _replay(name, [x], f, axis, side, size, eoff)
+
+
+def _single_plain(name, x, f, axis, side):
+    if name == "dfilt":
+        return _ana_plain(name, x, f, axis, side)[0]
+    return _plain(name, [x], f, axis, side)
+
+
+# _SHAPES, and the low-level path's 4096^2 calls cut to 256 columns (the
+# columns view, inner 256; the rows view, inner 1, a block of whole rows),
+# and partial last tiles of both paths: columns tiles partial across inner
+# and along the axis, the last block of whole rows partial, and segments
+# of a long row whose last is partial
+_SINGLE_SHAPES = _SHAPES + [((64, 256), 0), ((16, 256), -1),
+                            ((3, 72, 136), -2), ((45, 100), -1),
+                            ((3, 5000), -1)]
+_SINGLE_CASES = [(n, f) for n in ("dfilt", "ifilt")
+                 for f in dt.QSHIFT_NAMES + ("long",)]
+
+
+@pytest.mark.parametrize("name,fam", _SINGLE_CASES)
+def test_single_stream_tiling_replay(any_grid, name, fam):
+    """Both paths, both modes, every itemsize's tiling, aligned and odd
+    element offsets, each pair in both tap orders (both stream orders)
+    taking the shapes in turn, against the plain version at 1e-12."""
+    sets = _single_sets(name, fam)
+    side = 40           # covers the 64-tap pairs' reach
+    step = 4 if name == "dfilt" else 2
+    rs = np.random.RandomState(9)
+    paths = set()
+    for k, (shape, axis) in enumerate(_SINGLE_SHAPES):
+        if shape[axis] % step:
+            continue
+        f = sets[k % len(sets)]
+        x = rs.rand(*shape)
+        size = (4, 2, 8)[k % 3]
+        eoff = (0, 0) if k % 2 else (1, 3)
+        for s in (None, side):
+            ins = x if s is None else fb.symmetric_extend(
+                torch.from_numpy(x), s, axis).numpy()
+            got, geo = _single_replay(name, ins, f, axis, s, size, eoff)
+            paths.add((geo.path, geo.vc > 1))
+            want = _single_plain(name, ins, f, axis, s)
+            assert got.shape == want.shape
+            assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max(), (
+                shape, axis, s, size, geo)
+    assert paths == {("rows", False), ("cols", True), ("cols", False)}
+
+
+@pytest.mark.parametrize("name", ["dfilt", "ifilt"])
+def test_single_stream_replay_fails_an_inverted_stream_order(name):
+    """The replay sees a wrong parity: qshift_a's pairs with their branch
+    swap inverted give a result off the plain version, on both paths and
+    for both signs of sum(ha hb)."""
+    inv = dual._inv_taps
+
+    def swapped(plans, P, mt):
+        out = inv(plans, P, mt)
+        return None if out is None else (out[0], [1 - v for v in out[1]])
+    sets = _single_sets(name, "qshift_a")
+    for f in (sets[0], sets[2]):
+        for shape in ((12, 128), (1028,)):
+            x = np.random.RandomState(2).rand(*shape)
+            dual._inv_taps = swapped
+            try:
+                got, _ = _single_replay(name, x, f, 0, None, 4, (0, 0))
+            finally:
+                dual._inv_taps = inv
+            want = _single_plain(name, x, f, 0, None)
+            assert np.abs(got - want).max() > 1e-3, (f[0].size, shape)
+
+
+@pytest.mark.parametrize("name,fams", [
+    ("dfilt", {"qshift_06": 10, "qshift_a": 10, "qshift_b": 14,
+               "qshift_c": 16, "qshift_d": 18, "qshift_b_bp": 14,
+               "qshift_32": 32, "long": 32}),
+    ("ifilt", {"qshift_06": 5, "qshift_a": 5, "qshift_b": 7,
+               "qshift_c": 9, "qshift_d": 9, "qshift_b_bp": 7,
+               "qshift_32": 17, "long": 33})])
+def test_single_stream_tap_bounds(name, fams):
+    """Each family's least tap bound (csrc/taps.cuh st_bound: dfilt
+    hs_bound<2>, ifilt hs_bound<4>), in both tap orders, none smaller
+    holding it; the pairs taken before the redesign are taken (dfilt
+    qshift pairs of up to 32 taps, ifilt of up to 64) and longer ones
+    refused with ValueError, as before; the plan, one branch, is cached by
+    the filters' values."""
+    P = 2 if name == "dfilt" else 4
+    for fam, mt in fams.items():
+        for f in _single_sets(name, fam):
+            plan = dual._plan(name, f)
+            assert len(plan.plans) == 1 and plan.taps.shape == (1, P, 32)
+            assert plan.mt == mt, fam
+            assert dual._plan(name, tuple(np.copy(v) for v in f)) is plan
+            assert all(dual._inv_taps(plan.plans, P, b) is None
+                       for b in dual._TAP_BOUNDS[P] if b < mt), fam
+    rs = np.random.RandomState(4)
+    for m in range(2, 72, 2):
+        f = (rs.randn(m), rs.randn(m))
+        if m <= (32 if name == "dfilt" else 64):
+            want = 32 if name == "dfilt" else 33
+            assert dual._plan(name, f).mt <= want
+            assert dual._plan(name, f[::-1]).mt <= want
+        else:
+            with pytest.raises(ValueError, match="at most 32 taps"):
+                dual._plan(name, f)
+    # the refusal sits where it did: the host table, for 34-tap dfilt and
+    # 66-tap ifilt pairs
+    m = 34 if name == "dfilt" else 66
+    streams = dual.dfilt_streams if name == "dfilt" else dual.ifilt_streams
+    with pytest.raises(ValueError, match="at most 32 taps"):
+        dual._table([streams(rs.randn(m), rs.randn(m))])
+
+
+def test_single_stream_geometry_low_level_path():
+    """The tiling of the low-level path's 4096^2 calls, and the groups a
+    columns-path thread by (streams, inputs, branches): coldfilt and
+    colifilt take 16-byte vectors, 64 threads across the 4096 columns and
+    2 groups a thread, dfilt's under a key of its own beside dfilt2's and
+    ifilt's beside ifilt2_sum's (4); rowdfilt and rowifilt a block a row of
+    16 KB staged, 16-byte items; bfloat16 and float64 likewise."""
+    assert dual._COL_GROUPS == {(1, 1, 2): 4, (2, 1, 2): 2, (1, 2, 2): 8,
+                                (4, 2, 2): 4, (2, 1, 1): 2, (4, 1, 1): 2}
+    geo = dual._stream_geometry
+    N = 4096
+    g = geo(2, 1, N, N, N // 4, 10, 4, True, 1, 1)
+    assert g == dual.StreamGeometry("cols", 10, 2, 4, 1, 8, 64,
+                                    (1, 128, 16), 0)
+    g = geo(4, 1, N, N, N // 2, 5, 4, True, 1, 1)
+    assert g == dual.StreamGeometry("cols", 5, 2, 4, 1, 8, 64,
+                                    (1, 256, 16), 0)
+    assert geo(4, 1, N, N, N // 2, 5, 4, True).v == 4     # ifilt2_sum
+    g = geo(2, N, N, 1, N // 4, 10, 4, True, 1, 1)
+    assert g == dual.StreamGeometry("rows", 10, 2, 1, 1, 1024, 1, (N, 1),
+                                    4100 * 4)
+    g = geo(4, N, N, 1, N // 2, 5, 4, True, 1, 1)
+    assert g == dual.StreamGeometry("rows", 5, 1, 1, 1, 2048, 1, (N, 1),
+                                    4100 * 4)
+    # bfloat16: 8-byte column vectors, 16-byte items; float64: 256 threads
+    # across inner, and rows of 32 KB staged in segments
+    g = geo(2, 1, N, N, N // 4, 10, 2, True, 1, 1)
+    assert (g.vc, g.tx, g.seg, g.grid) == (4, 64, 8, (1, 128, 16))
+    assert geo(2, N, N, 1, N // 4, 10, 2, True, 1, 1).v == 4
+    g = geo(4, 1, N, N, N // 2, 5, 8, True, 1, 1)
+    assert (g.vc, g.tx, g.seg, g.grid) == (2, 256, 2, (1, 1024, 8))
+    g = geo(4, N, N, 1, N // 2, 5, 8, True, 1, 1)
+    assert (g.v, g.rows, g.seg, g.grid) == (1, 1, 1024, (N, 2))
+    # unaligned or ragged columns: one column a thread
+    assert geo(2, 1, N, N, N // 4, 10, 4, False, 1, 1).vc == 1
+    assert geo(4, 1, 256, 130, 128, 5, 4, True, 1, 1).vc == 1

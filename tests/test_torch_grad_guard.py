@@ -77,10 +77,10 @@ def _functions_launching(path):
 
 def test_every_launch_site_calls_the_guard():
     """Every function of ``dtcwt_tpu_torch/ops`` that loads the kernel
-    library calls ``_build.check_no_grad`` before it: the nine launch
-    sites of the 2-D level kernels, the dual and single-stream kernels
-    (the stream kernel and the dual entries' kernels), the 3-D level
-    kernels and the hw kernels."""
+    library calls ``_build.check_no_grad`` before it: the eight launch
+    sites of the 2-D level kernels, the stream kernels (the dual entries
+    and the single-stream ``dfilt`` and ``ifilt``), ``filter``, the 3-D
+    level kernels and the hw kernels."""
     sites = {}
     for path in sorted(glob.glob(_OPS)):
         if os.path.basename(path) == "_build.py":
@@ -88,7 +88,7 @@ def test_every_launch_site_calls_the_guard():
         for name, guard, lib in _functions_launching(path):
             sites["%s:%s" % (os.path.basename(path), name)] = (guard, lib)
     assert sorted(sites) == [
-        "dual.py:_launch", "dual.py:_launch_stream", "hw.py:_launch",
+        "dual.py:_launch_stream", "hw.py:_launch",
         "ilevel1.py:inv_level1", "ilevel2.py:inv_level2",
         "level1.py:fwd_level1",
         "level2.py:fwd_level2", "pack3d.py:_launch", "single.py:_filter"]

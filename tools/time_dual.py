@@ -1,7 +1,7 @@
-"""Time the analysis entries of the dual kernels, ``filter2`` and
-``dfilt2`` (rows 8 and 9 of PERF.md's kernel table), on one NVIDIA GPU at
-every launch shape of the round trips that run them, beside their byte
-bound and, for ``filter2``, one ``F.conv2d`` call.
+"""Time the one-branch stream kernels of ``csrc/single.cu``, ``dfilt`` and
+``ifilt`` (rows 6 and 7 of PERF.md's kernel table), on one NVIDIA GPU at
+the low-level path's 4096^2 calls, beside their byte bound and plain
+version; then the dual kernels (rows 8-11) and the rest as controls.
 
     python tools/time_dual.py            # from the repository's root
     python tools/time_dual.py kernels    # stop after the kernel lines
@@ -10,28 +10,29 @@ bound and, for ``filter2``, one ``F.conv2d`` call.
 Prints the card (``nvidia-smi`` name and power limit), the kernels' build
 time and, where it built the library, what ``nvcc -Xptxas -v`` reports
 for each kernel instance of ``dual.cu`` and ``single.cu`` (registers,
-shared memory, spills).  Then it records the dual kernels' launches of
-four float32 round trips (the 1-D ``[131072, 128]`` one at 8 levels, the
-4 194 304-sample vector, the 3-D 256^3 one at 3 levels and the sharded
-256^3 one on the (1, 4) card mesh) and replays each entry's launches with
-the stream held, in float32, bfloat16 and float64 (the recorded inputs
-cast): one line per entry, path, dtype and launch shape (its launches'
-device time, the bound of their bytes at 3.35 TB/s, the share of it and
-``F.conv2d``'s time in the same dtype, TF32 off) and the sum over the
-round trip.  Then, unless ``kernels`` is given, the controls: the
-synthesis sums ``filter2_sum`` and ``ifilt2_sum`` replayed on the same
-paths (float32), ``dfilt`` and ``ifilt`` at the low-level path's 4096^2,
-the four hw kernels at their shard shapes, the 3-D, sharded, 1-D and 2-D
-4096^2 round trips traced (device time, idle share, wall).  The helpers
-come from this checkout's ``chip_smoke.py``, the package from the working
-directory: run from the root of another checkout (``python
-/path/to/tools/time_dual.py``), it times that checkout's kernels (an
-older checkout's launches are recorded as its wrappers made them).
-``longest`` times, after the build, only the four entries at their
-largest tap bound (random filters of 31 taps, qshift pairs of 32 for
-``dfilt2`` and of 64 for ``ifilt2_sum``) on the 3-D round trip's depth
-axis in the three dtypes.  Exits 1 if a replayed launch disagrees with
-its plain version.
+shared memory, spills).  Then each of the low-level path's four calls
+that run rows 6 and 7 (``coldfilt`` and ``rowdfilt`` with qshift_a's
+(h0b, h0a), ``colifilt`` and ``rowifilt`` with (g0b, g0a), on a 4096^2
+image), alone with the stream held, in float32, bfloat16 and float64: its
+device time, the bound of its bytes at 3.35 TB/s, the share of it, the
+plain version's time; and each row's sum over its 2 calls.  Then the same
+four calls at the largest tap bound (random qshift pairs of 32 taps for
+``dfilt``, of 64 for ``ifilt``, sum(ha * hb) positive).  Then, unless
+``kernels`` is given, the controls: the dual kernels' launches recorded
+from four float32 round trips (the 1-D ``[131072, 128]`` one at 8 levels,
+the 4 194 304-sample vector, the 3-D 256^3 one at 3 levels and the sharded
+256^3 one on the (1, 4) card mesh) and replayed with the stream held, one
+line per entry, path and launch shape and the sum over the round trip;
+the four hw kernels at their shard shapes; the 3-D, sharded, 1-D, vector
+and 2-D 4096^2 round trips traced (device time, idle share, wall).  The
+helpers come from this checkout's ``chip_smoke.py``, the package from the
+working directory: run from the root of another checkout (``python
+/path/to/tools/time_dual.py``), it times that checkout's kernels.
+``longest`` times, after the build, only the largest tap bounds: the four
+calls above, then the four dual entries (random filters of 31 taps,
+qshift pairs of 32 for ``dfilt2`` and of 64 for ``ifilt2_sum``) on the
+3-D round trip's depth axis, in the three dtypes.  Exits 1 if a call
+disagrees with its plain version.
 """
 
 import collections
@@ -46,7 +47,6 @@ import time
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 sys.path.insert(0, os.getcwd())
 _spec = importlib.util.spec_from_file_location(
@@ -55,14 +55,10 @@ _spec = importlib.util.spec_from_file_location(
 cs = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(cs)
 import dtcwt_tpu_torch as dt  # noqa: E402
-from dtcwt_tpu_torch.ops import _build, dual, fb, single  # noqa: E402
+from dtcwt_tpu_torch.ops import _build, dual  # noqa: E402
 
-SUBJECTS = ("filter2", "dfilt2")
-CONTROLS = ("filter2_sum", "ifilt2_sum")
-# the package's launch functions of the dual entries, recorded: this
-# checkout's _launch_stream, and an older checkout's _launch (analysis
-# entries) and _launch_sum (sums)
-LAUNCHERS = ("_launch", "_launch_sum", "_launch_stream")
+SUBJECTS = ("dfilt", "ifilt")
+CONTROLS = ("filter2", "dfilt2", "filter2_sum", "ifilt2_sum")
 DTYPES = (("f32", torch.float32), ("bf16", torch.bfloat16),
           ("f64", torch.float64))
 
@@ -95,26 +91,21 @@ def ptxas_print(proc) -> None:
 
 
 def record(run):
-    """The dual kernels' launches of one call of *run*: {entry: [(launch
+    """The stream kernels' launches of one call of *run*: {entry: [(launch
     function, args, kwargs)]}, each launch as the wrappers made it
-    (``dual._launch_stream``, or an older package's ``dual._launch`` and
-    ``dual._launch_sum``)."""
+    (``dual._launch_stream``)."""
     calls = collections.defaultdict(list)
-    saved = {n: getattr(dual, n) for n in LAUNCHERS if hasattr(dual, n)}
+    launch = dual._launch_stream
 
-    def recorder(fn):
-        def rec(name, *a, **k):
-            calls[name].append((fn, (name,) + a, k))
-            return fn(name, *a, **k)
-        return rec
-    for n, fn in saved.items():
-        setattr(dual, n, recorder(fn))
+    def rec(name, *a, **k):
+        calls[name].append((launch, (name,) + a, k))
+        return launch(name, *a, **k)
+    dual._launch_stream = rec
     try:
         run()
         torch.cuda.synchronize()
     finally:
-        for n, fn in saved.items():
-            setattr(dual, n, fn)
+        dual._launch_stream = launch
     return calls
 
 
@@ -130,49 +121,29 @@ def cast(obj, dtype):
 
 def inputs(args):
     """The input tensors of a recorded launch's arguments."""
-    if isinstance(args[1], list):
-        return args[1]
-    return [args[1], args[2]]
+    return args[1]
 
 
 def shape_key(args, kwargs):
-    """(input shape, axis, side) of a recorded launch."""
-    x = inputs(args)[0]
-    if isinstance(args[1], list):   # _launch_stream(name, ins, f, n, axis,
-        #                             side); an older _launch(name, ins,
-        #                             plans, groups, axis, side)
-        axis, side = args[4], (args[5] if len(args) > 5 else
-                                kwargs.get("side"))
-    else:                           # _launch_sum(name, a, b, f, axis, n, ..)
-        axis, side = args[4], (args[6] if len(args) > 6 else
-                                kwargs.get("side"))
-    return tuple(x.shape), axis, side
+    """(input shape, axis, side) of a recorded launch,
+    ``_launch_stream(name, ins, f, n, axis, side)``."""
+    side = args[5] if len(args) > 5 else kwargs.get("side")
+    return tuple(args[1][0].shape), args[4], side
 
 
 def filter_args(fn, args, kwargs):
     """(inputs, filters, n, axis, side) of a recorded launch, the filters
-    as the entries take them (two filters or two pairs), or None for an
-    older package's analysis launch (its filters are plans)."""
-    name = args[0]
-    if fn.__name__ == "_launch_stream":
-        _, ins, f, n, axis = args[:5]
-        side = args[5] if len(args) > 5 else kwargs.get("side")
-    elif fn.__name__ == "_launch_sum":
-        _, a, b, f, axis, n = args[:6]
-        ins, side = [a, b], args[6] if len(args) > 6 else kwargs.get("side")
-    else:
-        return None
+    as the entries take them (two filters or two pairs)."""
+    name, ins, f, n, axis = args[:5]
+    side = args[5] if len(args) > 5 else kwargs.get("side")
     f = (tuple(f) if name in ("filter2", "filter2_sum")
          else (tuple(f[:2]), tuple(f[2:])))
     return ins, f, n, axis, side
 
 
 def plain_of(fn, args, kwargs):
-    """The plain version of a recorded launch, or None."""
-    got = filter_args(fn, args, kwargs)
-    if got is None:
-        return None
-    ins, f, _, axis, side = got
+    """The plain version of a recorded launch."""
+    ins, f, _, axis, side = filter_args(fn, args, kwargs)
     name = args[0]
     if side is None:
         return lambda: getattr(dual, name + "_axis_reference")(*ins, *f,
@@ -181,38 +152,7 @@ def plain_of(fn, args, kwargs):
         *ins, side, *f, axis)
 
 
-def conv_call(fn, args, kwargs, dtype):
-    """One F.conv2d computing a recorded filter2 launch (both branches'
-    reversed taps as two output channels) or filter2_sum launch (as two
-    input channels), on inputs extended outside the timed call, or None."""
-    got = filter_args(fn, args, kwargs)
-    if got is None or args[0] not in ("filter2", "filter2_sum"):
-        return None
-    ins, h, n, axis, side = got
-    h = [np.asarray(v, np.float64).reshape(-1) for v in h]
-    p = max(v.size for v in h) // 2
-    w = torch.zeros((2, 1, 2 * p + 1, 1), dtype=torch.float64)
-    for c, v in enumerate(h):
-        off = p - v.size // 2
-        w[c, 0, off:off + v.size, 0] = torch.from_numpy(v[::-1].copy())
-    x = ins[0]
-    ax = fb._norm_axis(axis, x.ndim)
-    outer = int(np.prod(x.shape[:ax], dtype=np.int64))
-    ext = []
-    for t in ins:
-        if side is None:
-            e = fb.symmetric_extend(t, p, axis)
-        else:
-            e = t.narrow(axis, side - p, n + 2 * p)
-        ext.append(e.reshape(outer, e.shape[ax], -1))
-    inp = torch.stack(ext, 1).to(dtype).contiguous()
-    weight = w.to(x.device, dtype)
-    if len(ins) == 2:
-        weight = weight.transpose(0, 1).contiguous()
-    return lambda: F.conv2d(inp, weight)
-
-
-def time_entry(name, path, calls, dtypes, conv=True) -> int:
+def time_entry(name, path, calls, dtypes) -> int:
     """One entry's lines on one path; returns the number of launches that
     disagree with their plain version."""
     bad = 0
@@ -220,45 +160,34 @@ def time_entry(name, path, calls, dtypes, conv=True) -> int:
     for fn, a, k in calls:
         groups.setdefault(shape_key(a, k), []).append((fn, a, k))
     for label, dtype in dtypes:
-        tot = [0.0, 0.0, 0.0]
+        tot = [0.0, 0.0]
         for (shape, axis, side), cl in groups.items():
             cl = [(fn, cast(a, dtype), k) for fn, a, k in cl]
             outs = [fn(*a, **k) for fn, a, k in cl]
             torch.cuda.synchronize()
-            plain = plain_of(*cl[0])
-            err = float("nan")
-            if plain is not None:
-                got = outs[0]
-                err = cs.rel_err(tuple(got) if isinstance(got, list)
-                                 else got, plain())
-                bad += err > cs.TOL[dtype]
+            got = outs[0]       # both branches' outputs, or the sum
+            err = cs.rel_err(tuple(got) if len(got) > 1 else got[0],
+                             plain_of(*cl[0])())
+            bad += err > cs.TOL[dtype]
             nbytes = sum(cs.nbytes(inputs(a)) + cs.nbytes(o)
                          for (_, a, _), o in zip(cl, outs))
             del outs
             bms, _ = cs.bound(nbytes, 0)
             ms = cs.cuda_ms(lambda: [fn(*a, **k) for fn, a, k in cl],
                             hold=True, reps=20)
-            lms = float("nan")
-            lib = conv_call(*cl[0], dtype) if conv else None
-            if lib is not None:
-                try:
-                    lms = len(cl) * cs.cuda_ms(lib, hold=True, reps=10)
-                except RuntimeError as e:   # a dtype the library lacks
-                    print("conv2d %s: %s" % (label, str(e)[:120]))
-            del lib
-            for i, v in enumerate((ms, bms, lms)):
-                tot[i] += v
+            tot[0] += ms
+            tot[1] += bms
             print("%s %s %s %s axis %d side %s x %d: kernel %.4f ms, bound "
-                  "%.4f ms, %.1f%% of the bound, conv2d %.4f ms, rel err "
-                  "%.3g" % (name, path, label, "x".join(map(str, shape)),
-                            axis, side, len(cl), ms, bms, 100 * bms / ms,
-                            lms, err), flush=True)
+                  "%.4f ms, %.1f%% of the bound, rel err %.3g" % (
+                      name, path, label, "x".join(map(str, shape)), axis,
+                      side, len(cl), ms, bms, 100 * bms / ms, err),
+                  flush=True)
             del cl
         n = sum(len(cl) for cl in groups.values())
         print("%s %s %s, its %d launches of one round trip: kernel %.4f ms, "
-              "bound %.4f ms, %.1f%% of the bound, conv2d %.4f ms" % (
+              "bound %.4f ms, %.1f%% of the bound" % (
                   name, path, label, n, tot[0], tot[1],
-                  100 * tot[1] / tot[0], tot[2]), flush=True)
+                  100 * tot[1] / tot[0]), flush=True)
     return bad
 
 
@@ -300,15 +229,59 @@ def time_dual_3d(what, run) -> None:
     del calls
 
 
+def single_calls(longest=False):
+    """(row, public name, filters, axis) of the low-level path's calls that
+    run rows 6 and 7 at 4096^2 (chip_smoke.lowlevel_calls), or, with
+    *longest*, the same calls with random pairs at the largest tap bound:
+    32 taps for dfilt, 64 for ifilt, sum(ha * hb) positive."""
+    calls = [c for c in cs.lowlevel_calls() if c[0] in SUBJECTS]
+    if not longest:
+        return calls
+    rs = np.random.RandomState(7)
+    pairs = {}
+    for name, m in (("dfilt", 32), ("ifilt", 64)):
+        ha, hb = rs.randn(m), rs.randn(m)
+        pairs[name] = (ha, hb if np.sum(ha * hb) > 0 else -hb)
+    return [(name, fn, pairs[name], axis) for name, fn, _, axis in calls]
+
+
+def time_single(dev, longest=False) -> int:
+    """Rows 6 and 7 at the low-level path's 4096^2 calls, each call alone
+    with the stream held in the three dtypes, and each row's sum over its
+    2 calls; returns the number of calls over tolerance."""
+    bad = 0
+    what = "longest " if longest else ""
+    img = cs.rand((cs.N, cs.N), 21, dev, torch.float32)
+    for label, dtype in DTYPES:
+        x = img.to(dtype)
+        tot = {n: [0.0, 0.0, 0.0] for n in SUBJECTS}
+        for name, fn, f, axis in single_calls(longest):
+            kern, plain = cs.single_call(name, x, f, axis)
+            out = kern()
+            err = cs.rel_err(out, plain())
+            bad += err > cs.TOL[dtype]
+            bms, _ = cs.bound(cs.nbytes(x) + cs.nbytes(out), 0)
+            del out
+            ms = cs.cuda_ms(kern, hold=True, reps=20)
+            pms = cs.cuda_ms(plain, hold=True, reps=3, warmup=1)
+            for i, v in enumerate((ms, bms, pms)):
+                tot[name][i] += v
+            print("%s %s(%s) %s %dx%d axis %d (%d taps): kernel %.4f ms, "
+                  "bound %.4f ms, %.1f%% of the bound, plain %.4f ms, rel "
+                  "err %.3g" % (name, what, fn, label, cs.N, cs.N, axis,
+                                np.asarray(f[0]).size, ms, bms,
+                                100 * bms / ms, pms, err), flush=True)
+        for name in SUBJECTS:
+            ms, bms, pms = tot[name]
+            print("%s %s%s, its 2 launches of the low-level path: kernel "
+                  "%.4f ms, bound %.4f ms, %.1f%% of the bound, plain %.4f "
+                  "ms" % (name, what, label, ms, bms, 100 * bms / ms, pms),
+                  flush=True)
+        del x
+    return bad
+
+
 def time_controls(dev, trips) -> None:
-    b, q = dt.biort("near_sym_a"), dt.qshift("qshift_a")
-    x = cs.rand((cs.N, cs.N), 0, dev, torch.float32)
-    for name, fn, f in (("dfilt", single.dfilt_axis, (q[1], q[0])),
-                        ("ifilt", single.ifilt_axis, (q[3], q[2]))):
-        ms = cs.cuda_ms(lambda: [fn(x, *f, ax) for ax in (-2, -1)] * 2,
-                        hold=True, reps=20)
-        print("%s f32 4096^2, its 4 launches of the low-level path: kernel "
-              "%.4f ms" % (name, ms), flush=True)
     for name in cs.HW_NAMES:
         ms = 0.0
         for shape in cs.HW_SHAPES[name]:
@@ -322,6 +295,7 @@ def time_controls(dev, trips) -> None:
     for label, run in trips:
         cs.print_trace("round trip %s f32" % label, run)
     t2 = dt.Transform2d()
+    x = cs.rand((cs.N, cs.N), 0, dev, torch.float32)
     cs.print_trace("round trip 2-D 4096^2 f32",
                    lambda: t2.inverse(t2.forward(x, cs.NLEVELS)))
 
@@ -387,25 +361,18 @@ def main() -> int:
         print("build: %.1f s" % (time.perf_counter() - t0), flush=True)
         for proc in procs:
             ptxas_print(proc)
-    if sys.argv[1:] == ["longest"]:
-        with torch.no_grad():
-            bad = time_longest(dev)
-        print("launches over tolerance: %d" % bad)
-        return 1 if bad else 0
-    trips = round_trips(dev)
-    bad = 0
-    recorded = []
     with torch.no_grad():
-        for label, run in trips:
-            calls = record(run)
-            recorded.append((label, calls))
-            for name in SUBJECTS:
-                bad += time_entry(name, label, calls[name], DTYPES)
-        if sys.argv[1:] != ["kernels"]:
-            for label, calls in recorded:
+        if sys.argv[1:] == ["longest"]:
+            bad = time_single(dev, longest=True) + time_longest(dev)
+        else:
+            bad = time_single(dev) + time_single(dev, longest=True)
+        if not sys.argv[1:]:
+            trips = round_trips(dev)
+            for label, run in trips:
+                calls = record(run)
                 for name in CONTROLS:
-                    time_entry(name, label, calls[name], DTYPES[:1], False)
-            del recorded
+                    bad += time_entry(name, label, calls[name], DTYPES[:1])
+                del calls
             time_controls(dev, trips)
     print("launches over tolerance: %d" % bad)
     return 1 if bad else 0

@@ -13,6 +13,8 @@ kernels, on one NVIDIA GPU.
         dtcwt_filter2,dtcwt_dfilt2 dual kernels
     python tools/time_variant.py VARIANT.cu dtcwt_filter2,dtcwt_dfilt2 \
         dual kernels --set 'dual._COL_TX={2: 64, 4: 32, 8: 256}'
+    python tools/time_variant.py VARIANT.cu dtcwt_dfilt,dtcwt_ifilt dual \
+        kernels
 
 Compiles ``VARIANT.cu`` (an edited copy of a ``csrc/*.cu`` file; its
 includes are searched in its own directory first, then in ``csrc/``, so a
@@ -24,7 +26,8 @@ or several, comma-separated: ``dtcwt_level2``, ``dtcwt_level1``,
 ``dtcwt_fwd_level2_pack``, ``dtcwt_inv_level1_pack``,
 ``dtcwt_inv_level2_pack``, ``dtcwt_filter_hw22``, ``dtcwt_dfilt_hw22``,
 ``dtcwt_filter_sum_hw22``, ``dtcwt_ifilt_sum_hw22``, ``dtcwt_filter2``,
-``dtcwt_dfilt2``, ``dtcwt_filter2_sum``, ``dtcwt_ifilt2_sum``) to it and
+``dtcwt_dfilt2``, ``dtcwt_filter2_sum``, ``dtcwt_ifilt2_sum``,
+``dtcwt_dfilt``, ``dtcwt_ifilt``) to it and
 every other entry to the package's
 library, then runs ``tools/time_level1.py`` in the given mode,
 ``tools/time_pack3d.py`` for the mode ``pack3d``, ``tools/time_hw.py`` for
