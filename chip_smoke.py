@@ -38,7 +38,13 @@ complex float32, float32 planes, bfloat16 planes):
   of each shard on the four kernels of ``csrc/hw.cu`` (the analysis
   kernel's design in ``csrc/hwana.cuh``, the synthesis kernel's in
   ``csrc/hwsum.cuh``), the depth stages on
-  the dual kernels' from-extension mode after a halo exchange.
+  the dual kernels' from-extension mode after a halo exchange;
+* gradients: the 2-D round trip (both float32 layouts), the 3-D round trip
+  (interleaved) and the 1-D round trip with inputs that require grad:
+  each transform's level chain runs as one ``ops/linearize`` Function,
+  whose backward launches the opposite qshift level kernels and the dual
+  kernels' from-extension mode (``ops/adjoint``'s level-1 adjoints), or,
+  for the 1-D transform, differentiates the plain chain.
 
 Phases, each printing its own lines:
 
@@ -90,7 +96,13 @@ Phases, each printing its own lines:
    leaf against ``Transform3d`` on the card and against the plain path; a
    ``[1, 32, 256, 256]`` volume whose levels 2-3 gather (their inverse
    merges on ``ifilt_sum_hw22``); a (1, 2, 2) rows mesh; float64 card
-   against CPU meshes;
+   against CPU meshes; the gradient round trips, each direction's
+   backward with the plain versions patched to raise (2-D: the forward's
+   ``inv_level2`` 2, ``filter2_sum`` 3, the inverse's ``filter2`` 3,
+   ``fwd_level2`` 2; 3-D: ``inv_level2_pack`` 2, ``ifilt2_sum`` 2,
+   ``filter2_sum`` 7, and ``filter2`` 7, ``fwd_level2_pack`` 2,
+   ``dfilt2`` 2), its gradients against the plain path's autograd on the
+   card within 2e-5;
 5. timing: CUDA events, median of 10 runs after 2 warm-up runs (for a round
    trip the time its caller waits; for a kernel, its plain version and a
    library call the device's time alone, the stream held while the host
@@ -116,6 +128,9 @@ Phases, each printing its own lines:
    plain path, with a trace (f32 interleaved); each hw kernel's launches of
    one round trip against the plain version, the bound and one
    ``torch.einsum("ah,nhw,wb->nab")`` over the dense operators (TF32 off).
+   Each gradient round trip: the primal, the backward alone, their ratio,
+   the plain route's backward and the byte bound of the backward's
+   launches; a trace of the 2-D backward by kernel and by aten operator.
 
 Tolerances, relative to the largest reference value: float32 1e-5 (sums in
 another order), bfloat16 1e-2 (one bfloat16 step of the stored outputs),
@@ -1824,6 +1839,222 @@ def time_sharded(dev, report) -> None:
         report[name].update(tot)
 
 
+# --- gradients: the transforms' backward (ops/linearize, ops/adjoint) ------
+
+GRAD_TOL = 2e-5     # float32 against the plain path's autograd (adjoint rung)
+# the explicit backward's launches in one 3-level round trip: the forward's
+# adjoint (the gradient of the input) and the inverse's (of the pyramid)
+LAUNCHES_GRAD = {
+    ("2-D", "forward"): {"ilevel2": 2, "filter2_sum": 3},
+    ("2-D", "inverse"): {"filter2": 3, "level2": 2},
+    ("3-D", "forward"): {"inv_level2_pack": 2, "ifilt2_sum": 2,
+                         "filter2_sum": 7},
+    ("3-D", "inverse"): {"filter2": 7, "fwd_level2_pack": 2, "dfilt2": 2}}
+_DUAL_ENTRIES = ("filter2_axis", "dfilt2_axis", "filter2_sum_axis",
+                 "ifilt2_sum_axis", "filter2_fromext_axis",
+                 "filter2_sum_fromext_axis")
+
+
+def grad_paths(dev):
+    """(label, kind, transform, input, layout, entries) of each gradient
+    round trip at full width: 2-D 4096^2 in both float32 layouts, 3-D
+    256^3 interleaved and 1-D [131072, 128] (the plain route); *entries*
+    are the (module, name) of the level entries its chain calls."""
+    import dtcwt_tpu_torch as dt
+    from dtcwt_tpu_torch.ops import dual, ilevel1, ilevel2, level1, level2
+    from dtcwt_tpu_torch.ops import pack3d
+    l2d = ((level1, "fwd_level1"), (level2, "fwd_level2"),
+           (ilevel2, "inv_level2"), (ilevel1, "inv_level1"))
+    l3d = tuple((pack3d, n) for n in PACK_NAMES)
+    l1d = tuple((dual, n) for n in _DUAL_ENTRIES[:4])
+    x2 = rand((N, N), 30, dev, torch.float32)
+    return [("2-D %dx%d %d levels f32 %s" % (N, N, NLEVELS, lay), "2-D",
+             dt.Transform2d(), x2, lay, l2d)
+            for lay in ("interleaved", "planes")] + [
+        ("3-D %d^3 %d levels f32 interleaved" % (VOL, NLEVELS), "3-D",
+         dt.Transform3d(), rand((VOL,) * 3, 31, dev, torch.float32),
+         "interleaved", l3d),
+        ("1-D [%d, %d] %d levels f32 interleaved" % (N1, C1, NLEVELS1),
+         "1-D", dt.Transform1d(), rand((N1, C1), 32, dev, torch.float32),
+         "interleaved", l1d)]
+
+
+def grad_no_plain(entries):
+    """Patches that make the plain versions of *entries* and of the dual
+    entries (the level-1 adjoints' kernels) raise."""
+    from dtcwt_tpu_torch.ops import dual
+    pairs = set(entries) | {(dual, n) for n in _DUAL_ENTRIES}
+    return [(m, n + "_reference", refuse) for m, n in pairs]
+
+
+def grad_plain_path(entries):
+    """Patches for the plain path's autograd on the card: *entries* routed
+    to their plain versions, and the transforms kept off linear_vjp."""
+    from dtcwt_tpu_torch.ops import linearize
+    return [(m, n, getattr(m, n + "_reference")) for m, n in entries] + [
+        (linearize, "needs_vjp", lambda _: False)]
+
+
+def cot_like(a, seed):
+    """A random output gradient of *a*'s shape, dtype and device."""
+    g = torch.Generator(device=a.device).manual_seed(seed)
+    return torch.randn(a.shape, generator=g, dtype=a.dtype, device=a.device)
+
+
+def grads(tr, x, layout, nl, seed):
+    """(input gradient of the forward, pyramid gradients of the inverse,
+    the launch counts of each backward) of an *nl*-level round trip's two
+    directions on random output gradients."""
+    from dtcwt_tpu_torch.ops import _build, linearize
+    xg = x.detach().requires_grad_()
+    p = tr.forward(xg, nl, layout=layout)
+    leaves, spec = linearize._tree(p)
+    cots = [cot_like(a, seed + i) for i, a in enumerate(leaves)]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    (gx,) = torch.autograd.grad(leaves, xg, cots)
+    torch.cuda.synchronize()
+    fwd_counts = dict(_build.launches)
+    pl = [a.detach().requires_grad_() for a in leaves]
+    z = tr.inverse(linearize._fill(spec, pl))
+    v = cot_like(z, seed + 100)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    gp = torch.autograd.grad(z, pl, v)
+    torch.cuda.synchronize()
+    return gx, gp, fwd_counts, dict(_build.launches)
+
+
+def check_grad(dev) -> None:
+    """Phase 4 for the gradients: each round trip's forward and inverse
+    gradients on the card (the explicit adjoints, with every plain version
+    patched to raise; 1-D: the plain route) against the plain path's
+    autograd on the card, with the backward's launch counts."""
+    for label, kind, tr, x, layout, entries in grad_paths(dev):
+        nl = NLEVELS1 if kind == "1-D" else NLEVELS
+        if kind == "1-D":
+            gx, gp, cf, ci = grads(tr, x, layout, nl, 40)
+        else:
+            with patched(grad_no_plain(entries)):
+                gx, gp, cf, ci = grads(tr, x, layout, nl, 40)
+            for way, counts in (("forward", cf), ("inverse", ci)):
+                check(counts == LAUNCHES_GRAD[(kind, way)],
+                      "grad %s: the %s's backward launches %s (want %s)" % (
+                          label, way, counts, LAUNCHES_GRAD[(kind, way)]))
+        with patched(grad_plain_path(entries)):
+            rx, rp, _, _ = grads(tr, x, layout, nl, 40)
+        e = max([rel_err(gx, rx)] + [rel_err(a, b) for a, b in zip(gp, rp)])
+        finite = all(bool(torch.isfinite(torch.view_as_real(g) if
+                                         g.is_complex() else g).all())
+                     for g in (gx,) + tuple(gp))
+        check(e <= GRAD_TOL and finite and len(gp) == len(rp),
+              "grad %s: forward and inverse gradients (%d pyramid leaves) "
+              "against the plain path's autograd on the card: rel err %.3g "
+              "(tol %g), finite %s" % (label, len(gp), e, GRAD_TOL, finite))
+        del gx, gp, rx, rp
+
+
+def launch_bytes(fn) -> tuple:
+    """(bytes, launches) of the kernel launches of one call of *fn*: each
+    launch's input tensors read once and its outputs written once,
+    recorded at the launch sites (the stream kernels, the 3-D level
+    kernels, the 2-D qshift level kernels)."""
+    from dtcwt_tpu_torch.ops import dual, ilevel2, level2, pack3d
+    seen = []
+
+    def flat(obj):
+        if isinstance(obj, torch.Tensor):
+            return [obj]
+        if isinstance(obj, dict):
+            obj = list(obj.values())
+        if isinstance(obj, (tuple, list)):
+            return [t for o in obj for t in flat(o)]
+        return []
+
+    def rec(f):
+        def run(*a, **k):
+            out = f(*a, **k)
+            seen.append(nbytes(flat(a) + flat(k)) + nbytes(flat(out)))
+            return out
+        return run
+    sites = [(dual, "_launch_stream"), (pack3d, "_launch"),
+             (level2, "fwd_level2"), (ilevel2, "inv_level2")]
+    with patched([(m, n, rec(getattr(m, n))) for m, n in sites]):
+        fn()
+        torch.cuda.synchronize()
+    return sum(seen), len(seen)
+
+
+def print_op_trace(what, fn) -> None:
+    """A torch.profiler trace of *fn*: wall and device time, and the device
+    time by kernel and by aten operator (the glue's share)."""
+    from torch.profiler import ProfilerActivity, profile
+    wall, enqueue, device = trace(fn)
+    busy = sum(device.values())
+    if not busy:
+        print("trace %s: wall %.3f ms, host enqueue %.3f ms; device time "
+              "not measured (the profiler saw no device activity)"
+              % (what, wall, enqueue), flush=True)
+        return
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+    ops = collections.Counter()
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CPU
+                and e.key.startswith("aten::")):
+            ops[e.key] += e.self_device_time_total / 1e3 / 5
+    short = lambda k: k.replace("(anonymous namespace)::", "").split("(")[
+        0][:48]
+    print("trace %s: wall %.3f ms, device %.3f ms (idle %.1f%%), host "
+          "enqueue %.3f ms; device time by kernel: %s; by aten operator "
+          "(the rest is the ctypes kernels): %s" % (
+              what, wall, busy, 100 * (1 - busy / wall), enqueue,
+              ", ".join("%s %.4f ms" % (short(k), v)
+                        for k, v in device.most_common(10)),
+              ", ".join("%s %.4f ms" % (k, v) for k, v in ops.most_common(8)
+                        if v > 0)), flush=True)
+
+
+def time_grad(dev) -> None:
+    """Phase 5 for the gradients: each round trip's primal (grad mode off),
+    its backward alone (both directions' adjoints, the graph kept), the
+    backward/primal ratio, the plain route's backward (explicit adjoints
+    declined) and the byte bound of the backward's launches; a trace of
+    the 2-D backward by kernel and by operator."""
+    from dtcwt_tpu_torch.ops import adjoint
+    for label, kind, tr, x, layout, _ in grad_paths(dev):
+        nl = NLEVELS1 if kind == "1-D" else NLEVELS
+        with torch.no_grad():
+            pms = cuda_ms(lambda: tr.inverse(tr.forward(x, nl,
+                                                        layout=layout)))
+        routes = [("explicit", [])] if kind != "1-D" else []
+        routes.append(("plain route", [(adjoint, "explicit_route",
+                                        lambda *a: False)]))
+        out = []
+        for route, patch in routes:
+            with patched(patch):
+                xg = x.detach().requires_grad_()
+                y = tr.inverse(tr.forward(xg, nl, layout=layout))
+            v = cot_like(y, 50)
+            bwd = lambda: torch.autograd.grad(y, xg, v, retain_graph=True)
+            ms = cuda_ms(bwd)
+            line = "%s backward %.3f ms (%.2fx the primal" % (route, ms,
+                                                              ms / pms)
+            if route == "explicit":
+                nb, nlaunch = launch_bytes(bwd)
+                line += "; its %d launches' byte bound %.3f ms" % (
+                    nlaunch, 1e3 * nb / HBM_BYTES_PER_S)
+            out.append(line + ")")
+            if kind == "2-D" and route == "explicit":
+                print_op_trace("grad backward %s" % label, bwd)
+            del y, xg, v
+        print("time grad %s round trip: primal %.3f ms; %s" % (
+            label, pms, "; ".join(out)), flush=True)
+
+
 def main() -> int:
     # --- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2115,6 +2346,7 @@ def main() -> int:
     launches_3d = check_3d(dev, report)
     launches_discard, launches_low = check_single(dev, report)
     launches_sharded = check_sharded(dev, report)
+    check_grad(dev)
 
     # --- 5. timing -----------------------------------------------------------
     print("timing on %s: CUDA events, median of 10 runs after 2 warm-up runs"
@@ -2235,6 +2467,7 @@ def main() -> int:
     time_3d(dev, report)
     time_single(dev, report)
     time_sharded(dev, report)
+    time_grad(dev)
 
     # the dual kernels report the 1-D path's launches, the level kernels
     # their own path's, filter the discard_level_1 round trip's, dfilt and

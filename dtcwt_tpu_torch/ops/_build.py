@@ -194,8 +194,13 @@ def check_no_grad(name: str, *inputs) -> None:
     """Raise RuntimeError where a launch of kernel wrapper *name* would drop
     a gradient: grad mode is on and a tensor among *inputs* (tensors,
     None, or tuples and lists of them) requires grad.  The kernels fill
-    fresh tensors through ctypes, so their outputs carry no ``grad_fn``;
-    until the card path has gradients it refuses such inputs."""
+    fresh tensors through ctypes, so their outputs carry no ``grad_fn``.
+    ``Transform1d``, ``Transform2d`` and ``Transform3d`` have gradients on
+    the card: they run their kernels inside ``linearize.linear_vjp``, where
+    grad mode is off, and a second-order backward through their explicit
+    adjoints ends here.  The sharded transform and the low-level wrappers
+    (``ops.colfilter`` ..., the level and dual entries called directly)
+    have none and refuse such inputs."""
     if not torch.is_grad_enabled():
         return
     stack = list(inputs)
@@ -205,10 +210,12 @@ def check_no_grad(name: str, *inputs) -> None:
             stack.extend(t)
         elif isinstance(t, torch.Tensor) and t.requires_grad:
             raise RuntimeError(
-                "%s: an input requires grad, and the CUDA kernels have no "
-                "gradients yet; run it under torch.no_grad(), or on "
-                "device=\"cpu\", the plain PyTorch path, which has them"
-                % name)
+                "%s: an input requires grad, and this CUDA kernel wrapper "
+                "has no gradient (Transform1d, Transform2d and Transform3d "
+                "have gradients on the card, to first order; the sharded "
+                "transform and the low-level wrappers do not); run it under "
+                "torch.no_grad(), or on device=\"cpu\", the plain PyTorch "
+                "path, which has them" % name)
 
 
 def check(name: str, err: int) -> None:

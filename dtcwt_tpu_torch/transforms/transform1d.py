@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from dtcwt_tpu_torch.defaults import DEFAULT_BIORT, DEFAULT_QSHIFT
-from dtcwt_tpu_torch.ops import dual
+from dtcwt_tpu_torch.ops import dual, linearize
 from dtcwt_tpu_torch.ops.packing import (
     c2q1d, c2q1d_planes, q2c1d, q2c1d_planes)
 from dtcwt_tpu_torch.transforms.pyramid import PlanePyramid, Pyramid
@@ -61,7 +61,9 @@ class Transform1d(nn.Module):
         re/im pair per level is the even/odd deinterleave of the tree
         output.  The signal axis (axis 0 for <= 2-D input, axis -2
         otherwise) must have even length.  bfloat16 input is stored as
-        bfloat16 only in the plane layout (and computed at float32)."""
+        bfloat16 only in the plane layout (and computed at float32).  On
+        the card an input that requires grad gets its gradient through
+        :mod:`ops.linearize`."""
         X = torch.as_tensor(X, device=self.device)
         if X.ndim == 1:
             X = X[:, None]
@@ -71,15 +73,12 @@ class Transform1d(nn.Module):
         if layout not in ("interleaved", "planes"):
             raise ValueError("layout must be 'interleaved' or 'planes'")
         planes = layout == "planes"
-        h0o, _, h1o, _ = self.biort
-        h0a, h0b, _, _, h1a, h1b, _, _ = self.qshift
 
         if not X.is_floating_point():
             X = X.to(torch.get_default_dtype())
         if X.dtype == torch.bfloat16 and not planes:
             # there is no bfloat16 complex dtype for the interleaved layout
             X = X.float()
-        sdt = X.dtype   # storage dtype; the filters run at compute dtype
 
         if nlevels == 0:
             scales = () if include_scale else None
@@ -87,19 +86,35 @@ class Transform1d(nn.Module):
                 return PlanePyramid(X, (), (), scales, kind="1d")
             return Pyramid(X, (), scales)
 
+        # no explicit adjoint: the backward differentiates the plain chain,
+        # as the JAX package's transposes its XLA evaluation
+        return linearize.dispatch(
+            lambda x, plain: self._forward_levels(x, nlevels, include_scale,
+                                                  planes, plain), X)
+
+    def _forward_levels(self, X, nlevels: int, include_scale: bool,
+                        planes: bool, plain: bool = False):
+        """The level chain of the forward on the prepared signal *X*: the
+        dual entries, or with *plain* their plain versions."""
+        h0o, _, h1o, _ = self.biort
+        h0a, h0b, _, _, h1a, h1b, _, _ = self.qshift
+        filter2 = linearize.entry(dual, "filter2_axis", plain)
+        dfilt2 = linearize.entry(dual, "dfilt2_axis", plain)
+        axis = _signal_axis(X)
+        sdt = X.dtype   # storage dtype; the filters run at compute dtype
+
         def pack(hi):
             if not planes:
                 return q2c1d(hi, axis)
             re, im = q2c1d_planes(hi, axis)
             return re.to(sdt), im.to(sdt)
 
-        lo, hi = dual.filter2_axis(compute_view(X).contiguous(), h0o, h1o,
-                                   axis)
+        lo, hi = filter2(compute_view(X).contiguous(), h0o, h1o, axis)
         Yh, Yscale = [pack(hi)], [lo.to(sdt)] if include_scale else []
         for _ in range(1, nlevels):
             if lo.shape[axis] % 4 != 0:
                 lo = _pad_multiple4(lo, axis)
-            lo, hi = dual.dfilt2_axis(lo, (h0b, h0a), (h1b, h1a), axis)
+            lo, hi = dfilt2(lo, (h0b, h0a), (h1b, h1a), axis)
             Yh.append(pack(hi))
             if include_scale:
                 Yscale.append(lo.to(sdt))
@@ -137,15 +152,15 @@ class Transform1d(nn.Module):
         """Inverse transform of a :class:`Pyramid` or 1-D
         :class:`PlanePyramid`.  *gain_mask* is an optional
         length-``nlevels`` vector of per-level gains.  A single-column
-        signal comes back as a vector."""
-        _, g0o, _, g1o = self.biort
-        _, _, g0a, g0b, _, _, g1a, g1b = self.qshift
+        signal comes back as a vector.  On the card a pyramid leaf that
+        requires grad gets its gradient through :mod:`ops.linearize`."""
         on = lambda a: torch.as_tensor(a, device=self.device)
 
         lo = on(pyramid.lowpass)
         ret_flat = lo.ndim == 2 and lo.shape[-1] == 1
         sdt = lo.dtype
-        if isinstance(pyramid, PlanePyramid):
+        plane_pyr = isinstance(pyramid, PlanePyramid)
+        if plane_pyr:
             bands = [(on(r), on(i)) for r, i in zip(pyramid.highpasses_re,
                                                     pyramid.highpasses_im)]
         else:
@@ -153,17 +168,40 @@ class Transform1d(nn.Module):
         if gain_mask is not None:
             # the gains scale each subband before any filtering
             gm = [float(g) for g in torch.as_tensor(gain_mask).reshape(-1)]
-            if isinstance(pyramid, PlanePyramid):
+            if plane_pyr:
                 bands = [((r * gm[lvl]).to(r.dtype), (i * gm[lvl]).to(i.dtype))
                          for lvl, (r, i) in enumerate(bands)]
             else:
                 bands = [h * gm[lvl] for lvl, h in enumerate(bands)]
 
-        lo = compute_view(lo)
-        nlevels = len(bands)
-        axis = _signal_axis(lo)
-        if nlevels == 0:
+        lo = compute_view(lo).contiguous()
+        if not bands:
             return lo.to(sdt)
+        if plane_pyr:
+            pyr = PlanePyramid(lo, tuple(r for r, _ in bands),
+                               tuple(i for _, i in bands), kind="1d")
+        else:
+            pyr = Pyramid(lo, tuple(bands))
+
+        Z = linearize.dispatch(self._inverse_levels, pyr)
+        if ret_flat:
+            return Z[:, 0].to(sdt)
+        return Z.to(sdt)
+
+    def _inverse_levels(self, pyramid, plain: bool = False) -> torch.Tensor:
+        """The level chain of the inverse on the prepared, gain-free
+        *pyramid* (its lowpass at the compute precision): the dual entries,
+        or with *plain* their plain versions."""
+        _, g0o, _, g1o = self.biort
+        _, _, g0a, g0b, _, _, g1a, g1b = self.qshift
+        ifilt2_sum = linearize.entry(dual, "ifilt2_sum_axis", plain)
+        filter2_sum = linearize.entry(dual, "filter2_sum_axis", plain)
+        lo = pyramid.lowpass
+        axis = _signal_axis(lo)
+        if isinstance(pyramid, PlanePyramid):
+            bands = list(zip(pyramid.highpasses_re, pyramid.highpasses_im))
+        else:
+            bands = list(pyramid.highpasses)
 
         def hi_at(level):
             """The level's real interleaved highpass branch input, at the
@@ -179,17 +217,12 @@ class Transform1d(nn.Module):
             band = bands[level]
             return (band[0] if isinstance(band, tuple) else band).shape[axis]
 
-        lo = lo.contiguous()
-        for level in range(nlevels - 1, 0, -1):
-            lo = dual.ifilt2_sum_axis(lo, hi_at(level), (g0b, g0a),
-                                      (g1b, g1a), axis)
+        for level in range(len(bands) - 1, 0, -1):
+            lo = ifilt2_sum(lo, hi_at(level), (g0b, g0a), (g1b, g1a), axis)
             want = 2 * length(level - 1)
             if lo.shape[axis] != want:
                 lo = lo.narrow(axis, 1, lo.shape[axis] - 2).contiguous()
             if lo.shape[axis] != want:
                 raise ValueError("Yh sizes are not valid for the inverse"
                                  " transform")
-        Z = dual.filter2_sum_axis(lo, hi_at(0), g0o, g1o, axis)
-        if ret_flat:
-            return Z[:, 0].to(sdt)
-        return Z.to(sdt)
+        return filter2_sum(lo, hi_at(0), g0o, g1o, axis)

@@ -9,6 +9,14 @@ padding, the inverse's crop, the gain-mask pre-scaling and the bfloat16
 rules.  Levels hand each other plain lowpass images.  The transform runs on its
 ``device`` ("cuda" unless the caller asks for "cpu") and moves its inputs
 there.
+
+On the card, where grad mode is on and an input requires grad, the level
+chain runs as one ``linearize.linear_vjp`` Function: its backward is the
+explicit adjoint (``_fwd_adjoint_fn``, ``_inv_adjoint_fn``: the opposite
+qshift level kernels and ``ops/adjoint``'s level-1 adjoints on the dual
+kernels) where the filters, dtype and shapes allow, and the plain chain's
+``torch.func.vjp`` elsewhere.  The glue stays outside the Function, and
+autograd differentiates it.
 """
 
 from __future__ import annotations
@@ -22,7 +30,8 @@ from torch import nn
 
 from dtcwt_tpu_torch.coeffs import biort as _biort, qshift as _qshift
 from dtcwt_tpu_torch.defaults import DEFAULT_BIORT, DEFAULT_QSHIFT
-from dtcwt_tpu_torch.ops import ilevel1, ilevel2, level1, level2
+from dtcwt_tpu_torch.ops import (
+    adjoint, ilevel1, ilevel2, level1, level2, linearize)
 from dtcwt_tpu_torch.transforms.pyramid import (
     PLANE_BAND_ORDER, PlanePyramid, Pyramid)
 
@@ -83,6 +92,22 @@ def _crop_to(Z: torch.Tensor, next_hw) -> torch.Tensor:
     return Z.contiguous()
 
 
+def _level_bands(pyramid):
+    """Each level's subbands as the level entries take them: ``{"yh":
+    complex}`` or ``{"bands": (re, im)}``."""
+    if isinstance(pyramid, PlanePyramid):
+        return [{"bands": (r, i)} for r, i in zip(pyramid.highpasses_re,
+                                                  pyramid.highpasses_im)]
+    return [{"yh": h} for h in pyramid.highpasses]
+
+
+def _band_hw(pyramid):
+    """Each level's subband (h, w)."""
+    if isinstance(pyramid, PlanePyramid):
+        return [tuple(r.shape[-2:]) for r in pyramid.highpasses_re]
+    return [tuple(h.shape[-3:-1]) for h in pyramid.highpasses]
+
+
 class Transform2d(nn.Module):
     """An n-level 2-D DTCWT parameterised by *biort* (level-1) and *qshift*
     (level>=2) wavelets: named families or explicit coefficient tuples of
@@ -107,18 +132,15 @@ class Transform2d(nn.Module):
         :class:`Pyramid` (complex ``[..., h, w, 6]`` subbands) or, with
         ``layout='planes'``, a :class:`PlanePyramid`.  Odd sizes have their
         last row/column duplicated first.  bfloat16 input is stored as
-        bfloat16 only in the plane layout (and computed at float32)."""
+        bfloat16 only in the plane layout (and computed at float32).  On
+        the card an input that requires grad gets its gradient through
+        :mod:`ops.linearize`."""
         X = torch.as_tensor(X, device=self.device)
         if X.ndim < 2:
             raise ValueError("Transform2d.forward needs at least a 2-D input")
         if layout not in ("interleaved", "planes"):
             raise ValueError("layout must be 'interleaved' or 'planes'")
         planes = layout == "planes"
-        b, q = self.biort, self.qshift
-        h0o, h1o = b[0], b[2]
-        h2o = b[4] if len(b) == 6 else None
-        h0a, h0b, h1a, h1b = q[0], q[1], q[4], q[5]
-        h2a, h2b = (q[8], q[9]) if len(q) == 12 else (None, None)
 
         if not X.is_floating_point():
             X = X.to(torch.get_default_dtype())
@@ -137,13 +159,32 @@ class Transform2d(nn.Module):
                 X = _dup_edge(X, -1)
         X = X.contiguous()
 
-        scales = [] if include_scale else None
         if nlevels == 0:
+            scales = [] if include_scale else None
             if planes:
                 return PlanePyramid(X, (), (), scales)
             return Pyramid(X, (), scales)
 
-        lolo, yh = level1.fwd_level1(X, h0o, h1o, planes=planes, h2o=h2o)
+        return linearize.dispatch(
+            lambda x, plain: self._forward_levels(x, nlevels, include_scale,
+                                                  planes, plain), X,
+            lambda: self._fwd_adjoint_fn(X.shape, X.dtype, nlevels,
+                                         include_scale, planes))
+
+    def _forward_levels(self, X, nlevels: int, include_scale: bool,
+                        planes: bool, plain: bool = False):
+        """The level chain of the forward on the prepared image *X*: the
+        level entries, or with *plain* their plain versions."""
+        b, q = self.biort, self.qshift
+        h0o, h1o = b[0], b[2]
+        h2o = b[4] if len(b) == 6 else None
+        h0a, h0b, h1a, h1b = q[0], q[1], q[4], q[5]
+        h2a, h2b = (q[8], q[9]) if len(q) == 12 else (None, None)
+        fwd1 = linearize.entry(level1, "fwd_level1", plain)
+        fwd2 = linearize.entry(level2, "fwd_level2", plain)
+
+        scales = [] if include_scale else None
+        lolo, yh = fwd1(X, h0o, h1o, planes=planes, h2o=h2o)
         Yh = [yh]
         if include_scale:
             scales.append(lolo)
@@ -152,8 +193,8 @@ class Transform2d(nn.Module):
                 lolo = _pad_multiple4(lolo, -2)
             if lolo.shape[-1] % 4:
                 lolo = _pad_multiple4(lolo, -1)
-            lolo, yh = level2.fwd_level2(lolo, h0a, h0b, h1a, h1b,
-                                         planes=planes, h2a=h2a, h2b=h2b)
+            lolo, yh = fwd2(lolo, h0a, h0b, h1a, h1b, planes=planes,
+                            h2a=h2a, h2b=h2b)
             Yh.append(yh)
             if include_scale:
                 scales.append(lolo)
@@ -161,6 +202,74 @@ class Transform2d(nn.Module):
             return PlanePyramid(lolo, tuple(r for r, _ in Yh),
                                 tuple(i for _, i in Yh), scales)
         return Pyramid(lolo, tuple(Yh), scales)
+
+    # ------------------------------------------------------------------
+    # explicit adjoints (ops/adjoint.py): a qshift level's adjoint is the
+    # opposite level kernel, level 1's a zero-extension correlation on the
+    # dual kernels plus a border fold.  None outside their envelope: the
+    # backward then differentiates the plain chain.
+    # ------------------------------------------------------------------
+    def _fwd_adjoint_fn(self, shape, dtype, nlevels: int, include_scale: bool,
+                        planes: bool):
+        """The forward's adjoint (result gradient -> image gradient), or
+        None where the filters, dtype, scales or shapes (a pad in the chain,
+        a level-1 side shorter than the fold) leave its envelope."""
+        if include_scale or not adjoint.explicit_route(self.biort,
+                                                       self.qshift, dtype):
+            return None
+        H, W = shape[-2:]
+        h0o, h1o = self.biort[0], self.biort[2]
+        if (H % 2 ** nlevels or W % 2 ** nlevels
+                or min(H, W) < max(h0o.size, h1o.size) // 2):
+            return None
+        q = self.qshift
+        g0a, g0b, g1a, g1b = q[2], q[3], q[6], q[7]
+
+        def adj(cot):
+            bands = _level_bands(cot)
+            Z = cot.lowpass.contiguous()
+            for lvl in range(nlevels - 1, 0, -1):
+                Z = ilevel2.inv_level2(Z, g0a=g0a, g0b=g0b, g1a=g1a,
+                                       g1b=g1b, **bands[lvl])
+            return adjoint.level1_fwd_adj_quads(Z, *ilevel2._quads(
+                **bands[0]), h0o, h1o)
+        return adj
+
+    def _inv_adjoint_fn(self, pyramid):
+        """The (gain-free) inverse's adjoint (image gradient -> pyramid
+        gradient) of the prepared *pyramid*, or None outside its envelope:
+        a crop in the chain, subbands of another dtype than the lowpass, a
+        level-1 side shorter than the fold."""
+        planes = isinstance(pyramid, PlanePyramid)
+        low = pyramid.lowpass
+        if not adjoint.explicit_route(self.biort, self.qshift, low.dtype):
+            return None
+        if planes and {a.dtype for a in pyramid.highpasses_re
+                       + pyramid.highpasses_im} != {low.dtype}:
+            return None
+        hw = _band_hw(pyramid)
+        double = lambda s: tuple(2 * v for v in s)
+        if (any(hw[lvl - 1] != double(hw[lvl]) for lvl in range(1, len(hw)))
+                or tuple(low.shape[-2:]) != double(hw[-1])):
+            return None
+        g0o, g1o = self.biort[1], self.biort[3]
+        if min(hw[0]) * 2 < max(g0o.size, g1o.size) // 2:
+            return None
+        q = self.qshift
+        h0a, h0b, h1a, h1b = q[0], q[1], q[4], q[5]
+
+        def adj(xbar):
+            z, yh = adjoint.level1_inv_adj(xbar, g0o, g1o, planes)
+            Yh = [yh]
+            for _ in range(1, len(hw)):
+                z, yh = level2.fwd_level2(z, h0a, h0b, h1a, h1b,
+                                          planes=planes)
+                Yh.append(yh)
+            if planes:
+                return PlanePyramid(z, tuple(r for r, _ in Yh),
+                                    tuple(i for _, i in Yh))
+            return Pyramid(z, tuple(Yh))
+        return adj
 
     # ------------------------------------------------------------------
     # channel/batch layout adapters
@@ -232,13 +341,8 @@ class Transform2d(nn.Module):
     def inverse(self, pyramid, gain_mask=None) -> torch.Tensor:
         """Inverse transform of a :class:`Pyramid` or :class:`PlanePyramid`.
         *gain_mask* is an optional ``(6, nlevels)`` array of per-subband
-        gains in degree order."""
-        b, q = self.biort, self.qshift
-        g0o, g1o = b[1], b[3]
-        g2o = b[5] if len(b) == 6 else None
-        g0a, g0b, g1a, g1b = q[2], q[3], q[6], q[7]
-        g2a, g2b = (q[10], q[11]) if len(q) == 12 else (None, None)
-
+        gains in degree order.  On the card a pyramid leaf that requires
+        grad gets its gradient through :mod:`ops.linearize`."""
         plane_pyr = isinstance(pyramid, PlanePyramid)
         Z = torch.as_tensor(pyramid.lowpass, device=self.device)
         sdt = Z.dtype
@@ -247,20 +351,17 @@ class Transform2d(nn.Module):
                    torch.as_tensor(i, device=self.device).contiguous())
                   for r, i in zip(pyramid.highpasses_re,
                                   pyramid.highpasses_im)]
-            hw = [tuple(r.shape[-2:]) for r, _ in Yb]
         else:
             Yh = [torch.as_tensor(h, device=self.device).contiguous()
                   for h in pyramid.highpasses]
-            hw = [tuple(h.shape[-3:-1]) for h in Yh]
             if Yh:
                 # the kernels read the lowpass at the subbands' precision
                 Z = Z.to(Yh[0].real.dtype)
-        nlevels = len(hw)
 
         if gain_mask is not None:
             # Gains scale each subband before any filtering, so applying them
             # up front is the reference semantics, and the level kernels
-            # run gain-free.
+            # (and the backward's adjoint) run gain-free.
             gm = torch.as_tensor(gain_mask, device=Z.device)
             if plane_pyr:
                 gp = gm[list(PLANE_BAND_ORDER)]
@@ -271,13 +372,33 @@ class Transform2d(nn.Module):
                 Yh = [h * gm[:, lvl].to(h.real.dtype)
                       for lvl, h in enumerate(Yh)]
 
-        band = (lambda lvl: {"bands": Yb[lvl]}) if plane_pyr else \
-            (lambda lvl: {"yh": Yh[lvl]})
-        Z = Z.contiguous()
-        for lvl in range(nlevels - 1, 0, -1):
-            Z = ilevel2.inv_level2(Z, g0a=g0a, g0b=g0b, g1a=g1a, g1b=g1b,
-                                   g2a=g2a, g2b=g2b, **band(lvl))
+        if plane_pyr:
+            pyr = PlanePyramid(Z.contiguous(), tuple(r for r, _ in Yb),
+                               tuple(i for _, i in Yb))
+        else:
+            pyr = Pyramid(Z.contiguous(), tuple(Yh))
+        if not pyr.nlevels:
+            return Z.to(sdt)
+
+        return linearize.dispatch(self._inverse_levels, pyr,
+                                  lambda: self._inv_adjoint_fn(pyr)).to(sdt)
+
+    def _inverse_levels(self, pyramid, plain: bool = False) -> torch.Tensor:
+        """The level chain of the inverse on the prepared, gain-free
+        *pyramid* (contiguous leaves): the level entries, or with *plain*
+        their plain versions."""
+        b, q = self.biort, self.qshift
+        g0o, g1o = b[1], b[3]
+        g2o = b[5] if len(b) == 6 else None
+        g0a, g0b, g1a, g1b = q[2], q[3], q[6], q[7]
+        g2a, g2b = (q[10], q[11]) if len(q) == 12 else (None, None)
+        inv2 = linearize.entry(ilevel2, "inv_level2", plain)
+        inv1 = linearize.entry(ilevel1, "inv_level1", plain)
+
+        bands, hw = _level_bands(pyramid), _band_hw(pyramid)
+        Z = pyramid.lowpass
+        for lvl in range(len(bands) - 1, 0, -1):
+            Z = inv2(Z, g0a=g0a, g0b=g0b, g1a=g1a, g1b=g1b, g2a=g2a,
+                     g2b=g2b, **bands[lvl])
             Z = _crop_to(Z, hw[lvl - 1])
-        if nlevels >= 1:
-            Z = ilevel1.inv_level1(Z, g0o=g0o, g1o=g1o, g2o=g2o, **band(0))
-        return Z.to(sdt)
+        return inv1(Z, g0o=g0o, g1o=g1o, g2o=g2o, **bands[0])

@@ -446,50 +446,299 @@ def test_cuda_level_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 @pytest.mark.cuda
 def test_cuda_wrappers_refuse_inputs_that_need_grad(cuda):
-    """The kernels have no gradients yet: Transform2d's forward and inverse,
-    and every other kernel wrapper (the 1-D and 3-D transforms, the
-    low-level filters, the hw kernels), raise on an input that requires
-    grad while grad mode is on, naming device="cpu"; under
-    torch.no_grad() the same calls run the kernels."""
+    """The wrappers without gradients (the low-level filters, a level or hw
+    kernel's entry called directly, the sharded transform) raise on an
+    input that requires grad while grad mode is on, naming device="cpu";
+    under torch.no_grad() the same calls run the kernels.  The transforms
+    take such inputs and run their kernels inside ``linear_vjp``."""
+    from dtcwt_tpu_torch.parallel import ShardedTransform3d, make_mesh
     need = r'requires grad.*device="cpu"'
     t = dt.Transform2d()
     x = torch.rand(2, 64, 96, device=cuda, requires_grad=True)
-    with pytest.raises(RuntimeError, match=need):
-        t.forward(x, 3)
-    with torch.no_grad():
-        _build.reset_launches()
-        p = t.forward(x, 3)
-        rec = t.inverse(p)
-        torch.cuda.synchronize()
+    _build.reset_launches()
+    p = t.forward(x, 3)
+    rec = t.inverse(p)
+    torch.cuda.synchronize()
     assert dict(_build.launches) == {"level1": 1, "level2": 2, "ilevel2": 2,
                                      "ilevel1": 1}
+    assert rec.grad_fn is not None
     assert float((rec - x).abs().max()) < 1e-4
-    p.lowpass.requires_grad_()
-    with pytest.raises(RuntimeError, match=need):
-        t.inverse(p)
-    p.lowpass.requires_grad_(False)
-    p.highpasses[0].requires_grad_()
-    with pytest.raises(RuntimeError, match=need):
-        t.inverse(p)
-    with torch.no_grad():
-        assert torch.equal(t.inverse(p), rec)
-    s = torch.rand(64, 4, device=cuda, requires_grad=True)
     im = torch.rand(64, 96, device=cuda, requires_grad=True)
     v = torch.rand(32, 32, 32, device=cuda, requires_grad=True)
     b, q = biort("near_sym_a"), qshift("qshift_a")
-    calls = [lambda: dt.Transform1d().forward(s, 3),
-             lambda: dt.Transform3d().forward(v, 2),
-             lambda: dt.Transform3d().forward(v, 2, discard_level_1=True),
-             lambda: single.colfilter(im, b[0]),
+    st = ShardedTransform3d(make_mesh((1, 4), ("data", "depth"),
+                                      ["cuda"] * 4))
+    calls = [lambda: single.colfilter(im, b[0]),
              lambda: single.coldfilt(im, q[1], q[0]),
              lambda: single.colifilt(im, q[3], q[2]),
-             lambda: hw.filter_hw22(v, b[0], b[2])]
+             lambda: level1.fwd_level1(im, b[0], b[2]),
+             lambda: dual.filter2_axis(im.contiguous(), b[0], b[2], 0),
+             lambda: hw.filter_hw22(v, b[0], b[2]),
+             lambda: st.forward(v[None], 2)]
     for call in calls:
         with pytest.raises(RuntimeError, match=need):
             call()
         with torch.no_grad():
             call()
     torch.cuda.synchronize()
+
+
+# --- gradients on the card (ops/linearize, ops/adjoint) --------------------
+
+# the tolerance of the adjoint rung, relative to the largest value: float32
+# 2e-5 (two kernel chains and the border folds, sums in another order),
+# bfloat16 planes 1e-2
+_GTOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+_GRAD_CASES = [(torch.float32, "interleaved"), (torch.float32, "planes"),
+               (torch.bfloat16, "planes")]
+
+
+def _grad_leaves(p):
+    from dtcwt_tpu_torch.ops import linearize
+    return linearize._tree(p)[0]
+
+
+def _plain_entries(monkeypatch, *pairs):
+    """Route each (module, entry) to its plain version and keep the
+    transforms off ``linear_vjp``: the plain path's autograd on the
+    card."""
+    from dtcwt_tpu_torch.ops import linearize
+    monkeypatch.setattr(linearize, "needs_vjp", lambda _: False)
+    for mod, name in pairs:
+        monkeypatch.setattr(mod, name, getattr(mod, name + "_reference"))
+
+
+def _no_plain(monkeypatch, *pairs):
+    """Make each (module, entry)'s plain version raise."""
+    def refuse(*_a, **_k):
+        raise RuntimeError("a plain version ran on the card's backward")
+    for mod, name in pairs:
+        monkeypatch.setattr(mod, name + "_reference", refuse)
+
+
+_LEVELS_2D = ((level1, "fwd_level1"), (level2, "fwd_level2"),
+              (ilevel2, "inv_level2"), (ilevel1, "inv_level1"))
+_DUAL = tuple((dual, n) for n in (
+    "filter2_axis", "dfilt2_axis", "filter2_sum_axis", "ifilt2_sum_axis",
+    "filter2_fromext_axis", "filter2_sum_fromext_axis"))
+
+
+def _round_trip_grads(t, x, layout, seed, fwd_kw=None):
+    """Gradients of a loss on a forward's leaves and on its round trip:
+    (d/dx of forward, d/dpyramid of inverse)."""
+    fwd_kw = fwd_kw or {}
+    xg = x.detach().requires_grad_()
+    p = t.forward(xg, 3, layout=layout, **fwd_kw)
+    leaves = _grad_leaves(p)
+    rng = np.random.RandomState(seed)
+    cots = [torch.from_numpy(rng.randn(*a.shape)).to(a.device, a.dtype)
+            if not a.is_complex() else torch.complex(
+                *(torch.from_numpy(rng.randn(*a.shape)) for _ in "ri")).to(
+                    a.device, a.dtype) for a in leaves]
+    (gx,) = torch.autograd.grad(leaves, xg, cots)
+    pl = [a.detach().requires_grad_() for a in leaves]
+    from dtcwt_tpu_torch.ops import linearize
+    z = t.inverse(linearize._fill(linearize._tree(p)[1], pl))
+    v = torch.from_numpy(rng.randn(*z.shape)).to(z.device, z.dtype)
+    return (gx,) + torch.autograd.grad(z, pl, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,layout", _GRAD_CASES)
+def test_cuda_transform2d_grads_match_plain(cuda, monkeypatch, dtype,
+                                            layout):
+    """Transform2d's forward and inverse gradients on the card (the
+    explicit adjoints in float32, the plain route in bfloat16) against
+    the plain path's autograd on the card, at 2 x 128 x 96, 3 levels."""
+    t = dt.Transform2d()
+    x = _rand((2, 128, 96), 20, cuda, dtype)
+    got = _round_trip_grads(t, x, layout, 21)
+    with monkeypatch.context() as m:
+        _plain_entries(m, *_LEVELS_2D)
+        want = _round_trip_grads(t, x, layout, 21)
+    for g, w in zip(got, want):
+        assert _kerr(g.float() if g.dtype == torch.bfloat16 else g,
+                     w.float() if w.dtype == torch.bfloat16 else w) \
+            < _GTOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["interleaved", "planes"])
+def test_cuda_transform2d_backward_launches(cuda, monkeypatch, layout):
+    """With every plain version patched to raise, the explicit backward
+    launches exactly: the forward's adjoint inv_level2 nlevels - 1 times
+    and filter2_sum 3 times, the inverse's filter2 3 times and fwd_level2
+    nlevels - 1 times."""
+    _no_plain(monkeypatch, *_LEVELS_2D, *_DUAL)
+    t = dt.Transform2d()
+    x = _rand((256, 256), 22, cuda, torch.float32).requires_grad_()
+    p = t.forward(x, 3, layout=layout)
+    leaves = _grad_leaves(p)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    torch.autograd.backward(leaves, [torch.ones_like(a) for a in leaves])
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"ilevel2": 2, "filter2_sum": 3}
+    pl = [a.detach().requires_grad_() for a in leaves]
+    from dtcwt_tpu_torch.ops import linearize
+    z = t.inverse(linearize._fill(linearize._tree(p)[1], pl))
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    z.backward(torch.ones_like(z))
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"filter2": 3, "level2": 2}
+    assert all(a.grad is not None for a in pl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,layout", _GRAD_CASES)
+def test_cuda_transform3d_grads_match_plain(cuda, monkeypatch, dtype,
+                                            layout):
+    """Transform3d's gradients on the card against the plain path's
+    autograd on the card, at 32^3, 3 levels, and with discard_level_1
+    (the plain route)."""
+    from dtcwt_tpu_torch.ops import pack3d
+    entries = ((pack3d, "fwd_level1_pack"), (pack3d, "fwd_level2_pack"),
+               (pack3d, "inv_level1_pack"), (pack3d, "inv_level2_pack"),
+               (single, "filter_axis"))
+    t = dt.Transform3d()
+    x = _rand((32, 32, 32), 23, cuda, dtype)
+    for kw in ({}, {"discard_level_1": True}):
+        got = _round_trip_grads(t, x, layout, 24, kw)
+        with monkeypatch.context() as m:
+            _plain_entries(m, *entries)
+            want = _round_trip_grads(t, x, layout, 24, kw)
+        for g, w in zip(got, want):
+            assert _kerr(g.float() if g.dtype == torch.bfloat16 else g,
+                         w.float() if w.dtype == torch.bfloat16 else w) \
+                < _GTOL[dtype]
+
+
+@pytest.mark.cuda
+def test_cuda_transform3d_backward_launches(cuda, monkeypatch):
+    """With every plain version patched to raise, the 3-D explicit
+    backward launches: the forward's adjoint inv_level2_pack (and its
+    depth stage ifilt2_sum) nlevels - 1 times and filter2_sum 7 times,
+    the inverse's filter2 7 times and fwd_level2_pack (and dfilt2)
+    nlevels - 1 times."""
+    from dtcwt_tpu_torch.ops import pack3d
+    _no_plain(monkeypatch, *_DUAL, (pack3d, "fwd_level1_pack"),
+              (pack3d, "fwd_level2_pack"), (pack3d, "inv_level1_pack"),
+              (pack3d, "inv_level2_pack"))
+    t = dt.Transform3d()
+    x = _rand((32, 32, 32), 25, cuda, torch.float32).requires_grad_()
+    p = t.forward(x, 3)
+    leaves = _grad_leaves(p)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    torch.autograd.backward(leaves, [torch.ones_like(a) for a in leaves])
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"inv_level2_pack": 2, "ifilt2_sum": 2,
+                                     "filter2_sum": 7}
+    pl = [a.detach().requires_grad_() for a in leaves]
+    from dtcwt_tpu_torch.ops import linearize
+    z = t.inverse(linearize._fill(linearize._tree(p)[1], pl))
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    z.backward(torch.ones_like(z))
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"filter2": 7, "fwd_level2_pack": 2,
+                                     "dfilt2": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,layout", _GRAD_CASES)
+def test_cuda_transform1d_grads_match_plain(cuda, monkeypatch, dtype,
+                                            layout):
+    """Transform1d's gradients on the card (the plain route: the backward
+    differentiates the plain chain) against the plain path's autograd on
+    the card, [1024, 8], 3 levels."""
+    t = dt.Transform1d()
+    x = _rand((1024, 8), 26, cuda, dtype)
+    got = _round_trip_grads(t, x, layout, 27)
+    with monkeypatch.context() as m:
+        _plain_entries(m, *_DUAL[:4])
+        want = _round_trip_grads(t, x, layout, 27)
+    for g, w in zip(got, want):
+        assert _kerr(g.float() if g.dtype == torch.bfloat16 else g,
+                     w.float() if w.dtype == torch.bfloat16 else w) \
+            < _GTOL[dtype]
+
+
+@pytest.mark.cuda
+def test_cuda_second_order_backward_raises(cuda):
+    """The kernels' outputs carry no graph: a create_graph=True backward
+    through the explicit route raises in check_no_grad instead of
+    returning a wrong second derivative; the plain route (bandpass
+    families) differentiates twice."""
+    x = _rand((64, 64), 28, cuda, torch.float32).requires_grad_()
+    p = dt.Transform2d().forward(x, 2)
+    loss = p.lowpass.pow(2).sum()
+    with pytest.raises(RuntimeError, match="requires grad"):
+        torch.autograd.grad(loss, x, create_graph=True)
+    pb = dt.Transform2d("near_sym_b_bp", "qshift_b_bp").forward(x, 2)
+    (g,) = torch.autograd.grad(pb.lowpass.pow(2).sum(), x, create_graph=True)
+    (h,) = torch.autograd.grad(g.sum(), x)
+    assert bool(torch.isfinite(h).all())
+
+
+@pytest.mark.cuda
+def test_cuda_grad_round_trips_free_their_memory(cuda):
+    """Twenty forward and backward passes of a 2-D and a 3-D round trip
+    through the explicit route (the 2-D inverse gain-masked) leave the
+    card's allocated memory where it was after the first, with the garbage
+    collector off: the Function's node keeps no pyramid alive."""
+    import gc
+    cases = [(dt.Transform2d(), _rand((512, 512), 29, cuda, torch.float32),
+              np.full((6, 3), 0.5)),
+             (dt.Transform3d(), _rand((32, 32, 32), 30, cuda, torch.float32),
+              None)]
+
+    def step(t, x, gm):
+        xg = x.detach().requires_grad_()
+        p = t.forward(xg, 3)
+        z = t.inverse(p) if gm is None else t.inverse(p, gm)
+        z.pow(2).sum().backward()
+        return float(xg.grad.abs().max())
+
+    for t, x, gm in cases:
+        step(t, x, gm)      # the plans' and folds' caches fill once
+        torch.cuda.synchronize()
+        gc.collect()
+        gc.disable()
+        try:
+            start = torch.cuda.memory_allocated()
+            for _ in range(20):
+                assert step(t, x, gm) > 0
+            torch.cuda.synchronize()
+            assert torch.cuda.memory_allocated() == start
+        finally:
+            gc.enable()
+
+
+@pytest.mark.cuda
+def test_cuda_transform2d_grad_through_conj(cuda, monkeypatch):
+    """A loss on the bands' conjugates (cotangents with the lazy
+    conjugate bit, which the level kernels' complex views refuse) gets
+    the plain path's gradient through the explicit route."""
+    t = dt.Transform2d()
+    x = _rand((128, 96), 31, cuda, torch.float32)
+    rng = np.random.RandomState(32)
+
+    def grad_x():
+        xg = x.detach().requires_grad_()
+        p = t.forward(xg, 3)
+        loss = sum((h.conj() * torch.from_numpy(
+            rng.randn(*h.shape) + 1j * rng.randn(*h.shape)).to(
+                h.device, h.dtype)).real.sum() for h in p.highpasses)
+        return torch.autograd.grad(loss, xg)[0]
+
+    got = grad_x()
+    rng = np.random.RandomState(32)
+    with monkeypatch.context() as m:
+        _plain_entries(m, *_LEVELS_2D)
+        want = grad_x()
+    assert _kerr(got, want) < _GTOL[torch.float32]
 
 
 # --- the dual-stream kernels of the 1-D transform (csrc/dual.cu) -----------

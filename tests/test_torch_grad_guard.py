@@ -1,11 +1,13 @@
-"""The card path's refusal of inputs that need gradients, checked on the CPU.
+"""The kernel wrappers' refusal of inputs that need gradients, checked on
+the CPU.
 
 The CUDA kernel wrappers fill fresh tensors through ctypes, so a launch on
 an input that requires grad would return results with no ``grad_fn`` and
-silently drop that input's part of a gradient.  Until the card path has
-gradients, every launch site calls ``_build.check_no_grad`` first, which
-raises while grad mode is on; the plain path (``device="cpu"``) keeps
-PyTorch's autograd.  The launch itself is checked on the card in
+silently drop that input's part of a gradient.  Every launch site calls
+``_build.check_no_grad`` first, which raises while grad mode is on; the
+transforms launch inside ``ops/linearize``'s Function, where grad mode is
+off (``tests/test_torch_grad.py``), and the plain path (``device="cpu"``)
+keeps PyTorch's autograd.  The launch itself is checked on the card in
 ``tests/test_torch_cuda.py``.
 """
 
