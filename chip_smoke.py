@@ -39,6 +39,15 @@ complex float32, float32 planes, bfloat16 planes):
   kernel's design in ``csrc/hwana.cuh``, the synthesis kernel's in
   ``csrc/hwsum.cuh``), the depth stages on
   the dual kernels' from-extension mode after a halo exchange;
+* the algorithms on the 2-D pyramid (float32 interleaved):
+  ``registration.estimatereg`` of ``bench.py``'s 512 x 512 smooth field and
+  its (3, 2) pixel roll, each transformed at 6 levels (``fwd_level1`` and
+  ``fwd_level2``); ``estimatereg_batched`` over the 7 neighbouring pairs
+  of a GOP of 8 frames of 1920 x 1080 transformed batched at 5 levels
+  (``examples/register_video.py``'s defaults); ``keypoint.find_keypoints``
+  on 4-level pyramids of the 512^2 field and the 4096^2 image; and
+  ``sampling.rescale_highpass``, ``upsample_highpass`` (the 4096^2 image's
+  level-1 subbands) and ``sample`` (the image at 10^6 points);
 * gradients: the 2-D round trip (both float32 layouts), the 3-D round trip
   (interleaved) and the 1-D round trip with inputs that require grad:
   each transform's level chain runs as one ``ops/linearize`` Function,
@@ -102,7 +111,20 @@ Phases, each printing its own lines:
    ``fwd_level2`` 2; 3-D: ``inv_level2_pack`` 2, ``ifilt2_sum`` 2,
    ``filter2_sum`` 7, and ``filter2`` 7, ``fwd_level2_pack`` 2,
    ``dfilt2`` 2), its gradients against the plain path's autograd on the
-   card within 2e-5;
+   card within 2e-5; the algorithms: the registration pair's launches
+   (``fwd_level1`` 2, ``fwd_level2`` 10) with the plain versions patched to
+   raise, the reference's behavioural gate (warping the source by the
+   estimate brings it closer to the reference), the pair in float64 on the
+   card against ``device="cpu"`` within 1e-10, the GOP's forward launches
+   (1 and 4) and its batched estimate against the estimate pair by pair
+   (float64 within 1e-10; float32 within twice the float32 estimate's
+   own distance from the float64 one), and keypoints (``fauqueur`` with
+   ``max_points=200`` at 512^2; every method with 200 and with no bound
+   at 4096^2), the two
+   highpass samplers and ``sample`` with every method, each against the
+   CPU on the same inputs (keypoint rows as multisets within 1e-4: each
+   column and two mixtures of the columns sorted on their own; the
+   samplers within 1e-5);
 5. timing: CUDA events, median of 10 runs after 2 warm-up runs (for a round
    trip the time its caller waits; for a kernel, its plain version and a
    library call the device's time alone, the stream held while the host
@@ -131,6 +153,11 @@ Phases, each printing its own lines:
    Each gradient round trip: the primal, the backward alone, their ratio,
    the plain route's backward and the byte bound of the backward's
    launches; a trace of the 2-D backward by kernel and by aten operator.
+   The algorithms: ``estimatereg`` a 512^2 pair, the GOP a pair and
+   ``find_keypoints`` at 512^2 and 4096^2, each with the share of
+   ``Transform2d.forward``; a trace of one registration by kernel and by
+   aten operator; the host waits inside ``estimatereg`` and the dense
+   keypoint detector under ``torch.cuda.set_sync_debug_mode("warn")``.
 
 Tolerances, relative to the largest reference value: float32 1e-5 (sums in
 another order), bfloat16 1e-2 (one bfloat16 step of the stored outputs),
@@ -2002,16 +2029,20 @@ def print_op_trace(what, fn) -> None:
             fn()
         torch.cuda.synchronize()
     ops = collections.Counter()
+    kernels = 0
     for e in prof.key_averages():
         if (e.device_type == torch.autograd.DeviceType.CPU
                 and e.key.startswith("aten::")):
             ops[e.key] += e.self_device_time_total / 1e3 / 5
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels += e.count
     short = lambda k: k.replace("(anonymous namespace)::", "").split("(")[
         0][:48]
-    print("trace %s: wall %.3f ms, device %.3f ms (idle %.1f%%), host "
-          "enqueue %.3f ms; device time by kernel: %s; by aten operator "
-          "(the rest is the ctypes kernels): %s" % (
-              what, wall, busy, 100 * (1 - busy / wall), enqueue,
+    print("trace %s: wall %.3f ms, device %.3f ms (idle %.1f%%) in %d "
+          "kernels, host enqueue %.3f ms; device time by kernel: %s; by "
+          "aten operator (the rest is the ctypes kernels): %s" % (
+              what, wall, busy, 100 * (1 - busy / wall), kernels // 5,
+              enqueue,
               ", ".join("%s %.4f ms" % (short(k), v)
                         for k, v in device.most_common(10)),
               ", ".join("%s %.4f ms" % (k, v) for k, v in ops.most_common(8)
@@ -2053,6 +2084,289 @@ def time_grad(dev) -> None:
             del y, xg, v
         print("time grad %s round trip: primal %.3f ms; %s" % (
             label, pms, "; ".join(out)), flush=True)
+
+
+# --- the algorithms on the 2-D pyramid: registration, keypoints, sampling ---
+
+REG_N, REG_NLEVELS = 512, 6            # bench.py's registration pair
+GOP, GOP_H, GOP_W, GOP_NLEVELS = 8, 1080, 1920, 5   # register_video.py
+LAUNCHES_REG = {"level1": 2, "level2": 10}
+LAUNCHES_GOP = {"level1": 1, "level2": 4}
+KP_TOL = 1e-4       # float32 keypoint rows, card against the CPU
+KP_METHODS = ("fauqueur", "bendale", "kingsbury")
+NSAMPLES = 10 ** 6
+
+
+def smooth_field(h, w, seed, sigma=0.02):
+    """A smooth random field in [0, 1]: white noise under a Gaussian of
+    *sigma* cycles a pixel (``bench.py``'s registration input)."""
+    rs = np.random.RandomState(seed)
+    spec = np.fft.rfft2(rs.rand(h, w))
+    fy = np.fft.fftfreq(h)[:, None]
+    fx = np.fft.rfftfreq(w)[None, :]
+    spec *= np.exp(-((fy ** 2 + fx ** 2) / (2 * sigma ** 2)))
+    f = np.fft.irfft2(spec, s=(h, w))
+    return (f - f.min()) / (f.max() - f.min())
+
+
+def registration_pair(dev, dtype=torch.float32):
+    """The 512^2 field of bench.py and its (3, 2) pixel roll."""
+    f1 = smooth_field(REG_N, REG_N, 3).astype(np.float32)
+    f2 = np.roll(f1, (3, 2), axis=(0, 1))
+    on = lambda f: torch.from_numpy(f).to(dev, dtype)
+    return on(f1), on(f2)
+
+
+def gop_frames(dev):
+    """A GOP of 8 frames of 1920 x 1080: windows of one smooth field that
+    drift by (1, 2) pixels a frame."""
+    big = smooth_field(GOP_H + GOP, GOP_W + 2 * GOP, 9).astype(np.float32)
+    frames = np.stack([big[k:k + GOP_H, 2 * k:2 * k + GOP_W]
+                       for k in range(GOP)])
+    return torch.from_numpy(frames).to(dev)
+
+
+def take(p, sl):
+    """The pyramid of the frames *sl* of a batched pyramid."""
+    return type(p)(p.lowpass[sl], tuple(h[sl] for h in p.highpasses))
+
+
+def on_cpu(p):
+    return type(p)(p.lowpass.cpu(), tuple(h.cpu() for h in p.highpasses))
+
+
+def kp_err(got, want):
+    """(rows equal in number, worst error) of two keypoint results compared
+    as multisets of rows: each column, and two fixed random mixtures of
+    the columns (each scaled by its largest value), sorted on their own
+    and compared relative to their largest value.  Sorting moves no value
+    further than the best matching of the rows does, and it does not
+    depend on the order of near-equal energies, which float32 rounding
+    decides differently on the card and the CPU."""
+    g = got.double().cpu().numpy()
+    w = want.double().cpu().numpy()
+    if g.shape != w.shape:
+        return False, float("inf")
+    if not len(w):
+        return True, 0.0
+    scale = np.maximum(np.abs(w).max(axis=0), 1e-30)
+    mix = np.random.RandomState(0).rand(4, 2)
+    cols = [(g[:, c], w[:, c]) for c in range(4)]
+    cols += [((g / scale) @ m, (w / scale) @ m) for m in mix.T]
+    err = max(float(np.abs(np.sort(a) - np.sort(b)).max())
+              / max(float(np.abs(b).max()), 1e-30) for a, b in cols)
+    return True, err
+
+
+def count_syncs(fn) -> int:
+    """Host waits in one call of *fn*: the warnings of
+    ``torch.cuda.set_sync_debug_mode("warn")``."""
+    import warnings
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def check_algorithms(dev) -> None:
+    """Phase 4 for the algorithms on the 2-D pyramid, f32 interleaved on the
+    card: registration of the bench's 512^2 pair (launches with the plain
+    versions patched to raise, the behavioural gate, float64 card against
+    the CPU), a 1920 x 1080 GOP registered batched against pair by pair,
+    keypoints at 512^2 and 4096^2 against the CPU, and the samplers on the
+    main path's level-1 subbands and a 4096^2 image against the CPU."""
+    import dtcwt_tpu_torch as dt
+    from dtcwt_tpu_torch import keypoint as K, registration as R
+    from dtcwt_tpu_torch import sampling as S
+    from dtcwt_tpu_torch.ops import _build
+    t = dt.Transform2d()
+
+    # registration of the bench's pair, through the entry points
+    f1, f2 = registration_pair(dev)
+    _build.reset_launches()
+    with patched(level_no_plain()):
+        p1, p2 = t.forward(f1, REG_NLEVELS), t.forward(f2, REG_NLEVELS)
+        avecs = R.estimatereg(p1, p2)
+        torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    check(counts == LAUNCHES_REG, "algorithms registration %d^2, %d "
+          "levels: launches %s (want %s)" % (REG_N, REG_NLEVELS, counts,
+                                             LAUNCHES_REG))
+    warped = R.warp(f1, avecs, method="bilinear")
+    before = float((f1 - f2).abs().mean())
+    after = float((warped - f2).abs().mean())
+    ok = (tuple(avecs.shape) == (32, 32, 6) and avecs.is_cuda
+          and bool(torch.isfinite(avecs).all()))
+    check(ok and after < before, "algorithms registration %d^2: avecs %s "
+          "finite on the card %s; behavioural gate mean|warp(f1) - f2| %.5g "
+          "< mean|f1 - f2| %.5g" % (REG_N, tuple(avecs.shape), ok, after,
+                                    before))
+    g1, g2 = registration_pair(dev, torch.float64)
+    tc = dt.Transform2d(device="cpu")
+    card = R.estimatereg(t.forward(g1, REG_NLEVELS),
+                         t.forward(g2, REG_NLEVELS))
+    cpu = R.estimatereg(tc.forward(g1.cpu(), REG_NLEVELS),
+                        tc.forward(g2.cpu(), REG_NLEVELS))
+    e = rel_err(card.cpu(), cpu)
+    check(e <= 1e-10, "algorithms registration %d^2 float64: card against "
+          "device='cpu' (transform and estimatereg), rel err %.3g (tol "
+          "1e-10)" % (REG_N, e))
+
+    # the GOP: one batched forward, the 7 neighbouring pairs batched, each
+    # against estimatereg pair by pair; float64 holds the two forms equal,
+    # float32 to the float32 estimate's own rounding (its distance from
+    # the float64 estimate): two float32 computations of one estimate that
+    # differ only in the order of their sums are each that far from the
+    # float64 one, so at most twice that far from each other
+    frames = gop_frames(dev)
+    _build.reset_launches()
+    with patched(level_no_plain()):
+        pg = t.forward(frames, GOP_NLEVELS)
+        torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    est = {}
+    for dtype in (torch.float32, torch.float64):
+        p = pg if dtype == torch.float32 else t.forward(frames.double(),
+                                                        GOP_NLEVELS)
+        est[dtype] = (R.estimatereg_batched(take(p, slice(None, -1)),
+                                            take(p, slice(1, None))),
+                      torch.stack([R.estimatereg(take(p, i), take(p, i + 1))
+                                   for i in range(GOP - 1)]))
+    (b32, l32), (b64, l64) = est[torch.float32], est[torch.float64]
+    e32, e64, own = rel_err(b32, l32), rel_err(b64, l64), rel_err(l32, l64)
+    ok = (tuple(b32.shape) == (GOP - 1,) + tuple(
+        pg.highpasses[3].shape[1:3]) + (6,) and bool(
+            torch.isfinite(b32).all()))
+    check(counts == LAUNCHES_GOP and ok and e64 <= 1e-10 and e32 <= 2 * own,
+          "algorithms GOP %d x %d x %d, %d levels: forward launches %s, "
+          "estimatereg_batched %s finite %s; against estimatereg pair by "
+          "pair: float64 rel err %.3g (tol 1e-10), float32 %.3g (tol twice "
+          "the float32 estimate's own error against float64, 2 x %.3g)" % (
+              GOP, GOP_H, GOP_W, GOP_NLEVELS, counts, tuple(b32.shape), ok,
+              e64, e32, own))
+    del frames, pg, p, est, b32, l32, b64, l64
+
+    # keypoints against the CPU on the same pyramid
+    p4 = t.forward(f1, 4)
+    got = K.find_keypoints(p4.highpasses, "fauqueur", max_points=200,
+                           skip_levels=1)
+    same, e = kp_err(got, K.find_keypoints(on_cpu(p4).highpasses, "fauqueur",
+                                           max_points=200, skip_levels=1))
+    check(same and e <= KP_TOL and got.is_cuda and len(got) > 0,
+          "algorithms keypoints %d^2 fauqueur, max_points 200: %d rows, as "
+          "many as the CPU's %s, rel err %.3g (tol %g)" % (
+              REG_N, len(got), same, e, KP_TOL))
+    x32 = torch.from_numpy(np.random.RandomState(0).rand(N, N).astype(
+        np.float32)).to(dev)
+    p4 = t.forward(x32, 4)
+    hps_cpu = on_cpu(p4).highpasses
+    for method in KP_METHODS:
+        for mp in (200, None):
+            got = K.find_keypoints(p4.highpasses, method, max_points=mp)
+            want = K.find_keypoints(hps_cpu, method, max_points=mp)
+            same, e = kp_err(got, want)
+            check(same and e <= KP_TOL and len(got) > 0,
+                  "algorithms keypoints %d^2 %s, max_points %s: %d rows "
+                  "(the CPU %d), rel err %.3g (tol %g)" % (
+                      N, method, mp, len(got), len(want), e, KP_TOL))
+    del p4, hps_cpu
+
+    # the samplers on the main path's level-1 subbands and image
+    hp = t.forward(x32, NLEVELS).highpasses[0]
+    hp_cpu = hp.cpu()
+    for what, call in (
+            ("rescale_highpass %s -> 1536^2 lanczos" % (tuple(hp.shape),),
+             lambda h: S.rescale_highpass(h, (1536, 1536))),
+            ("upsample_highpass %s bilinear" % (tuple(hp.shape),),
+             lambda h: S.upsample_highpass(h, "bilinear"))):
+        got = call(hp)
+        e = rel_err(got.cpu(), call(hp_cpu))
+        check(got.is_cuda and got.dtype == torch.complex64 and e <= TOL[
+            torch.float32], "algorithms %s: card against the CPU rel err "
+              "%.3g (tol %g)" % (what, e, TOL[torch.float32]))
+        del got
+    rng = np.random.RandomState(12)
+    xs = torch.from_numpy(rng.rand(NSAMPLES).astype(np.float32) * (N + 40)
+                          - 20).to(dev)
+    ys = torch.from_numpy(rng.rand(NSAMPLES).astype(np.float32) * (N + 40)
+                          - 20).to(dev)
+    for method in ("nearest", "bilinear", "lanczos"):
+        got = S.sample(x32, xs, ys, method)
+        e = rel_err(got.cpu(), S.sample(x32.cpu(), xs.cpu(), ys.cpu(),
+                                        method))
+        check(got.is_cuda and tuple(got.shape) == (NSAMPLES,) and e <= TOL[
+            torch.float32], "algorithms sample %d^2 at %d points %s: card "
+              "against the CPU rel err %.3g (tol %g)" % (
+                  N, NSAMPLES, method, e, TOL[torch.float32]))
+
+
+def time_algorithms(dev, smi) -> None:
+    """Phase 5 for the algorithms: estimatereg a 512^2 pair, the GOP a pair,
+    find_keypoints at 512^2 and 4096^2 (the bench's arguments), each with
+    the share of Transform2d.forward; a trace of one 512^2 registration;
+    the host waits inside estimatereg and the dense keypoint detector."""
+    import dtcwt_tpu_torch as dt
+    from dtcwt_tpu_torch import keypoint as K, registration as R
+    t = dt.Transform2d()
+    f1, f2 = registration_pair(dev)
+    p1, p2 = t.forward(f1, REG_NLEVELS), t.forward(f2, REG_NLEVELS)
+    reg = cuda_ms(lambda: R.estimatereg(p1, p2))
+    both = cuda_ms(lambda: R.estimatereg(t.forward(f1, REG_NLEVELS),
+                                         t.forward(f2, REG_NLEVELS)))
+    fwd = cuda_ms(lambda: (t.forward(f1, REG_NLEVELS),
+                           t.forward(f2, REG_NLEVELS)))
+    print("time algorithms estimatereg %d^2 %d levels f32 on %s: %.3f ms a "
+          "pair (estimatereg alone); with both forwards %.3f ms, of which "
+          "the forwards alone %.3f ms (%.1f%%)" % (
+              REG_N, REG_NLEVELS, smi, reg, both, fwd, 100 * fwd / both),
+          flush=True)
+    print_op_trace("algorithms estimatereg %d^2" % REG_N,
+                   lambda: R.estimatereg(p1, p2))
+    syncs = count_syncs(lambda: R.estimatereg(p1, p2))
+    frames = gop_frames(dev)
+
+    def gop():
+        pg = t.forward(frames, GOP_NLEVELS)
+        return R.estimatereg_batched(take(pg, slice(None, -1)),
+                                     take(pg, slice(1, None)))
+    total = cuda_ms(gop)
+    fwd = cuda_ms(lambda: t.forward(frames, GOP_NLEVELS))
+    print("time algorithms GOP %d x %d x %d %d levels f32: %.3f ms a pair "
+          "(%.3f ms for the %d pairs, forward and estimatereg_batched); the "
+          "forward alone %.3f ms (%.1f%%)" % (
+              GOP, GOP_H, GOP_W, GOP_NLEVELS, total / (GOP - 1), total,
+              GOP - 1, fwd, 100 * fwd / total), flush=True)
+    del frames
+    x32 = torch.from_numpy(np.random.RandomState(0).rand(N, N).astype(
+        np.float32)).to(dev)
+    for label, img in (("%d^2" % REG_N, f1), ("%d^2" % N, x32)):
+        p4 = t.forward(img, 4)
+        kp = cuda_ms(lambda: K.find_keypoints(p4.highpasses, "fauqueur",
+                                              max_points=200))
+        total = cuda_ms(lambda: K.find_keypoints(
+            t.forward(img, 4).highpasses, "fauqueur", max_points=200))
+        fwd = cuda_ms(lambda: t.forward(img, 4))
+        print("time algorithms find_keypoints %s 4 levels fauqueur "
+              "max_points 200 f32: %.3f ms (find_keypoints alone); with the "
+              "forward %.3f ms, of which the forward alone %.3f ms (%.1f%%)"
+              % (label, kp, total, fwd, 100 * fwd / total), flush=True)
+    hps = t.forward(x32, 4).highpasses[1:]
+    dense = lambda: K._detect(hps, 1.0, 0.4, 1.0 / 6.0, None,
+                              method="fauqueur", refine=True, skip_levels=1,
+                              upsample_scale=1, uhp=None, uke=None,
+                              max_points=200)
+    dense()
+    print("host waits (torch.cuda.set_sync_debug_mode('warn'), after a "
+          "warm-up call): estimatereg %d^2 %d, the dense keypoint detector "
+          "%d^2 %d, find_keypoints %d^2 with its final trim %d" % (
+              REG_N, syncs, N, count_syncs(dense), N, count_syncs(
+                  lambda: K.find_keypoints(t.forward(x32, 4).highpasses,
+                                           max_points=200))), flush=True)
 
 
 def main() -> int:
@@ -2347,6 +2661,7 @@ def main() -> int:
     launches_discard, launches_low = check_single(dev, report)
     launches_sharded = check_sharded(dev, report)
     check_grad(dev)
+    check_algorithms(dev)
 
     # --- 5. timing -----------------------------------------------------------
     print("timing on %s: CUDA events, median of 10 runs after 2 warm-up runs"
@@ -2468,6 +2783,7 @@ def main() -> int:
     time_single(dev, report)
     time_sharded(dev, report)
     time_grad(dev)
+    time_algorithms(dev, smi)
 
     # the dual kernels report the 1-D path's launches, the level kernels
     # their own path's, filter the discard_level_1 round trip's, dfilt and

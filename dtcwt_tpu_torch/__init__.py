@@ -2,8 +2,10 @@
 ``dtcwt_tpu`` in PyTorch, with hand-written CUDA kernels for the NVIDIA H100.
 
 It holds the 1-D, 2-D and 3-D transforms' forward and inverse, the
-low-level filters (:mod:`dtcwt_tpu_torch.ops`) and the MATLAB-style
-functions (:mod:`dtcwt_tpu_torch.compat`).  A transform runs on its
+low-level filters (:mod:`dtcwt_tpu_torch.ops`), the MATLAB-style
+functions (:mod:`dtcwt_tpu_torch.compat`) and the algorithms on the 2-D
+pyramid (:mod:`~dtcwt_tpu_torch.sampling`,
+:mod:`~dtcwt_tpu_torch.registration`, :mod:`~dtcwt_tpu_torch.keypoint`).  A transform runs on its
 ``device``: the card by default, where its CUDA kernels run (built with
 ``nvcc`` at their first launch; importing this package compiles nothing),
 or the CPU with ``device="cpu"``, where the plain PyTorch versions run.

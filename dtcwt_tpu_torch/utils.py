@@ -16,15 +16,19 @@ def reflect(x, minx, maxx):
     With integer *x* and half-integer bounds this is symmetric extension
     *with repeated end samples*, the boundary rule of every filter in the
     transform, for any extension width (also wider than the signal).  Works
-    on numpy arrays, which is how the index maps are built.
+    on numpy arrays, which is how the filters' index maps are built, and on
+    tensors, which stay on their device (the samplers' coordinates).
     """
-    x = np.asarray(x)
+    if isinstance(x, torch.Tensor):
+        xp, cast = torch, lambda a: a.to(x.dtype)
+    else:
+        x = np.asarray(x)
+        xp, cast = np, lambda a: a.astype(x.dtype)
     rng = maxx - minx
     rng2 = 2.0 * rng
-    mod = np.fmod(x - minx, rng2)
-    mod = np.where(mod < 0, mod + rng2, mod)
-    out = np.where(mod >= rng, rng2 - mod, mod) + minx
-    return out.astype(x.dtype)
+    mod = xp.fmod(x - minx, rng2)
+    mod = xp.where(mod < 0, mod + rng2, mod)
+    return cast(xp.where(mod >= rng, rng2 - mod, mod) + minx)
 
 
 def compute_view(x: torch.Tensor) -> torch.Tensor:

@@ -2029,3 +2029,183 @@ def test_cuda_sharded3d_on_a_card_mesh_matches_transform3d(cuda):
                             (pc.lowpass,) + hc + pc.scales):
                 assert _kerr(a.cpu(), b) < 1e-12
             assert _kerr(sg.inverse(pg).cpu(), sc.inverse(pc)) < 1e-12
+
+
+# --- the algorithms on the 2-D pyramid: sampling, registration, keypoint ---
+
+def _smooth_pair(h, w, seed=3, shift=(3, 2), sigma=0.04):
+    """A smooth random field in [0, 1] and its roll by *shift* pixels."""
+    rs = np.random.RandomState(seed)
+    spec = np.fft.rfft2(rs.rand(h, w))
+    fy = np.fft.fftfreq(h)[:, None]
+    fx = np.fft.rfftfreq(w)[None, :]
+    spec *= np.exp(-((fy ** 2 + fx ** 2) / (2 * sigma ** 2)))
+    f1 = np.fft.irfft2(spec, s=(h, w))
+    f1 = (f1 - f1.min()) / (f1.max() - f1.min())
+    return f1, np.roll(f1, shift, axis=(0, 1))
+
+
+def _cpu_pyramid(p):
+    return dt.Pyramid(p.lowpass.cpu(), tuple(h.cpu() for h in p.highpasses))
+
+
+_ALGO_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+# keypoint rows: a position is a ratio of second differences of the energy
+_KP_TOL = {torch.float64: 1e-12, torch.float32: 1e-4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_sampling_matches_cpu(cuda, dtype):
+    """Every sampler on the card against ``device="cpu"``: the result stays
+    on the card, in the CPU's dtype, within 1e-12 (float64) or 1e-5
+    (float32) of the largest value."""
+    from dtcwt_tpu_torch import sampling as S
+    rng = np.random.RandomState(4)
+    cdt = torch.complex128 if dtype == torch.float64 else torch.complex64
+    im = torch.from_numpy(rng.randn(40, 52, 2)).to(dtype)
+    hp = torch.complex(torch.from_numpy(rng.randn(30, 26, 6)),
+                       torch.from_numpy(rng.randn(30, 26, 6))).to(cdt)
+    xs = torch.from_numpy(rng.rand(17, 9) * 70 - 10).to(dtype)
+    ys = torch.from_numpy(rng.rand(17, 9) * 60 - 10).to(dtype)
+    for method in ("nearest", "bilinear", "lanczos"):
+        calls = [lambda d: S.sample(im.to(d), xs.to(d), ys.to(d), method),
+                 lambda d: S.rescale(im.to(d), (73, 31), method),
+                 lambda d: S.rescale(hp.to(d), (11, 45), method),
+                 lambda d: S.sample_highpass(hp.to(d), xs.to(d), ys.to(d),
+                                             method, sbs=[4, 0, 2]),
+                 lambda d: S.rescale_highpass(hp.to(d), (61, 50), method),
+                 lambda d: S.upsample(im.to(d), method),
+                 lambda d: S.upsample_highpass(hp.to(d), method)]
+        for i, call in enumerate(calls):
+            got, want = call(cuda), call("cpu")
+            assert got.device.type == "cuda" and got.dtype == want.dtype
+            assert _kerr(got.cpu(), want) < _ALGO_TOL[dtype], (method, i)
+    # a numpy input goes to the card by default
+    assert S.sample(im.numpy(), xs.numpy(), ys.numpy()).device.type == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_registration_parts_match_cpu(cuda, dtype):
+    """phasegradient (modulo 2 pi), confidence, Qtilde, the box filter,
+    velocityfield, warp and warphighpass on the card against the CPU."""
+    from dtcwt_tpu_torch import registration as R
+    f1, f2 = _smooth_pair(96, 128)
+    t = dt.Transform2d()
+    p1 = t.forward(torch.from_numpy(f1).to(cuda, dtype), 4)
+    p2 = t.forward(torch.from_numpy(f2).to(cuda, dtype), 4)
+    c1, c2 = _cpu_pyramid(p1), _cpu_pyramid(p2)
+    tol = _ALGO_TOL[dtype]
+    for g, w in zip(R.phasegradient(p1.highpasses[2][..., 1],
+                                    p2.highpasses[2][..., 1],
+                                    R.EXPECTED_SHIFTS[1]),
+                    R.phasegradient(c1.highpasses[2][..., 1],
+                                    c2.highpasses[2][..., 1],
+                                    R.EXPECTED_SHIFTS[1])):
+        d = torch.remainder(g.cpu().double() - w.double() + np.pi,
+                            2 * np.pi) - np.pi
+        assert float(d.abs().max()) / float(w.abs().max()) < tol
+    assert _kerr(R.confidence(p1.highpasses[1][..., 2],
+                              p2.highpasses[1][..., 2]).cpu(),
+                 R.confidence(c1.highpasses[1][..., 2],
+                              c2.highpasses[1][..., 2])) < tol
+    for g, w in zip(R.qtildematrices(p1, p2, [1, 2, 3]),
+                    R.qtildematrices(c1, c2, [1, 2, 3])):
+        assert _kerr(g.cpu(), w) < tol
+        assert _kerr(R._boxfilter(g, 5).cpu(), R._boxfilter(w, 5)) < tol
+    avecs = torch.from_numpy(np.random.RandomState(6).randn(12, 16, 6)
+                             * 0.01).to(dtype)
+    img = torch.from_numpy(f1).to(dtype)
+    for g, w in zip(R.velocityfield(avecs.to(cuda), (96, 128)),
+                    R.velocityfield(avecs, (96, 128))):
+        assert _kerr(g.cpu(), w) < tol
+    assert _kerr(R.warp(img.to(cuda), avecs.to(cuda), "bilinear").cpu(),
+                 R.warp(img, avecs, "bilinear")) < tol
+    assert _kerr(R.warphighpass(p1.highpasses[0], avecs.to(cuda)).cpu(),
+                 R.warphighpass(c1.highpasses[0], avecs)) < tol
+
+
+@pytest.mark.cuda
+def test_cuda_solve_ex_on_a_singular_block(cuda):
+    """A zero Qtilde block (a flat region) solves to non-finite values on
+    the card, beside finite ones, and raises nothing."""
+    from dtcwt_tpu_torch import registration as R
+    rng = np.random.RandomState(2)
+    M = rng.randn(3, 6, 6)
+    Q = M @ M.transpose(0, 2, 1) + 6 * np.eye(6)
+    r, c = np.triu_indices(6)
+    vecs = np.concatenate([Q[:, r, c], rng.randn(3, 6)], axis=-1)
+    vecs[1] = 0.0
+    got = R.solvetransform(torch.from_numpy(vecs).to(cuda))
+    want = R.solvetransform(torch.from_numpy(vecs))
+    assert not bool(torch.isfinite(got[1]).any())
+    assert bool(torch.isfinite(got[[0, 2]]).all())
+    assert _kerr(got[[0, 2]].cpu(), want[[0, 2]]) < 1e-10
+
+
+@pytest.mark.cuda
+def test_cuda_estimatereg_matches_cpu_and_its_batched_form(cuda):
+    """estimatereg at float64 on the card against the CPU within 1e-10; the
+    batched form over three frame pairs equal to the loop (float64 1e-10,
+    float32 1e-5); the behavioural gate on the card."""
+    from dtcwt_tpu_torch import registration as R
+    f1, f2 = _smooth_pair(128, 160)
+    t = dt.Transform2d()
+    p1 = t.forward(torch.from_numpy(f1).to(cuda), 4)
+    p2 = t.forward(torch.from_numpy(f2).to(cuda), 4)
+    got = R.estimatereg(p1, p2)
+    assert got.device.type == "cuda"
+    assert _kerr(got.cpu(), R.estimatereg(_cpu_pyramid(p1),
+                                          _cpu_pyramid(p2))) < 1e-10
+    frames = np.stack([np.roll(f1, (k, 2 * k), axis=(0, 1))
+                       for k in range(4)])
+    take = lambda p, sl: dt.Pyramid(p.lowpass[sl],
+                                    tuple(h[sl] for h in p.highpasses))
+    for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-5)):
+        p = t.forward(torch.from_numpy(frames).to(cuda, dtype), 4)
+        batched = R.estimatereg_batched(take(p, slice(None, -1)),
+                                        take(p, slice(1, None)))
+        loop = torch.stack([R.estimatereg(take(p, i), take(p, i + 1))
+                            for i in range(3)])
+        assert batched.shape == (3, 8, 10, 6)
+        assert _kerr(batched, loop) < tol, dtype
+    g1, g2 = _smooth_pair(256, 256, seed=5)
+    q1 = t.forward(torch.from_numpy(g1).to(cuda, torch.float32), 6)
+    q2 = t.forward(torch.from_numpy(g2).to(cuda, torch.float32), 6)
+    src = torch.from_numpy(g1).to(cuda, torch.float32)
+    warped = R.warp(src, R.estimatereg(q1, q2), method="bilinear")
+    ref = torch.from_numpy(g2).to(cuda, torch.float32)
+    assert float((warped - ref).abs().mean()) < float(
+        (src - ref).abs().mean())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_keypoints_match_cpu_as_sets(cuda, dtype):
+    """find_keypoints on the card against the CPU for each method, with and
+    without max_points: the same number of rows, and the rows equal as
+    multisets within 1e-12 (float64) or 1e-4 (float32): each column, and
+    two random mixtures of the columns scaled by their largest values,
+    sorted on their own (rounding orders near-equal energies differently
+    on the card and the CPU; sorting moves no value further than the best
+    matching of the rows does)."""
+    from dtcwt_tpu_torch import keypoint as K
+    im, _ = _smooth_pair(96, 128, seed=21, sigma=0.12)
+    p = dt.Transform2d().forward(torch.from_numpy(im).to(cuda, dtype), 4)
+    hps_cpu = tuple(h.cpu() for h in p.highpasses)
+    mix = np.random.RandomState(0).rand(4, 2)
+    for method in ("fauqueur", "bendale", "kingsbury"):
+        for mp in (None, 50):
+            got = K.find_keypoints(p.highpasses, method=method, max_points=mp)
+            want = K.find_keypoints(hps_cpu, method=method, max_points=mp)
+            assert got.device.type == "cuda" and got.dtype == dtype
+            g, w = got.double().cpu().numpy(), want.double().numpy()
+            assert g.shape == w.shape and len(w) > 0, (method, mp)
+            scale = np.abs(w).max(axis=0)
+            cols = [(g[:, c], w[:, c]) for c in range(4)]
+            cols += [((g / scale) @ m, (w / scale) @ m) for m in mix.T]
+            for a, b in cols:
+                err = float(np.abs(np.sort(a) - np.sort(b)).max())
+                assert err / float(np.abs(b).max()) < _KP_TOL[dtype], (
+                    method, mp)

@@ -1,7 +1,7 @@
-"""Importing the port (its package, ``ops``, ``compat``, ``parallel`` and
-every kernel module) pulls in neither JAX nor Triton and builds nothing, in
-whichever order the modules come, and the kernel build refuses loudly where
-there is no ``nvcc``."""
+"""Importing the port (its package, ``ops``, ``compat``, ``parallel``, the
+algorithms and every kernel module) pulls in neither JAX nor Triton and
+builds nothing, in whichever order the modules come, and the kernel build
+refuses loudly where there is no ``nvcc``."""
 
 import os
 import subprocess
@@ -17,6 +17,7 @@ def test_import_loads_no_jax_or_triton_and_builds_nothing():
         "import sys, dtcwt_tpu_torch, dtcwt_tpu_torch.convert\n"
         "import dtcwt_tpu_torch.ops, dtcwt_tpu_torch.compat\n"
         "import dtcwt_tpu_torch.compat_backend\n"
+        "from dtcwt_tpu_torch import sampling, registration, keypoint\n"
         "from dtcwt_tpu_torch.ops import _build, dual, hw, level1, level2, "
         "ilevel1, ilevel2, pack3d, single\n"
         "from dtcwt_tpu_torch.transforms import transform3d\n"
@@ -37,7 +38,10 @@ def test_import_loads_no_jax_or_triton_and_builds_nothing():
                                    "dtcwt_tpu_torch.transforms.transform3d",
                                    "dtcwt_tpu_torch.ops.single",
                                    "dtcwt_tpu_torch.parallel",
-                                   "dtcwt_tpu_torch.ops.hw"])
+                                   "dtcwt_tpu_torch.ops.hw",
+                                   "dtcwt_tpu_torch.sampling",
+                                   "dtcwt_tpu_torch.registration",
+                                   "dtcwt_tpu_torch.keypoint"])
 def test_each_module_imports_first_without_a_cycle(first):
     """Any of the public modules can be the first one imported: ``ops``
     (which binds the filter names to ``ops.single``) and the transforms
