@@ -53,7 +53,17 @@ complex float32, float32 planes, bfloat16 planes):
   each transform's level chain runs as one ``ops/linearize`` Function,
   whose backward launches the opposite qshift level kernels and the dual
   kernels' from-extension mode (``ops/adjoint``'s level-1 adjoints), or,
-  for the 1-D transform, differentiates the plain chain.
+  for the 1-D transform, differentiates the plain chain;
+* the rest of ``dtcwt_tpu_torch.parallel``, each on four shards of the
+  one card: ``ShardedTransform2d`` on ``make_mesh((1, 4), ("data",
+  "rows"), ["cuda"] * 4)`` and on a (1, 2, 2) cols mesh, ``forward(x,
+  nlevels=3)`` then ``inverse`` on a ``[1, 4096, 4096]`` image (the dual
+  kernels per axis, from halos along a sharded axis; the bandpass
+  families add the single-stream kernels); ``ShardedTransform1d`` on the
+  rows mesh, ``[1, 131072, 128]`` at 8 levels; ``BatchSharded(
+  Transform2d())`` on ``make_mesh((4,), ("data",), ["cuda"] * 4)``, 100
+  x 512 x 512 at 3 levels (the four level kernels per slice); and
+  ``estimatereg_sharded`` of the registration pair on a (4,) rows mesh.
 
 Phases, each printing its own lines:
 
@@ -124,7 +134,18 @@ Phases, each printing its own lines:
    highpass samplers and ``sample`` with every method, each against the
    CPU on the same inputs (keypoint rows as multisets within 1e-4: each
    column and two mixtures of the columns sorted on their own; the
-   samplers within 1e-5);
+   samplers within 1e-5); the rest of ``parallel/``: the sharded 2-D
+   round trip on both card meshes in three layouts (launches ``filter2``
+   12, ``dfilt2`` 24, ``ifilt2_sum`` 24, ``filter2_sum`` 12; bandpass
+   ``filter``, ``dfilt``, ``ifilt`` 24 each, ``filter2`` 8, ``dfilt2``
+   16, ``ifilt2_sum`` 16, ``filter2_sum`` 8), the sharded 1-D round trip
+   (4/28/28/4) and the batch (level kernels 4/8/8/4), each with the plain
+   versions patched to raise, against its unsharded transform on the card
+   and (2-D, 1-D) the plain path; a 6-level plan that gathers, float64
+   card against CPU meshes, the refusal of an input that requires grad,
+   and ``estimatereg_sharded`` against ``estimatereg`` (float64 1e-10,
+   float32 within twice the float32 estimate's own distance from
+   float64) with no host wait;
 5. timing: CUDA events, median of 10 runs after 2 warm-up runs (for a round
    trip the time its caller waits; for a kernel, its plain version and a
    library call the device's time alone, the stream held while the host
@@ -158,6 +179,10 @@ Phases, each printing its own lines:
    ``Transform2d.forward``; a trace of one registration by kernel and by
    aten operator; the host waits inside ``estimatereg`` and the dense
    keypoint detector under ``torch.cuda.set_sync_debug_mode("warn")``.
+   The rest of ``parallel/``: each round trip against its unsharded
+   transform and the plain path, traces of the sharded 2-D (both meshes)
+   and 1-D round trips and of the batch (f32 interleaved), and
+   ``estimatereg_sharded`` beside ``estimatereg`` with a trace.
 
 Tolerances, relative to the largest reference value: float32 1e-5 (sums in
 another order), bfloat16 1e-2 (one bfloat16 step of the stored outputs),
@@ -2369,6 +2394,335 @@ def time_algorithms(dev, smi) -> None:
                                            max_points=200))), flush=True)
 
 
+# --- the rest of parallel/: sharded 2-D and 1-D, batch, registration -------
+
+PAR_SHARDS = 4      # the card meshes: four shards of the one card
+# a 4096^2 3-level round trip on the (1, 4) rows mesh or the (1, 2, 2) cols
+# mesh: every level sharded (1024 / 512 / 256 rows a shard), three passes a
+# level per shard
+LAUNCHES_PAR2D = {"filter2": 12, "dfilt2": 24, "ifilt2_sum": 24,
+                  "filter2_sum": 12}
+# the bandpass families: the third stream and the q05 pass single-stream
+LAUNCHES_PAR2D_BP = {"filter": 24, "filter2": 8, "dfilt2": 16, "dfilt": 24,
+                     "ifilt2_sum": 16, "ifilt": 24, "filter2_sum": 8}
+# [1, 131072, 128] at 8 levels on the (1, 4) rows mesh: every level sharded
+LAUNCHES_PAR1D = {"filter2": 4, "dfilt2": 28, "ifilt2_sum": 28,
+                  "filter2_sum": 4}
+BATCH, BATCH_N = 100, 512          # bench.py's batch shape
+LAUNCHES_BATCH = {"level1": 4, "level2": 8, "ilevel2": 8, "ilevel1": 4}
+PAR_GATHER = (2, 512, 512)         # 6 levels: level 6 gathers
+
+
+def parallel_no_plain():
+    """Patches that make every plain version of the sharded paths raise:
+    the level modules', the dual and single-stream entries' in both
+    modes."""
+    from dtcwt_tpu_torch.ops import dual
+    return (level_no_plain() + single_no_plain()
+            + [(dual, n + "_fromext_axis_reference", refuse)
+               for n in DUAL_NAMES])
+
+
+def parallel_plain_path():
+    """Patches that route every kernel entry of the sharded 2-D and 1-D
+    paths to its plain version."""
+    from dtcwt_tpu_torch.ops import dual, single
+    return ([(dual, n + s, getattr(dual, n + s + "_reference"))
+             for n in DUAL_NAMES for s in ("_axis", "_fromext_axis")]
+            + [(single, n + s, getattr(single, n + s + "_reference"))
+               for n in ("filter", "dfilt", "ifilt")
+               for s in ("_axis", "_fromext_axis")])
+
+
+def par_meshes():
+    """The card meshes of the sharded 2-D path: (label, transform
+    keywords, mesh)."""
+    from dtcwt_tpu_torch.parallel import make_mesh
+    return (("(1, 4) rows mesh", {},
+             make_mesh((1, PAR_SHARDS), ("data", "rows"),
+                       ["cuda"] * PAR_SHARDS)),
+            ("(1, 2, 2) cols mesh", {"cols_axis": "cols"},
+             make_mesh((1, 2, 2), ("data", "rows", "cols"),
+                       ["cuda"] * PAR_SHARDS)))
+
+
+def launched(tr, x, *args, **kwargs):
+    """((pyramid, reconstruction), the kernel launches they made) of
+    ``tr.forward(x, *args, **kwargs)`` and ``tr.inverse``, with the plain
+    versions patched to raise."""
+    from dtcwt_tpu_torch.ops import _build
+    _build.reset_launches()
+    with patched(parallel_no_plain()):
+        pyr = tr.forward(x, *args, **kwargs)
+        rec = tr.inverse(pyr)
+        torch.cuda.synchronize()
+    return (pyr, rec), dict(_build.launches)
+
+
+def check_parallel(dev) -> dict:
+    """Phase 4 for the rest of parallel/: the sharded 2-D round trip at
+    4096^2 on the (1, 4) rows and (1, 2, 2) cols card meshes in three
+    layouts and with the bandpass families, a plan that gathers, float64
+    against CPU meshes and the refusal of inputs that need grad; the
+    sharded 1-D round trip at [1, 131072, 128]; BatchSharded over the 4
+    devices of a data mesh; estimatereg_sharded on a rows mesh.  Each
+    against its unsharded counterpart on the card (and the 2-D and 1-D
+    ones against the plain path on the card), with the launch counts.
+    Returns the launch counts of each f32 interleaved main path."""
+    import dtcwt_tpu_torch as dt
+    from dtcwt_tpu_torch import registration as R
+    from dtcwt_tpu_torch.parallel import (
+        BatchSharded, ShardedTransform1d, ShardedTransform2d,
+        estimatereg_sharded, make_mesh)
+    counts_out = {}
+    t2 = dt.Transform2d()
+    x32 = rand((1, N, N), 41, dev, torch.float32)
+    for mlabel, kw, mesh in par_meshes():
+        st = ShardedTransform2d(mesh, **kw)
+        for label, dtype, layout in LAYOUTS:
+            x = x32.to(dtype)
+            (pyr, rec), counts = launched(st, x, NLEVELS, layout=layout)
+            counts_out.setdefault("2-D " + mlabel, counts)
+            lv = leaves(pyr)
+            p2 = t2.forward(x, NLEVELS, layout=layout)
+            e = max([rel_err(a, b) for a, b in zip(lv, leaves(p2))]
+                    + [rel_err(rec, t2.inverse(p2))])
+            err = float((rec.float() - x.float()).abs().max())
+            with patched(parallel_plain_path()):
+                pp = st.forward(x, NLEVELS, layout=layout)
+                ep = max([rel_err(a, b) for a, b in zip(lv, leaves(pp))]
+                         + [rel_err(rec, st.inverse(pp))])
+            shapes_ok = (tuple(rec.shape) == (1, N, N) and rec.dtype == dtype
+                         and len(lv) == 1 + NLEVELS * (
+                             1 if layout == "interleaved" else 2))
+            check(counts == LAUNCHES_PAR2D and shapes_ok
+                  and e <= TOL[dtype] and ep <= TOL[dtype] * 10
+                  and err <= REC_TOL[dtype],
+                  "parallel sharded 2-D %s %s: %dx%d %d-level round trip, "
+                  "launches %s; against Transform2d on the card, every leaf "
+                  "and the reconstruction, rel err %.3g (tol %g); against "
+                  "the plain path on the card %.3g (tol %g); reconstruction "
+                  "max abs err %.3g (tol %g)" % (
+                      mlabel, label, N, N, NLEVELS, counts, e, TOL[dtype], ep,
+                      TOL[dtype] * 10, err, REC_TOL[dtype]))
+            del pyr, rec, p2, pp, x
+    # the bandpass families on the rows mesh, f32 interleaved
+    fams = ("near_sym_b_bp", "qshift_b_bp")
+    mesh = par_meshes()[0][2]
+    sb, tb = ShardedTransform2d(mesh, *fams), dt.Transform2d(*fams)
+    (pyr, rec), counts = launched(sb, x32, NLEVELS)
+    counts_out["2-D bandpass"] = counts
+    pb = tb.forward(x32, NLEVELS)
+    e = max([rel_err(a, b) for a, b in zip(leaves(pyr), leaves(pb))]
+            + [rel_err(rec, tb.inverse(pb))])
+    check(counts == LAUNCHES_PAR2D_BP and e <= TOL[torch.float32],
+          "parallel sharded 2-D bandpass %s/%s f32 interleaved on the (1, 4)"
+          " rows mesh: launches %s; against Transform2d on the card rel err "
+          "%.3g (tol %g)" % (*fams, counts, e, TOL[torch.float32]))
+    del pyr, rec, pb
+    # 6 levels on 512 rows over 4 shards: level 6 gathers, its inverse
+    # runs replicated and re-shards
+    st = ShardedTransform2d(mesh)
+    xg = rand(PAR_GATHER, 42, dev, torch.float32)
+    (pg, rg), counts = launched(st, xg, 6)
+    p2 = t2.forward(xg, 6)
+    e = max([rel_err(a, b) for a, b in zip(leaves(pg), leaves(p2))]
+            + [rel_err(rg, t2.inverse(p2))])
+    rec_e = float((rg - xg).abs().max())
+    check(e <= TOL[torch.float32] and rec_e <= REC_TOL[torch.float32]
+          and counts.get("dfilt2", 0) > 0 and counts.get("level2", 0) == 0,
+          "parallel sharded 2-D %s 6 levels (level 6 gathered, the inverse "
+          "re-shards): launches %s, against Transform2d rel err %.3g, "
+          "reconstruction max abs err %.3g" % (
+              "x".join(map(str, PAR_GATHER)), counts, e, rec_e))
+    del pg, rg, p2, xg
+    # float64: card meshes against the same meshes on the CPU
+    v = np.random.RandomState(43).rand(2, 128, 128)
+    e = 0.0
+    for shape, names, kw in (((2, 2), ("data", "rows"), {}),
+                             ((1, 2, 2), ("data", "rows", "cols"),
+                              {"cols_axis": "cols"})):
+        n = int(np.prod(shape))
+        sg = ShardedTransform2d(make_mesh(shape, names, ["cuda"] * n), **kw)
+        sc = ShardedTransform2d(make_mesh(shape, names, ["cpu"] * n), **kw)
+        for layout in ("interleaved", "planes"):
+            pg = sg.forward(v, NLEVELS, layout=layout, include_scale=True)
+            pc = sc.forward(torch.from_numpy(v), NLEVELS, layout=layout,
+                            include_scale=True)
+            e = max([e, rel_err(sg.inverse(pg).cpu(), sc.inverse(pc))]
+                    + [rel_err(a.cpu(), b) for a, b in zip(leaves(pg),
+                                                            leaves(pc))])
+    check(e <= TOL[torch.float64], "parallel sharded 2-D float64 2x128x128 "
+          "on (2, 2) and (1, 2, 2) card meshes, both layouts: card vs CPU, "
+          "every leaf, rel err %.3g (tol %g)" % (e, TOL[torch.float64]))
+    xr = rand((1, 256, 256), 44, dev, torch.float32).requires_grad_(True)
+    try:
+        st.forward(xr, NLEVELS)
+        refused = ""
+    except RuntimeError as exc:
+        refused = str(exc)
+    check("requires grad" in refused, "parallel sharded 2-D: an input that "
+          "requires grad is refused on the card: %r" % refused[:120])
+    del x32
+
+    # the 1-D main path's signal on the rows mesh
+    st1, t1 = ShardedTransform1d(mesh), dt.Transform1d()
+    x1 = rand((1, N1, C1), 45, dev, torch.float32)
+    for label, dtype, layout in LAYOUTS:
+        x = x1.to(dtype)
+        (pyr, rec), counts = launched(st1, x, NLEVELS1, layout=layout)
+        counts_out.setdefault("1-D", counts)
+        p1 = t1.forward(x, NLEVELS1, layout=layout)
+        e = max([rel_err(a, b) for a, b in zip(leaves(pyr), leaves(p1))]
+                + [rel_err(rec, t1.inverse(p1))])
+        with patched(parallel_plain_path()):
+            ep = rel_err(rec, st1.inverse(st1.forward(x, NLEVELS1,
+                                                      layout=layout)))
+        err = float((rec.float() - x.float()).abs().max())
+        check(counts == LAUNCHES_PAR1D and e <= TOL[dtype]
+              and ep <= TOL[dtype] * 10 and err <= REC_TOL[dtype],
+              "parallel sharded 1-D %s: [1, %d, %d] %d-level round trip on "
+              "the (1, 4) rows mesh, launches %s; against Transform1d on the"
+              " card rel err %.3g (tol %g); against the plain path %.3g (tol"
+              " %g); reconstruction max abs err %.3g (tol %g)" % (
+                  label, N1, C1, NLEVELS1, counts, e, TOL[dtype], ep,
+                  TOL[dtype] * 10, err, REC_TOL[dtype]))
+        del pyr, rec, p1, x
+    del x1
+
+    # BatchSharded: bench.py's batch over the 4 devices of a data mesh
+    dmesh = make_mesh((PAR_SHARDS,), ("data",), ["cuda"] * PAR_SHARDS)
+    bt = BatchSharded(t2, dmesh)
+    xb = rand((BATCH, BATCH_N, BATCH_N), 46, dev, torch.float32)
+    (pyr, rec), counts = launched(bt, xb, NLEVELS)
+    counts_out["batch"] = counts
+    pw = t2.forward(xb, NLEVELS)
+    e = max([rel_err(a, b) for a, b in zip(leaves(pyr), leaves(pw))]
+            + [rel_err(rec, t2.inverse(pw))])
+    check(counts == LAUNCHES_BATCH and e <= TOL[torch.float32],
+          "parallel BatchSharded(Transform2d()) %dx%dx%d %d levels on the "
+          "(%d,) data mesh: launches %s; against Transform2d on the whole "
+          "batch rel err %.3g (tol %g)" % (
+              BATCH, BATCH_N, BATCH_N, NLEVELS, PAR_SHARDS, counts, e,
+              TOL[torch.float32]))
+    del pyr, rec, pw, xb
+    e = 0.0
+    for tr, shape, nl in ((dt.Transform1d(), (8, 4096, 16), 6),
+                          (dt.Transform3d(), (4, 64, 64, 64), 3)):
+        xs = rand(shape, 47, dev, torch.float32)
+        b = BatchSharded(tr, dmesh)
+        pb, pw = b.forward(xs, nl), tr.forward(xs, nl)
+        e = max([e, rel_err(b.inverse(pb), tr.inverse(pw))]
+                + [rel_err(a, c) for a, c in zip(leaves(pb), leaves(pw))])
+    check(e <= TOL[torch.float32], "parallel BatchSharded(Transform1d()) "
+          "8x4096x16 and BatchSharded(Transform3d()) 4x64^3 on the (%d,) "
+          "data mesh: against the transform on the whole batch rel err %.3g "
+          "(tol %g)" % (PAR_SHARDS, e, TOL[torch.float32]))
+
+    # estimatereg_sharded of the bench's registration pair
+    rmesh = make_mesh((PAR_SHARDS,), ("rows",), ["cuda"] * PAR_SHARDS)
+    est = {}
+    for dtype in (torch.float32, torch.float64):
+        f1, f2 = registration_pair(dev, dtype)
+        p1, p2 = t2.forward(f1, REG_NLEVELS), t2.forward(f2, REG_NLEVELS)
+        est[dtype] = (estimatereg_sharded(p1, p2, rmesh),
+                      R.estimatereg(p1, p2))
+    (s32, w32), (s64, w64) = est[torch.float32], est[torch.float64]
+    e32, e64, own = rel_err(s32, w32), rel_err(s64, w64), rel_err(w32, w64)
+    syncs = count_syncs(lambda: estimatereg_sharded(p1, p2, rmesh))
+    check(tuple(s32.shape) == (32, 32, 6) and s32.is_cuda and e64 <= 1e-10
+          and e32 <= 2 * own and syncs == 0,
+          "parallel estimatereg_sharded %d^2 %d levels on the (%d,) rows "
+          "mesh: against estimatereg on the card float64 rel err %.3g (tol "
+          "1e-10), float32 %.3g (tol twice the float32 estimate's own error "
+          "against float64, 2 x %.3g); host waits %d" % (
+              REG_N, REG_NLEVELS, PAR_SHARDS, e64, e32, own, syncs))
+    return counts_out
+
+
+def time_parallel(dev, smi) -> None:
+    """Phase 5 for the rest of parallel/: each round trip on its card mesh
+    against its unsharded counterpart on the card and the plain path, with
+    a trace of the f32 interleaved 2-D and 1-D sharded round trips;
+    BatchSharded against one batched Transform2d; estimatereg_sharded
+    beside estimatereg."""
+    import dtcwt_tpu_torch as dt
+    from dtcwt_tpu_torch import registration as R
+    from dtcwt_tpu_torch.parallel import (
+        BatchSharded, ShardedTransform1d, ShardedTransform2d,
+        estimatereg_sharded, make_mesh)
+    t2, t1 = dt.Transform2d(), dt.Transform1d()
+    x = rand((1, N, N), 41, dev, torch.float32)
+    single_ms = {}
+    for mlabel, kw, mesh in par_meshes():
+        st = ShardedTransform2d(mesh, **kw)
+        for label, dtype, layout in LAYOUTS:
+            xd = x.to(dtype)
+            run = lambda: st.inverse(st.forward(xd, NLEVELS, layout=layout))
+            ms = cuda_ms(run)
+            if label not in single_ms:
+                single_ms[label] = cuda_ms(lambda: t2.inverse(t2.forward(
+                    xd, NLEVELS, layout=layout)))
+            with patched(parallel_plain_path()):
+                pms = cuda_ms(run, reps=3, warmup=1)
+            print("time round trip sharded 2-D %dx%d %d levels on the %s "
+                  "(%s) %s: kernels %.3f ms, Transform2d %.3f ms, plain %.3f "
+                  "ms" % (N, N, NLEVELS, mlabel, smi, label, ms,
+                          single_ms[label], pms), flush=True)
+            if layout == "interleaved" and dtype == torch.float32:
+                print_trace("round trip sharded 2-D %s %s" % (mlabel, label),
+                            run)
+    fams = ("near_sym_b_bp", "qshift_b_bp")
+    sb, tb = ShardedTransform2d(par_meshes()[0][2], *fams), dt.Transform2d(
+        *fams)
+    print("time round trip sharded 2-D bandpass %dx%d on the (1, 4) rows "
+          "mesh f32 interleaved: kernels %.3f ms, Transform2d %.3f ms" % (
+              N, N, cuda_ms(lambda: sb.inverse(sb.forward(x, NLEVELS))),
+              cuda_ms(lambda: tb.inverse(tb.forward(x, NLEVELS)))),
+          flush=True)
+    del x
+    st1 = ShardedTransform1d(par_meshes()[0][2])
+    x1 = rand((1, N1, C1), 45, dev, torch.float32)
+    for label, dtype, layout in LAYOUTS:
+        xd = x1.to(dtype)
+        run = lambda: st1.inverse(st1.forward(xd, NLEVELS1, layout=layout))
+        ms = cuda_ms(run)
+        sms = cuda_ms(lambda: t1.inverse(t1.forward(xd, NLEVELS1,
+                                                    layout=layout)))
+        with patched(parallel_plain_path()):
+            pms = cuda_ms(run, reps=3, warmup=1)
+        print("time round trip sharded 1-D [1, %d, %d] %d levels on the (1, "
+              "4) rows mesh (%s) %s: kernels %.3f ms, Transform1d %.3f ms, "
+              "plain %.3f ms" % (N1, C1, NLEVELS1, smi, label, ms, sms, pms),
+              flush=True)
+        if layout == "interleaved" and dtype == torch.float32:
+            print_trace("round trip sharded 1-D %s" % label, run)
+    del x1
+    dmesh = make_mesh((PAR_SHARDS,), ("data",), ["cuda"] * PAR_SHARDS)
+    bt = BatchSharded(t2, dmesh)
+    xb = rand((BATCH, BATCH_N, BATCH_N), 46, dev, torch.float32)
+    ms = cuda_ms(lambda: bt.inverse(bt.forward(xb, NLEVELS)))
+    sms = cuda_ms(lambda: t2.inverse(t2.forward(xb, NLEVELS)))
+    print("time round trip BatchSharded(Transform2d()) %dx%dx%d %d levels on"
+          " the (%d,) data mesh (%s) f32 interleaved: %.3f ms, Transform2d on"
+          " the whole batch %.3f ms" % (BATCH, BATCH_N, BATCH_N, NLEVELS,
+                                        PAR_SHARDS, smi, ms, sms),
+          flush=True)
+    print_trace("round trip BatchSharded(Transform2d()) f32 interleaved",
+                lambda: bt.inverse(bt.forward(xb, NLEVELS)))
+    del xb
+    rmesh = make_mesh((PAR_SHARDS,), ("rows",), ["cuda"] * PAR_SHARDS)
+    f1, f2 = registration_pair(dev)
+    p1, p2 = t2.forward(f1, REG_NLEVELS), t2.forward(f2, REG_NLEVELS)
+    ms = cuda_ms(lambda: estimatereg_sharded(p1, p2, rmesh))
+    sms = cuda_ms(lambda: R.estimatereg(p1, p2))
+    print("time algorithms estimatereg_sharded %d^2 %d levels f32 on the "
+          "(%d,) rows mesh (%s): %.3f ms; estimatereg %.3f ms" % (
+              REG_N, REG_NLEVELS, PAR_SHARDS, smi, ms, sms), flush=True)
+    print_trace("estimatereg_sharded %d^2" % REG_N,
+                lambda: estimatereg_sharded(p1, p2, rmesh))
+
+
 def main() -> int:
     # --- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2662,6 +3016,7 @@ def main() -> int:
     launches_sharded = check_sharded(dev, report)
     check_grad(dev)
     check_algorithms(dev)
+    launches_par = check_parallel(dev)
 
     # --- 5. timing -----------------------------------------------------------
     print("timing on %s: CUDA events, median of 10 runs after 2 warm-up runs"
@@ -2784,6 +3139,10 @@ def main() -> int:
     time_sharded(dev, report)
     time_grad(dev)
     time_algorithms(dev, smi)
+    time_parallel(dev, smi)
+    for what, counts in launches_par.items():
+        print("launches parallel %s (f32 interleaved round trip): %s"
+              % (what, counts), flush=True)
 
     # the dual kernels report the 1-D path's launches, the level kernels
     # their own path's, filter the discard_level_1 round trip's, dfilt and

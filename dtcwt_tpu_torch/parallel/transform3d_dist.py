@@ -39,7 +39,8 @@ import torch
 
 from dtcwt_tpu_torch.defaults import DEFAULT_BIORT, DEFAULT_QSHIFT
 from dtcwt_tpu_torch.ops import dual, hw, pack3d, single
-from dtcwt_tpu_torch.parallel.halo import halo_exchange
+from dtcwt_tpu_torch.parallel._grid import (
+    GridShards, _map, _round8, _unzip)
 from dtcwt_tpu_torch.transforms.pyramid import PlanePyramid, Pyramid
 from dtcwt_tpu_torch.transforms.transform2d import (
     normalize_biort, normalize_qshift)
@@ -52,42 +53,7 @@ __all__ = ["ShardedTransform3d"]
 logger = logging.getLogger(__name__)
 
 
-def _round8(n: int) -> int:
-    """Halo widths, rounded up to a multiple of 8 as the JAX class rounds
-    them; the plans' minimum extents follow."""
-    return -(-n // 8) * 8
-
-
-# A grid holds the local tensors of one batch slice: g[r][c] over the depth
-# shards r and the rows shards c, one of either where that axis is
-# replicated.
-
-def _map(fn, *grids):
-    """*fn* on each shard of one or more grids of one shape."""
-    return [[fn(*(g[r][c] for g in grids)) for c in range(len(grids[0][0]))]
-            for r in range(len(grids[0]))]
-
-
-def _unzip(g, n: int):
-    """A grid of n-tuples as n grids."""
-    return tuple(_map(lambda t: t[i], g) for i in range(n))
-
-
-def _cat(ts, dim: int):
-    return ts[0] if len(ts) == 1 else torch.cat(ts, dim=dim)
-
-
-def _exchange(g, n: int, axis: int):
-    """Every shard extended by *n* samples a side of *axis*: -3 over the
-    depth shards, -2 over the rows shards."""
-    if axis == -2:
-        return [halo_exchange(row, n, -2) for row in g]
-    cols = [halo_exchange([row[c] for row in g], n, -3)
-            for c in range(len(g[0]))]
-    return [[col[r] for col in cols] for r in range(len(g))]
-
-
-class ShardedTransform3d:
+class ShardedTransform3d(GridShards):
     """An n-level 3-D DTCWT over a device mesh: depth-axis sharding, plus an
     optional second spatial axis over the image rows (H).
 
@@ -120,61 +86,10 @@ class ShardedTransform3d:
                              % (data_axis, depth_axis))
         if rows_axis is not None and rows_axis not in mesh.axis_names:
             raise ValueError("mesh does not define rows axis %r" % rows_axis)
-        self._ndata = mesh.shape[data_axis]
-        self._ndepth = mesh.shape[depth_axis]
-        self._nrows = mesh.shape[rows_axis] if rows_axis is not None else 1
-        self._first = mesh.devices.flat[0]
+        self._init_grid(mesh, data_axis, depth_axis, rows_axis, -3)
+        self._ndepth, self._nrows = self._nouter, self._ninner
         self._single = Transform3d(self.biort, self.qshift, ext_mode,
                                    device=self._first)
-
-    # ------------------------------------------------------------------
-    # shards
-    # ------------------------------------------------------------------
-    def _device(self, a: int, r: int, c: int) -> torch.device:
-        """The device of data slice *a*, depth shard *r*, rows shard *c*
-        (index 0 of any other mesh axis)."""
-        pos = {self.data_axis: a, self.depth_axis: r}
-        if self.rows_axis is not None:
-            pos[self.rows_axis] = c
-        return self.mesh.devices[tuple(pos.get(n, 0)
-                                       for n in self.mesh.axis_names)]
-
-    def _scatter(self, x, a, d_on, r_on, ddim=-3, rdim=-2):
-        """Batch slice *a* of a global tensor as its grid: split along
-        *ddim* over the depth shards and along *rdim* over the rows shards
-        where those are on."""
-        split = lambda t, dim, n: t.split(t.shape[dim] // n, dim)
-        return [[t.to(self._device(a, r, c)).contiguous()
-                 for c, t in enumerate(split(part, rdim,
-                                             self._nrows if r_on else 1))]
-                for r, part in enumerate(split(x, ddim,
-                                               self._ndepth if d_on else 1))]
-
-    @staticmethod
-    def _gather(g, axis: int):
-        """The shards joined along *axis* on the axis's first device."""
-        if axis == -3:
-            return [[_cat([row[c].to(g[0][c].device) for row in g], -3)
-                     for c in range(len(g[0]))]]
-        return [[_cat([t.to(row[0].device) for t in row], -2)] for row in g]
-
-    def _reshard(self, g, a: int, axis: int):
-        """A grid replicated along *axis* split over that axis's shards."""
-        if axis == -3:
-            n = g[0][0].shape[-3] // self._ndepth
-            return [[t.narrow(-3, r * n, n).to(self._device(a, r, c))
-                     .contiguous() for c, t in enumerate(g[0])]
-                    for r in range(self._ndepth)]
-        n = g[0][0].shape[-2] // self._nrows
-        return [[row[0].narrow(-2, c * n, n).to(self._device(a, r, c))
-                 .contiguous() for c in range(self._nrows)]
-                for r, row in enumerate(g)]
-
-    def _whole(self, grids, ddim: int, rdim: int):
-        """The grids of every batch slice as one tensor on the first
-        device."""
-        return _cat([_cat([_cat([t.to(self._first) for t in row], rdim)
-                           for row in g], ddim) for g in grids], 0)
 
     # ------------------------------------------------------------------
     # plans
@@ -330,26 +245,17 @@ class ShardedTransform3d:
 
         def filter2(g, axis, on):
             """Both biort branches along *axis*: two grids."""
-            if on:
-                return _unzip(_map(lambda e: dual.filter2_fromext_axis(
-                    e, halo1, h0o, h1o, axis), _exchange(g, halo1, axis)), 2)
-            return _unzip(_map(lambda v: dual.filter2_axis(
-                v, h0o, h1o, axis), g), 2)
+            return _unzip(self._pass(g, axis, on, halo1, "filter2", dual,
+                                     h0o, h1o), 2)
 
         def dfilt2(g, axis, on):
             """Both qshift branches along *axis*: two grids."""
-            if on:
-                return _unzip(_map(lambda e: dual.dfilt2_fromext_axis(
-                    e, halo2, p0, p1, axis), _exchange(g, halo2, axis)), 2)
-            return _unzip(_map(lambda v: dual.dfilt2_axis(
-                v, p0, p1, axis), g), 2)
+            return _unzip(self._pass(g, axis, on, halo2, "dfilt2", dual,
+                                     p0, p1), 2)
 
         def lowpass(g, axis, on):
             """The lowpass biort branch alone (discard_level_1)."""
-            if on:
-                return _map(lambda e: single.filter_fromext_axis(
-                    e, halo1, h0o, axis), _exchange(g, halo1, axis))
-            return _map(lambda v: single.filter_axis(v, h0o, axis), g)
+            return self._pass(g, axis, on, halo1, "filter", single, h0o)
 
         cur = self._scatter(compute_view(x), a, plan[0], rplan[0])
         d_on, r_on = plan[0], rplan[0]
@@ -490,19 +396,9 @@ class ShardedTransform3d:
             """One stage's branch merge along *axis*: the biort filters
             (level 1) or the qshift pairs."""
             if level1:
-                halo, plain, fromext, f = (halo1, dual.filter2_sum_axis,
-                                           dual.filter2_sum_fromext_axis,
-                                           (g0o, g1o))
-            else:
-                halo, plain, fromext, f = (halo2, dual.ifilt2_sum_axis,
-                                           dual.ifilt2_sum_fromext_axis,
-                                           (p0, p1))
-            if on:
-                return _map(lambda u, v: fromext(u, v, halo, *f, axis),
-                            _exchange(va, halo, axis),
-                            _exchange(vb, halo, axis))
-            return _map(lambda u, v: plain(u.contiguous(), v.contiguous(),
-                                           *f, axis), va, vb)
+                return self._merge(va, vb, axis, on, halo1, "filter2_sum",
+                                   g0o, g1o)
+            return self._merge(va, vb, axis, on, halo2, "ifilt2_sum", p0, p1)
 
         def synth(octs, d_on, r_on, level1):
             if r_on:
@@ -548,10 +444,7 @@ class ShardedTransform3d:
         if bands[0] is None:
             # discard_level_1: the lowpass synthesis alone, H, D, W
             def lowpass(g, axis, on):
-                if on:
-                    return _map(lambda e: single.filter_fromext_axis(
-                        e, halo1, g0o, axis), _exchange(g, halo1, axis))
-                return _map(lambda v: single.filter_axis(v, g0o, axis), g)
+                return self._pass(g, axis, on, halo1, "filter", single, g0o)
             Yl = lowpass(lowpass(lowpass(Yl, -2, r_on), -3, d_on), -1, False)
         else:
             octs = unpack(bands[0])

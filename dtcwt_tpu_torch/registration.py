@@ -138,24 +138,28 @@ def _shift_tables(dtype, device):
     return rot(0), shift(0), rot(1), shift(1)
 
 
-def _qtilde_level(hp1, hp2):
+def _qtilde_level(hp1, hp2, y0: int = 0, height=None):
     """``[*B, N, M, 27]`` Qtilde accumulation over the 6 subbands of one
     level's ``[*B, N, M, 6]`` stacks (``dtcwt_tpu/registration.py:102-125``),
     all six subbands at once.  The grid is ``arange(w) / w``, the first *w*
     points of the JAX package's ``np.arange(0, 1, 1 / w)``, which for some
-    widths (49, 98, 103, ...) has ``w + 1`` points and fails there."""
+    widths (49, 98, 103, ...) has ``w + 1`` points and fails there.
+
+    A block of rows of a taller level gives its first row's index *y0* and
+    the level's *height*: the rows then stand at ``(y0 + i) / height``."""
     h, w = hp1.shape[-3], hp1.shape[-2]
+    height = h if height is None else height
     rdt = hp1.real.dtype
     dev = hp1.device
     xs = (torch.arange(w, dtype=torch.float64, device=dev) * (1.0 / w)).to(
         rdt)[:, None]
-    ys = (torch.arange(h, dtype=torch.float64, device=dev) * (1.0 / h)).to(
-        rdt)[:, None, None]
+    ys = (torch.arange(y0, y0 + h, dtype=torch.float64, device=dev)
+          * (1.0 / height)).to(rdt)[:, None, None]
     C_d = _confidence(hp1, hp2, -3, -2)
     dy, dx, dt = _phasegradient(hp1, hp2, *_shift_tables(hp1.dtype, dev),
                                 -3, -2)
     dx = dx * w
-    dy = dy * h
+    dy = dy * height
     tmp = torch.stack((dx, dy, xs * dx, xs * dy, ys * dx, ys * dy, -dt),
                       dim=-1)                               # [..., 6, 7]
     r = _const(tuple(_TRIU_R), torch.long, dev)
@@ -353,20 +357,26 @@ def _avecs_shape(source, regshape, nb: int, name: str):
     return tuple(source.highpasses[3].shape[nb:nb + 2]) + (6,)
 
 
-def _estimatereg(source, reference, avecs_shape, levels, nb: int):
+def _estimatereg(source, reference, avecs_shape, levels, nb: int,
+                 qtilde=None):
     """The estimator of ``dtcwt_tpu/registration.py:316-338`` on pyramids
-    whose leaves have *nb* leading batch axes."""
+    whose leaves have *nb* leading batch axes.  *qtilde(src, ref, levels,
+    total)* gives the Qtilde fields of *levels*, summed over their pixels
+    where *total* (default: :func:`qtildematrices`)."""
+    if qtilde is None:
+        def qtilde(src, ref, lv, total):
+            qts = qtildematrices(src, ref, lv)
+            return [x.sum(dim=(nb, nb + 1)) for x in qts] if total else qts
     lead = tuple(source.highpasses[0].shape[:nb])
     # initial global affine estimate from the coarsest level pair
-    Qt = sum(x.sum(dim=(nb, nb + 1))
-             for x in qtildematrices(source, reference, levels[0]))
+    Qt = sum(qtilde(source, reference, levels[0], True))
     a = solvetransform(Qt)
     avecs = a.reshape(lead + (1, 1, 6)).expand(lead + tuple(avecs_shape))
     # refinement: warp by the current estimate, accumulate Qtilde again,
     # smooth, rescale to the parameter grid and solve per block
     for est_levels in levels[1:]:
         warped = _warptransform(source, avecs, est_levels, "bilinear", nb)
-        all_qts = qtildematrices(warped, reference, est_levels)
+        all_qts = qtilde(warped, reference, est_levels, False)
         if len(all_qts) < 1:
             continue
         qts = 0.0

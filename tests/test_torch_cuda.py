@@ -2209,3 +2209,222 @@ def test_cuda_keypoints_match_cpu_as_sets(cuda, dtype):
                 err = float(np.abs(np.sort(a) - np.sort(b)).max())
                 assert err / float(np.abs(b).max()) < _KP_TOL[dtype], (
                     method, mp)
+
+
+# --- the rest of parallel/: sharded 2-D and 1-D, batch, registration ------
+
+def _leaves2(p):
+    if hasattr(p, "highpasses_re"):
+        out = [p.lowpass] + list(p.highpasses_re) + list(p.highpasses_im)
+    else:
+        out = [p.lowpass] + list(p.highpasses)
+    return out + list(p.scales or ())
+
+
+# every entry of the level, dual and single-stream modules: with _no_plain
+# their plain versions raise, so a card mesh runs only kernels
+_ALL_ENTRIES = tuple((mod, n[:-len("_reference")])
+                     for mod in (dual, single, level1, level2, ilevel1,
+                                 ilevel2)
+                     for n in mod.__all__ if n.endswith("_reference"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cols", [False, True])
+def test_cuda_sharded2d_on_a_card_mesh_matches_transform2d(cuda, monkeypatch,
+                                                           cols):
+    """ShardedTransform2d on four shards of the card (the (1, 4) rows mesh,
+    or the (1, 2, 2) cols mesh) against Transform2d on the card: every
+    leaf and the reconstruction at float32 within 1e-5 and bfloat16 planes
+    within 1e-2 of the largest value, the launches of a 3-level round trip
+    with every level sharded and the plain versions patched to raise; the
+    bandpass families' launches; float64 against the same mesh on the
+    CPU within 1e-12."""
+    from dtcwt_tpu_torch.parallel import ShardedTransform2d, make_mesh
+    if cols:
+        shape, names, kw = (1, 2, 2), ("data", "rows", "cols"), {
+            "cols_axis": "cols"}
+    else:
+        shape, names, kw = (1, 4), ("data", "rows"), {}
+    st = ShardedTransform2d(make_mesh(shape, names, ["cuda"] * 4), **kw)
+    t = dt.Transform2d()
+    x = _rand((1, 256, 256), 17, cuda, torch.float32)
+    want_p = {t_: t.forward(x.to(d), 3, layout=lay) for t_, d, lay in (
+        ("f32", torch.float32, "interleaved"),
+        ("bf16", torch.bfloat16, "planes"))}
+    with monkeypatch.context() as m:
+        _no_plain(m, *_ALL_ENTRIES)
+        for tag, dtype, layout, tol in (
+                ("f32", torch.float32, "interleaved", 1e-5),
+                ("bf16", torch.bfloat16, "planes", 1e-2)):
+            _build.reset_launches()
+            p = st.forward(x.to(dtype), 3, layout=layout)
+            r = st.inverse(p)
+            torch.cuda.synchronize()
+            assert dict(_build.launches) == {
+                "filter2": 12, "dfilt2": 24, "ifilt2_sum": 24,
+                "filter2_sum": 12}
+            for a, b in zip(_leaves2(p), _leaves2(want_p[tag])):
+                assert _kerr(a, b) < tol
+            assert _kerr(r, t.inverse(want_p[tag])) < tol
+        fams = ("near_sym_b_bp", "qshift_b_bp")
+        sb = ShardedTransform2d(st.mesh, *fams, **kw)
+        _build.reset_launches()
+        p = sb.forward(x, 3)
+        rb = sb.inverse(p)
+        torch.cuda.synchronize()
+        assert dict(_build.launches) == {
+            "filter": 24, "filter2": 8, "dfilt2": 16, "dfilt": 24,
+            "ifilt2_sum": 16, "ifilt": 24, "filter2_sum": 8}
+        tb = dt.Transform2d(*fams)
+        pb = tb.forward(x, 3)
+        for a, b in zip(_leaves2(p), _leaves2(pb)):
+            assert _kerr(a, b) < 1e-5
+        assert _kerr(rb, tb.inverse(pb)) < 1e-5
+    sc = ShardedTransform2d(make_mesh(shape, names, ["cpu"] * 4), **kw)
+    v = np.random.RandomState(18).rand(1, 128, 128)
+    for layout in ("interleaved", "planes"):
+        pg = st.forward(v, 3, layout=layout, include_scale=True)
+        pc = sc.forward(torch.from_numpy(v), 3, layout=layout,
+                        include_scale=True)
+        for a, b in zip(_leaves2(pg), _leaves2(pc)):
+            assert _kerr(a.cpu(), b) < 1e-12
+        gm = np.linspace(0.0, 1.5, 18).reshape(6, 3)
+        assert _kerr(st.inverse(pg, gm).cpu(), sc.inverse(pc, gm)) < 1e-12
+
+
+@pytest.mark.cuda
+def test_cuda_sharded2d_plan_that_gathers(cuda):
+    """6 levels on 512 rows over four shards: level 6 gathers and runs
+    replicated on the dual kernels, the inverse re-shards; against
+    Transform2d within 1e-5."""
+    from dtcwt_tpu_torch.parallel import ShardedTransform2d, make_mesh
+    st = ShardedTransform2d(make_mesh((1, 4), ("data", "rows"),
+                                      ["cuda"] * 4))
+    t = dt.Transform2d()
+    x = _rand((2, 512, 512), 19, cuda, torch.float32)
+    _build.reset_launches()
+    p = st.forward(x, 6)
+    r = st.inverse(p)
+    torch.cuda.synchronize()
+    assert "level2" not in _build.launches
+    assert _build.launches["dfilt2"] == 4 * 3 * 4 + 3
+    want = t.forward(x, 6)
+    for a, b in zip(_leaves2(p), _leaves2(want)):
+        assert _kerr(a, b) < 1e-5
+    assert _kerr(r, t.inverse(want)) < 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_sharded1d_on_a_card_mesh_matches_transform1d(cuda, monkeypatch):
+    """ShardedTransform1d on four shards of the card against Transform1d on
+    the card at float32 within 1e-5, the launches of an 8-level round trip
+    with every level sharded and the plain versions patched to raise;
+    float64 against the CPU mesh within 1e-12."""
+    from dtcwt_tpu_torch.parallel import ShardedTransform1d, make_mesh
+    st = ShardedTransform1d(make_mesh((1, 4), ("data", "rows"),
+                                      ["cuda"] * 4))
+    t = dt.Transform1d()
+    x = _rand((1, 4096, 8), 20, cuda, torch.float32)
+    with monkeypatch.context() as m:
+        _no_plain(m, *_ALL_ENTRIES)
+        _build.reset_launches()
+        p = st.forward(x, 8)
+        r = st.inverse(p)
+        torch.cuda.synchronize()
+    assert dict(_build.launches) == {"filter2": 4, "dfilt2": 28,
+                                     "ifilt2_sum": 28, "filter2_sum": 4}
+    want = t.forward(x, 8)
+    for a, b in zip(_leaves2(p), _leaves2(want)):
+        assert _kerr(a, b) < 1e-5
+    assert _kerr(r, t.inverse(want)) < 1e-5
+    sc = ShardedTransform1d(make_mesh((2, 4), ("data", "rows"), ["cpu"] * 8))
+    sg = ShardedTransform1d(make_mesh((2, 4), ("data", "rows"),
+                                      ["cuda"] * 8))
+    v = np.random.RandomState(21).rand(2, 328, 3)
+    for layout in ("interleaved", "planes"):
+        pg = sg.forward(v, 4, layout=layout)
+        pc = sc.forward(torch.from_numpy(v), 4, layout=layout)
+        for a, b in zip(_leaves2(pg), _leaves2(pc)):
+            assert _kerr(a.cpu(), b) < 1e-12
+        assert _kerr(sg.inverse(pg).cpu(), sc.inverse(pc)) < 1e-12
+
+
+@pytest.mark.cuda
+def test_cuda_batch_sharded_matches_the_whole_batch(cuda, monkeypatch):
+    """BatchSharded over the four devices of a data mesh on the card: one
+    Transform2d call per slice (fwd_level1 4, fwd_level2 8, inv_level2 8,
+    inv_level1 4 for 3 levels), equal to Transform2d on the whole batch
+    within 1e-5; Transform1d and Transform3d likewise."""
+    from dtcwt_tpu_torch.parallel import BatchSharded, make_mesh
+    mesh = make_mesh((4,), ("data",), ["cuda"] * 4)
+    t = dt.Transform2d()
+    bt = BatchSharded(t, mesh)
+    x = _rand((8, 96, 128), 22, cuda, torch.float32)
+    with monkeypatch.context() as m:
+        _no_plain(m, *_ALL_ENTRIES)
+        _build.reset_launches()
+        p = bt.forward(x, 3)
+        r = bt.inverse(p)
+        torch.cuda.synchronize()
+    assert dict(_build.launches) == {"level1": 4, "level2": 8, "ilevel2": 8,
+                                     "ilevel1": 4}
+    want = t.forward(x, 3)
+    for a, b in zip(_leaves2(p), _leaves2(want)):
+        assert _kerr(a, b) < 1e-5
+    assert _kerr(r, t.inverse(want)) < 1e-5
+    for tr, shape, nl in ((dt.Transform1d(), (8, 256, 4), 4),
+                          (dt.Transform3d(), (4, 32, 32, 32), 2)):
+        xs = _rand(shape, 23, cuda, torch.float32)
+        b = BatchSharded(tr, mesh)
+        pb, pw = b.forward(xs, nl), tr.forward(xs, nl)
+        for a, c in zip(_leaves2(pb), _leaves2(pw)):
+            assert _kerr(a, c) < 1e-5
+        assert _kerr(b.inverse(pb), tr.inverse(pw)) < 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_estimatereg_sharded_matches_estimatereg(cuda):
+    """estimatereg_sharded on a (4,) rows mesh of the card against
+    estimatereg on the card, float64 within 1e-10, with no host wait."""
+    import warnings
+    from dtcwt_tpu_torch import registration as R
+    from dtcwt_tpu_torch.parallel import estimatereg_sharded, make_mesh
+    mesh = make_mesh((4,), ("rows",), ["cuda"] * 4)
+    f1, f2 = _smooth_pair(128, 160)
+    t = dt.Transform2d()
+    p1 = t.forward(torch.from_numpy(f1).to(cuda), 6)
+    p2 = t.forward(torch.from_numpy(f2).to(cuda), 6)
+    got = estimatereg_sharded(p1, p2, mesh)
+    assert got.is_cuda
+    assert _kerr(got, R.estimatereg(p1, p2)) < 1e-10
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            estimatereg_sharded(p1, p2, mesh)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert not [w for w in caught if "synchroniz" in str(w.message)]
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_transforms_refuse_inputs_that_need_grad(cuda):
+    """On a card mesh the sharded 2-D and 1-D transforms and BatchSharded's
+    wrapped sharded transform raise on an input that requires grad while
+    grad mode is on (their kernel wrappers' check_no_grad, naming
+    device="cpu"); under torch.no_grad() the same calls run."""
+    from dtcwt_tpu_torch.parallel import (
+        ShardedTransform1d, ShardedTransform2d, make_mesh)
+    mesh = make_mesh((1, 4), ("data", "rows"), ["cuda"] * 4)
+    x2 = torch.rand(1, 128, 128, device=cuda, requires_grad=True)
+    x1 = torch.rand(1, 1024, 4, device=cuda, requires_grad=True)
+    calls = [lambda: ShardedTransform2d(mesh).forward(x2, 2),
+             lambda: ShardedTransform1d(mesh).forward(x1, 3)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match=r'requires grad.*device="cpu"'):
+            call()
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()

@@ -23,6 +23,8 @@ def test_import_loads_no_jax_or_triton_and_builds_nothing():
         "from dtcwt_tpu_torch.transforms import transform3d\n"
         "import dtcwt_tpu_torch.parallel\n"
         "from dtcwt_tpu_torch.parallel import halo, mesh, transform3d_dist\n"
+        "from dtcwt_tpu_torch.parallel import (\n"
+        "    batch, registration_dist, transform1d_dist, transform2d_dist)\n"
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'triton', 'dtcwt_tpu'))\n"
         "assert not bad, bad\n"
@@ -41,7 +43,12 @@ def test_import_loads_no_jax_or_triton_and_builds_nothing():
                                    "dtcwt_tpu_torch.ops.hw",
                                    "dtcwt_tpu_torch.sampling",
                                    "dtcwt_tpu_torch.registration",
-                                   "dtcwt_tpu_torch.keypoint"])
+                                   "dtcwt_tpu_torch.keypoint",
+                                   "dtcwt_tpu_torch.parallel.batch",
+                                   "dtcwt_tpu_torch.parallel.transform1d_dist",
+                                   "dtcwt_tpu_torch.parallel.transform2d_dist",
+                                   "dtcwt_tpu_torch.parallel."
+                                   "registration_dist"])
 def test_each_module_imports_first_without_a_cycle(first):
     """Any of the public modules can be the first one imported: ``ops``
     (which binds the filter names to ``ops.single``) and the transforms
