@@ -142,10 +142,17 @@ Phases, each printing its own lines:
    (4/28/28/4) and the batch (level kernels 4/8/8/4), each with the plain
    versions patched to raise, against its unsharded transform on the card
    and (2-D, 1-D) the plain path; a 6-level plan that gathers, float64
-   card against CPU meshes, the refusal of an input that requires grad,
-   and ``estimatereg_sharded`` against ``estimatereg`` (float64 1e-10,
-   float32 within twice the float32 estimate's own distance from
-   float64) with no host wait;
+   card against CPU meshes, and ``estimatereg_sharded`` against
+   ``estimatereg`` (float64 1e-10, float32 within twice the float32
+   estimate's own distance from float64) with no host wait; the
+   gradients through the sharded 2-D round trip (both meshes), 1-D and
+   3-D (256^3 on the (1, 4) depth mesh), each direction's backward with
+   every plain version patched to raise (2-D: the forward's
+   ``filter2_sum`` 12, ``ifilt2_sum`` 24, the inverse's ``filter2`` 12,
+   ``dfilt2`` 24; 1-D: 4 / 28 and 4 / 28; 3-D: ``ifilt_sum_hw22`` 8,
+   ``ifilt2_sum`` 32, ``filter2_sum`` 28, and ``dfilt_hw22`` 8,
+   ``dfilt2`` 32, ``filter2`` 28), against the unsharded transform's
+   gradients on the card and the plain path's autograd within 2e-5;
 5. timing: CUDA events, median of 10 runs after 2 warm-up runs (for a round
    trip the time its caller waits; for a kernel, its plain version and a
    library call the device's time alone, the stream held while the host
@@ -182,7 +189,11 @@ Phases, each printing its own lines:
    The rest of ``parallel/``: each round trip against its unsharded
    transform and the plain path, traces of the sharded 2-D (both meshes)
    and 1-D round trips and of the batch (f32 interleaved), and
-   ``estimatereg_sharded`` beside ``estimatereg`` with a trace.
+   ``estimatereg_sharded`` beside ``estimatereg`` with a trace.  Each
+   sharded gradient round trip: the primal, the backward alone, its
+   ratios to the primal and to the unsharded transform's backward, the
+   byte bound of its launches, and a trace by kernel and by aten
+   operator (device time, idle share, host enqueue).
 
 Tolerances, relative to the largest reference value: float32 1e-5 (sums in
 another order), bfloat16 1e-2 (one bfloat16 step of the stored outputs),
@@ -2009,9 +2020,9 @@ def check_grad(dev) -> None:
 def launch_bytes(fn) -> tuple:
     """(bytes, launches) of the kernel launches of one call of *fn*: each
     launch's input tensors read once and its outputs written once,
-    recorded at the launch sites (the stream kernels, the 3-D level
-    kernels, the 2-D qshift level kernels)."""
-    from dtcwt_tpu_torch.ops import dual, ilevel2, level2, pack3d
+    recorded at the launch sites (the stream kernels, the 3-D level and
+    hw kernels, the 2-D qshift level kernels)."""
+    from dtcwt_tpu_torch.ops import dual, hw, ilevel2, level2, pack3d
     seen = []
 
     def flat(obj):
@@ -2029,7 +2040,7 @@ def launch_bytes(fn) -> tuple:
             seen.append(nbytes(flat(a) + flat(k)) + nbytes(flat(out)))
             return out
         return run
-    sites = [(dual, "_launch_stream"), (pack3d, "_launch"),
+    sites = [(dual, "_launch_stream"), (pack3d, "_launch"), (hw, "_launch"),
              (level2, "fwd_level2"), (ilevel2, "inv_level2")]
     with patched([(m, n, rec(getattr(m, n))) for m, n in sites]):
         fn()
@@ -2555,14 +2566,6 @@ def check_parallel(dev) -> dict:
     check(e <= TOL[torch.float64], "parallel sharded 2-D float64 2x128x128 "
           "on (2, 2) and (1, 2, 2) card meshes, both layouts: card vs CPU, "
           "every leaf, rel err %.3g (tol %g)" % (e, TOL[torch.float64]))
-    xr = rand((1, 256, 256), 44, dev, torch.float32).requires_grad_(True)
-    try:
-        st.forward(xr, NLEVELS)
-        refused = ""
-    except RuntimeError as exc:
-        refused = str(exc)
-    check("requires grad" in refused, "parallel sharded 2-D: an input that "
-          "requires grad is refused on the card: %r" % refused[:120])
     del x32
 
     # the 1-D main path's signal on the rows mesh
@@ -2721,6 +2724,125 @@ def time_parallel(dev, smi) -> None:
               REG_N, REG_NLEVELS, PAR_SHARDS, smi, ms, sms), flush=True)
     print_trace("estimatereg_sharded %d^2" % REG_N,
                 lambda: estimatereg_sharded(p1, p2, rmesh))
+
+
+# --- gradients through the sharded transforms (parallel/_grid.py) --------
+
+# each direction's explicit backward in one full-width sharded round trip
+# with every level sharded: (the forward's adjoint, the inverse's); 3-D:
+# the level-1 (H, W) adjoint adds three filter2_sum / filter2 a shard
+LAUNCHES_SHARDED_GRAD = {
+    "2-D": ({"filter2_sum": 12, "ifilt2_sum": 24},
+            {"filter2": 12, "dfilt2": 24}),
+    "1-D": ({"filter2_sum": 4, "ifilt2_sum": 28},
+            {"filter2": 4, "dfilt2": 28}),
+    "3-D": ({"ifilt_sum_hw22": 8, "ifilt2_sum": 32, "filter2_sum": 16 + 12},
+            {"dfilt_hw22": 8, "dfilt2": 32, "filter2": 16 + 12})}
+
+
+def sharded_grad_paths(dev):
+    """(label, kind, sharded transform, unsharded transform, input,
+    nlevels) of each full-width sharded gradient round trip, f32
+    interleaved: 2-D 4096^2 on the (1, 4) rows and (1, 2, 2) cols card
+    meshes, 1-D [1, 131072, 128] on the rows mesh, 3-D 256^3 on the (1,
+    4) depth mesh."""
+    import dtcwt_tpu_torch as dt
+    from dtcwt_tpu_torch.parallel import (
+        ShardedTransform1d, ShardedTransform2d, ShardedTransform3d, make_mesh)
+    meshes = par_meshes()
+    x2 = rand((1, N, N), 48, dev, torch.float32)
+    paths = [("sharded 2-D %dx%d %d levels f32 interleaved on the %s" % (
+        N, N, NLEVELS, mlabel), "2-D", ShardedTransform2d(mesh, **kw),
+        dt.Transform2d(), x2, NLEVELS) for mlabel, kw, mesh in meshes]
+    paths.append((
+        "sharded 1-D [1, %d, %d] %d levels f32 interleaved on the (1, 4) "
+        "rows mesh" % (N1, C1, NLEVELS1), "1-D",
+        ShardedTransform1d(meshes[0][2]), dt.Transform1d(),
+        rand((1, N1, C1), 49, dev, torch.float32), NLEVELS1))
+    dmesh = make_mesh((1, SHARDS), ("data", "depth"), ["cuda"] * SHARDS)
+    paths.append((
+        "sharded 3-D %d^3 %d levels f32 interleaved on the (1, 4) depth "
+        "mesh" % (VOL, NLEVELS), "3-D", ShardedTransform3d(dmesh),
+        dt.Transform3d(), rand((1, VOL, VOL, VOL), 50, dev, torch.float32),
+        NLEVELS))
+    return paths
+
+
+def sharded_grad_no_plain():
+    """Patches that make every plain version a sharded path reaches
+    raise: the level, dual, single-stream, pack3d and hw entries'."""
+    from dtcwt_tpu_torch.ops import hw
+    return parallel_no_plain() + [(hw, n + "_reference", refuse)
+                                  for n in HW_NAMES]
+
+
+def sharded_grad_plain_path():
+    """Patches for the plain path's autograd on the card: every kernel
+    entry of the sharded paths routed to its plain version, and the
+    passes kept off linear_vjp."""
+    from dtcwt_tpu_torch.ops import linearize
+    return parallel_plain_path() + sharded_plain_path() + [
+        (linearize, "needs_vjp", lambda _: False)]
+
+
+def check_sharded_grad(dev) -> None:
+    """Phase 4 for the sharded gradients: each full-width sharded round
+    trip's forward and inverse gradients on its card mesh (every plain
+    version patched to raise) with each backward's launch counts, against
+    the unsharded transform's gradients on the card and the plain path's
+    autograd on the card."""
+    for label, kind, st, t, x, nl in sharded_grad_paths(dev):
+        with patched(sharded_grad_no_plain()):
+            gx, gp, cf, ci = grads(st, x, "interleaved", nl, 60)
+        want = LAUNCHES_SHARDED_GRAD[kind]
+        check((cf, ci) == want,
+              "grad %s: the backward's launches, forward %s, inverse %s "
+              "(want %s, %s)" % (label, cf, ci, *want))
+        ux, up, _, _ = grads(t, x, "interleaved", nl, 60)
+        eu = max([rel_err(gx, ux)] + [rel_err(a, b) for a, b in zip(gp, up)])
+        del ux, up
+        with patched(sharded_grad_plain_path()):
+            rx, rp, _, _ = grads(st, x, "interleaved", nl, 60)
+        ep = max([rel_err(gx, rx)] + [rel_err(a, b) for a, b in zip(gp, rp)])
+        finite = all(bool(torch.isfinite(torch.view_as_real(g) if
+                                         g.is_complex() else g).all())
+                     for g in (gx,) + tuple(gp))
+        check(eu <= GRAD_TOL and ep <= GRAD_TOL and finite
+              and len(gp) == len(rp) and gx.shape == x.shape and gx.is_cuda,
+              "grad %s: forward and inverse gradients (%d pyramid leaves) "
+              "against the unsharded transform's on the card rel err %.3g, "
+              "against the plain path's autograd on the card %.3g (tol %g), "
+              "finite %s" % (label, len(gp), eu, ep, GRAD_TOL, finite))
+        del gx, gp, rx, rp, st, t, x
+
+
+def time_sharded_grad(dev, smi) -> None:
+    """Phase 5 for the sharded gradients: each round trip's primal (grad
+    mode off), its backward alone (both directions' adjoints, the graph
+    kept), the ratios to the primal and to the unsharded transform's
+    backward on the same input, the byte bound of the backward's
+    launches, and a trace of the backward by kernel and by operator."""
+    for label, kind, st, t, x, nl in sharded_grad_paths(dev):
+        with torch.no_grad():
+            pms = cuda_ms(lambda: st.inverse(st.forward(x, nl)))
+        xg = x.detach().requires_grad_()
+        y = st.inverse(st.forward(xg, nl))
+        v = cot_like(y, 70)
+        bwd = lambda: torch.autograd.grad(y, xg, v, retain_graph=True)
+        ms = cuda_ms(bwd)
+        nb, nlaunch = launch_bytes(bwd)
+        xu = x.detach().requires_grad_()
+        yu = t.inverse(t.forward(xu, nl))
+        ums = cuda_ms(lambda: torch.autograd.grad(yu, xu, v,
+                                                  retain_graph=True))
+        del xu, yu
+        print("time grad %s round trip (%s): primal %.3f ms; backward %.3f "
+              "ms (%.2fx the primal; %.2fx the unsharded %s backward %.3f "
+              "ms; its %d launches' byte bound %.3f ms)" % (
+                  label, smi, pms, ms, ms / pms, ms / ums, kind, ums,
+                  nlaunch, 1e3 * nb / HBM_BYTES_PER_S), flush=True)
+        print_op_trace("grad sharded backward %s" % label, bwd)
+        del y, xg, v, st, t, x
 
 
 def main() -> int:
@@ -3017,6 +3139,7 @@ def main() -> int:
     check_grad(dev)
     check_algorithms(dev)
     launches_par = check_parallel(dev)
+    check_sharded_grad(dev)
 
     # --- 5. timing -----------------------------------------------------------
     print("timing on %s: CUDA events, median of 10 runs after 2 warm-up runs"
@@ -3140,6 +3263,7 @@ def main() -> int:
     time_grad(dev)
     time_algorithms(dev, smi)
     time_parallel(dev, smi)
+    time_sharded_grad(dev, smi)
     for what, counts in launches_par.items():
         print("launches parallel %s (f32 interleaved round trip): %s"
               % (what, counts), flush=True)

@@ -195,12 +195,14 @@ def check_no_grad(name: str, *inputs) -> None:
     a gradient: grad mode is on and a tensor among *inputs* (tensors,
     None, or tuples and lists of them) requires grad.  The kernels fill
     fresh tensors through ctypes, so their outputs carry no ``grad_fn``.
-    ``Transform1d``, ``Transform2d`` and ``Transform3d`` have gradients on
-    the card: they run their kernels inside ``linearize.linear_vjp``, where
-    grad mode is off, and a second-order backward through their explicit
-    adjoints ends here.  The sharded transform and the low-level wrappers
-    (``ops.colfilter`` ..., the level and dual entries called directly)
-    have none and refuse such inputs."""
+    ``Transform1d``, ``Transform2d`` and ``Transform3d`` and the sharded
+    ``ShardedTransform1d``, ``ShardedTransform2d`` and
+    ``ShardedTransform3d`` have gradients on the card: they run their
+    kernels inside ``linearize.linear_vjp`` (the sharded ones one Function
+    per filter pass), where grad mode is off, and a second-order backward
+    through their explicit adjoints ends here.  The low-level wrappers
+    (``ops.colfilter`` ..., the level, dual and hw entries called
+    directly) have none and refuse such inputs."""
     if not torch.is_grad_enabled():
         return
     stack = list(inputs)
@@ -211,9 +213,9 @@ def check_no_grad(name: str, *inputs) -> None:
         elif isinstance(t, torch.Tensor) and t.requires_grad:
             raise RuntimeError(
                 "%s: an input requires grad, and this CUDA kernel wrapper "
-                "has no gradient (Transform1d, Transform2d and Transform3d "
-                "have gradients on the card, to first order; the sharded "
-                "transform and the low-level wrappers do not); run it under "
+                "has no gradient (Transform1d, Transform2d, Transform3d "
+                "and the sharded transforms have gradients on the card, to "
+                "first order; the low-level wrappers do not); run it under "
                 "torch.no_grad(), or on device=\"cpu\", the plain PyTorch "
                 "path, which has them" % name)
 

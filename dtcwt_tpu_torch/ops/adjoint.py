@@ -26,6 +26,14 @@ kernels the primal already runs:
    have at least ``p`` samples.  The q2c pack is orthogonal (its real
    4 x 4 blocks satisfy ``M M^T = I``), so its adjoint is ``c2q``.
 
+3. **On a shard of a longer axis** (the sharded transforms' passes,
+   ``parallel/_grid.py``) the zero extension takes the neighbours'
+   samples at an interior side and zeros only beyond the whole axis's
+   ends, and the fold goes to those ends alone
+   (:func:`filter2_sum_adj_fromext`, :func:`filter2_adj_fromext`).  The
+   (H, W) stage pairs of a 3-D shard compose the per-axis adjoints
+   (:func:`filter_hw22_adj`, :func:`filter_sum_hw22_adj`).
+
 Complex convention: a PyTorch gradient of a complex tensor is ``dL/dRe +
 i dL/dIm``, the conjugate of JAX's cotangent, so these functions take the
 band gradients as they come and return them as PyTorch wants them; the
@@ -50,7 +58,9 @@ from dtcwt_tpu_torch.ops.ilevel2 import _quads
 from dtcwt_tpu_torch.ops.level1 import _pack
 
 __all__ = ["filter_adj_axis", "filter2_sum_adj_axis", "filter2_adj_axis",
-           "level1_fwd_adj_quads", "level1_fwd_adj", "level1_inv_adj",
+           "fold_width", "filter2_sum_adj_fromext", "filter2_adj_fromext",
+           "filter_hw22_adj", "filter_sum_hw22_adj", "level1_fwd_adj_quads",
+           "level1_fwd_adj", "level1_inv_adj",
            "qshift_adjoint_error", "explicit_route", "QSHIFT_ADJOINT_TOL"]
 
 #: The largest :func:`qshift_adjoint_error` of a family whose levels take
@@ -101,9 +111,12 @@ def _strip_apply(M: torch.Tensor, strip: torch.Tensor, axis: int):
 
 
 def _fold_borders(core: torch.Tensor, y: torch.Tensor, h: np.ndarray,
-                  axis: int) -> torch.Tensor:
+                  axis: int, front: bool = True,
+                  back: bool = True) -> torch.Tensor:
     """Add the extension transpose's border fold of (y, h) onto *core*
-    (in place; *core* is a fresh output)."""
+    (in place; *core* is a fresh output): at the front of *axis*, at its
+    back, or, where *y* is a shard of a longer axis, at the one end that
+    is the whole axis's."""
     p = h.size // 2
     if p == 0:
         return core
@@ -112,10 +125,12 @@ def _fold_borders(core: torch.Tensor, y: torch.Tensor, h: np.ndarray,
         raise ValueError("the border fold of a %d-tap filter needs at least "
                          "%d samples, got %d" % (h.size, p, n))
     Mf, Mb = _border_mats(h.tobytes(), y.dtype, y.device)
-    front = _strip_apply(Mf, y.narrow(axis, 0, p), axis)
-    back = _strip_apply(Mb, y.narrow(axis, n - p, p).flip(axis), axis)
-    core.narrow(axis, 0, p).add_(front)
-    core.narrow(axis, n - p, p).add_(back.flip(axis))
+    if front:
+        core.narrow(axis, 0, p).add_(
+            _strip_apply(Mf, y.narrow(axis, 0, p), axis))
+    if back:
+        core.narrow(axis, n - p, p).add_(_strip_apply(
+            Mb, y.narrow(axis, n - p, p).flip(axis), axis).flip(axis))
     return core
 
 
@@ -130,28 +145,75 @@ def filter_adj_axis(y: torch.Tensor, h, axis: int) -> torch.Tensor:
     return _fold_borders(core, y, h, axis)
 
 
+def fold_width(h0, h1) -> int:
+    """The zero extension a side of the two-filter level-1 adjoints:
+    half the longer filter, which is also the least extent a side's
+    border fold needs."""
+    return max(fb._as_taps(h0).size, fb._as_taps(h1).size) // 2
+
+
+def filter2_sum_adj_fromext(ea: torch.Tensor, eb: torch.Tensor, ya, yb,
+                            side: int, h0, h1, axis: int, front: bool = True,
+                            back: bool = True) -> torch.Tensor:
+    """:func:`filter2_sum_adj_axis` of one shard of a longer axis: *ea*,
+    *eb* are its cotangents *ya*, *yb* extended by *side* (at least
+    :func:`fold_width`) a side, with zeros beyond the whole axis's ends
+    and the neighbours' samples elsewhere (``halo_exchange(...,
+    zero_ends=True)``); the border fold goes only to the *front* and
+    *back* that are the whole axis's ends."""
+    h0, h1 = _odd(h0, h1)
+    axis = fb._norm_axis(axis, ya.ndim)
+    core = dual.filter2_sum_fromext_axis(ea, eb, side, h0[::-1], h1[::-1],
+                                         axis)
+    core = _fold_borders(core, ya, h0, axis, front, back)
+    return _fold_borders(core, yb, h1, axis, front, back)
+
+
+def filter2_adj_fromext(e: torch.Tensor, y, side: int, h0, h1, axis: int,
+                        front: bool = True, back: bool = True):
+    """:func:`filter2_adj_axis` of one shard of a longer axis, *e* its
+    cotangent *y* extended as for :func:`filter2_sum_adj_fromext`."""
+    h0, h1 = _odd(h0, h1)
+    axis = fb._norm_axis(axis, y.ndim)
+    a, b = dual.filter2_fromext_axis(e, side, h0[::-1], h1[::-1], axis)
+    return (_fold_borders(a, y, h0, axis, front, back),
+            _fold_borders(b, y, h1, axis, front, back))
+
+
 def filter2_sum_adj_axis(ya: torch.Tensor, yb: torch.Tensor, h0, h1,
                          axis: int) -> torch.Tensor:
     """``filter_adj(ya, h0) + filter_adj(yb, h1)``, the adjoint of
     ``dual.filter2_axis``: both cores in one ``filter2_sum`` pass."""
-    h0, h1 = _odd(h0, h1)
+    p = fold_width(h0, h1)
     axis = fb._norm_axis(axis, ya.ndim)
-    p = max(h0.size, h1.size) // 2
-    core = dual.filter2_sum_fromext_axis(
-        _zpad(ya, p, axis), _zpad(yb, p, axis), p, h0[::-1], h1[::-1], axis)
-    core = _fold_borders(core, ya, h0, axis)
-    return _fold_borders(core, yb, h1, axis)
+    return filter2_sum_adj_fromext(_zpad(ya, p, axis), _zpad(yb, p, axis),
+                                   ya, yb, p, h0, h1, axis)
 
 
 def filter2_adj_axis(y: torch.Tensor, h0, h1, axis: int):
     """``(filter_adj(y, h0), filter_adj(y, h1))``, the adjoint of
     ``dual.filter2_sum_axis``: both cores from one ``filter2`` read."""
-    h0, h1 = _odd(h0, h1)
+    p = fold_width(h0, h1)
     axis = fb._norm_axis(axis, y.ndim)
-    p = max(h0.size, h1.size) // 2
-    a, b = dual.filter2_fromext_axis(_zpad(y, p, axis), p, h0[::-1],
-                                     h1[::-1], axis)
-    return _fold_borders(a, y, h0, axis), _fold_borders(b, y, h1, axis)
+    return filter2_adj_fromext(_zpad(y, p, axis), y, p, h0, h1, axis)
+
+
+def filter_hw22_adj(c00, c01, c10, c11, h0, h1) -> torch.Tensor:
+    """Adjoint of ``hw.filter_hw22(x, h0, h1)`` from the gradients of its
+    four outputs ``u[j][k]``: the H stage's adjoint for each W branch k,
+    then the W stage's."""
+    a0 = filter2_sum_adj_axis(c00, c10, h0, h1, -2)
+    a1 = filter2_sum_adj_axis(c01, c11, h0, h1, -2)
+    return filter2_sum_adj_axis(a0, a1, h0, h1, -1)
+
+
+def filter_sum_hw22_adj(ybar: torch.Tensor, g0, g1):
+    """Adjoint of ``hw.filter_sum_hw22(v00, v01, v10, v11, g0, g1)``: the
+    gradients ``(v00, v01, v10, v11)``, the H stage's adjoint, then the W
+    stage's for each H branch."""
+    b0, b1 = filter2_adj_axis(ybar, g0, g1, -2)
+    return filter2_adj_axis(b0, g0, g1, -1) + filter2_adj_axis(b1, g0, g1,
+                                                               -1)
 
 
 def level1_fwd_adj_quads(glow, lh, hl, hh, h0o, h1o) -> torch.Tensor:

@@ -15,6 +15,9 @@ before the forward runs:
   bound to its ``*_reference`` plain version, on the same device: the
   JAX package's ``linear_transpose`` of its XLA evaluation.
 
+The sharded transforms (``parallel/_grid.py``) run each filter pass
+over their shard grid as one such Function, whose operand and result are
+grids of tensors; the glue between the passes stays PyTorch operators.
 Nothing falls back when a kernel fails, and no global switch chooses the
 route.  The kernels' outputs carry no graph, so a second-order backward
 (``create_graph=True``) through the explicit route raises in the
@@ -37,21 +40,35 @@ def entry(module, name: str, plain: bool):
 
 
 def needs_vjp(operand) -> bool:
-    """Whether a transform takes :func:`linear_vjp` for *operand* (a tensor
-    or a pyramid): grad mode is on and a leaf on a CUDA device requires
-    grad.  The plain path on the CPU keeps PyTorch's own autograd."""
+    """Whether a transform takes :func:`linear_vjp` for *operand* (a
+    tensor, a pyramid or a grid): grad mode is on and a leaf on a CUDA
+    device requires grad.  The plain path on the CPU keeps PyTorch's own
+    autograd."""
     return torch.is_grad_enabled() and any(
         t.requires_grad and t.is_cuda for t in _tree(operand)[0])
 
 
+class _Grid(tuple):
+    """The spec of a grid: per row, per shard, None for a tensor or the
+    length of a tuple of tensors."""
+
+
 def _tree(obj):
-    """``(leaves, spec)`` of a tensor, :class:`Pyramid` or
-    :class:`PlanePyramid`: its tensors in a fixed order (``None`` entries
-    left out) and its structure alone, which :func:`_fill` fills with as
-    many new tensors.  The spec holds no tensor, so an autograd node that
-    keeps it keeps no operand or result alive."""
+    """``(leaves, spec)`` of a tensor, :class:`Pyramid`,
+    :class:`PlanePyramid` or grid (a list of rows, each a list of tensors
+    or of tuples of tensors: the shards of ``parallel/_grid.py``): its
+    tensors in a fixed order (``None`` entries left out) and its
+    structure alone, which :func:`_fill` fills with as many new tensors.
+    The spec holds no tensor, so an autograd node that keeps it keeps no
+    operand or result alive."""
     if isinstance(obj, torch.Tensor):
         return [obj], None
+    if isinstance(obj, list):
+        one = lambda t: isinstance(t, torch.Tensor)
+        return ([x for row in obj for t in row for x in ((t,) if one(t)
+                                                          else t)],
+                _Grid(tuple(None if one(t) else len(t) for t in row)
+                      for row in obj))
     plane = isinstance(obj, PlanePyramid)
     groups = ([(obj.lowpass,), obj.highpasses_re, obj.highpasses_im]
               if plane else [(obj.lowpass,), obj.highpasses])
@@ -66,8 +83,11 @@ def _fill(spec, new):
     """The structure *spec* of :func:`_tree` with the tensors *new*."""
     if spec is None:
         return new[0]
-    kind, present, has_scales = spec
     it = iter(new)
+    if isinstance(spec, _Grid):
+        return [[next(it) if n is None else tuple(next(it) for _ in range(n))
+                 for n in row] for row in spec]
+    kind, present, has_scales = spec
     parts = [tuple(next(it) if p else None for p in g) for g in present]
     scales = parts[-1] if has_scales else None
     if kind is not None:
@@ -121,7 +141,7 @@ class _LinearMap(torch.autograd.Function):
 
 def linear_vjp(impl, adjoint, plain):
     """Wrap the linear map *impl* (operand -> result, each a tensor,
-    :class:`Pyramid` or :class:`PlanePyramid`) so that autograd
+    :class:`Pyramid`, :class:`PlanePyramid` or grid) so that autograd
     differentiates it: the backward runs *adjoint* (result gradient ->
     operand gradient, the same structures) where it is not None, and
     otherwise ``torch.func.vjp`` of *plain*, a map equal to *impl* built

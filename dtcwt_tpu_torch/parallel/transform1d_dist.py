@@ -26,6 +26,12 @@ lowpass at the end), the size checks and the results are the JAX
 class's; the results are assembled on the mesh's first device.  The
 bandpass families are refused, as by the JAX class.  A rows axis that no
 level can use logs a warning, as the 2-D and 3-D classes' do.
+
+Gradients: on a card mesh, where grad mode is on and an input or a
+pyramid leaf requires grad, each level's pass runs as one linear
+``torch.autograd.Function`` over the shards whose backward is the
+opposite sharded pass on the dual kernels (:mod:`._grid`); on a CPU mesh
+autograd runs through the plain versions.
 """
 
 from __future__ import annotations

@@ -31,9 +31,15 @@ its first device, where JAX repeats it on each.  The plans, the warnings,
 the per-level requantisation to the storage dtype and the results are the
 JAX class's; the results are assembled on the mesh's first device.
 
-The kernel wrappers refuse inputs that require grad on the card
-(``ops/_build.py`` ``check_no_grad``); on a CPU mesh autograd runs through
-the plain versions.
+Gradients: on a card mesh, where grad mode is on and an input or a
+pyramid leaf requires grad, each filter pass and merge runs as one linear
+``torch.autograd.Function`` over the shard grid, and its backward is the
+opposite sharded pass on the kernels (``filter2`` <-> ``filter2_sum``
+through the level-1 adjoint, ``dfilt2`` <-> ``ifilt2_sum``) or, for the
+bandpass families' passes and the rest outside
+``ops.adjoint.explicit_route``, the plain pass's vjp (:mod:`._grid`); the
+glue between the passes is PyTorch's own autograd.  On a CPU mesh
+autograd runs through the plain versions.
 """
 
 from __future__ import annotations

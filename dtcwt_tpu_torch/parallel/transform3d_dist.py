@@ -28,6 +28,17 @@ A replicated axis is computed once, on its first device, where JAX repeats
 it on each.  The plans (which levels shard), the warnings, the per-level
 requantisation to the storage dtype and the results are the JAX class's;
 the results are assembled on the mesh's first device.
+
+Gradients: on a card mesh, where grad mode is on and an input or a
+pyramid leaf requires grad, each depth or rows pass (:mod:`._grid`), each
+shard's (H, W) stage pair and each replicated forward level runs as one
+linear ``torch.autograd.Function``.  Its backward is the opposite stage on
+the kernels (``dfilt_hw22`` <-> ``ifilt_sum_hw22``, ``filter_hw22`` and
+``filter_sum_hw22`` through the per-axis level-1 adjoints, a replicated
+level through :class:`Transform3d`'s adjoint pieces) or, outside
+``ops.adjoint.explicit_route`` and for the ``discard_level_1`` lowpass
+passes, the plain stage's vjp.  On a CPU mesh autograd runs through the
+plain versions.
 """
 
 from __future__ import annotations
@@ -38,7 +49,7 @@ from typing import List
 import torch
 
 from dtcwt_tpu_torch.defaults import DEFAULT_BIORT, DEFAULT_QSHIFT
-from dtcwt_tpu_torch.ops import dual, hw, pack3d, single
+from dtcwt_tpu_torch.ops import adjoint, dual, hw, linearize, pack3d, single
 from dtcwt_tpu_torch.parallel._grid import (
     GridShards, _map, _round8, _unzip)
 from dtcwt_tpu_torch.transforms.pyramid import PlanePyramid, Pyramid
@@ -282,9 +293,7 @@ class ShardedTransform3d(GridShards):
                 continue
             if not d_on and not r_on:
                 # the gathered volume: the level as Transform3d runs it
-                step = (self._single._level1_fwd if level == 0
-                        else self._single._level2_fwd)
-                lll, hp = step(cur[0][0], planes)
+                lll, hp = self._replicated_level(cur, level, planes)
                 if planes:
                     hp = (hp[0].to(sdt), hp[1].to(sdt))
                 cur = requant([[lll]])
@@ -292,7 +301,6 @@ class ShardedTransform3d(GridShards):
                 continue
             if level == 0:
                 split = filter2
-                pair = lambda v: hw.filter_hw22(v, h0o, h1o)
             else:
                 # edge-repeat pads on the local axes only (the plans shard
                 # no axis that needs one)
@@ -302,14 +310,13 @@ class ShardedTransform3d(GridShards):
                         cur = _map(lambda v: _repeat_edges(v, ax, rep)
                                    if v.shape[ax] % div else v, cur)
                 split = dfilt2
-                pair = lambda v: hw.dfilt_hw22(v, p0, p1)
             if r_on:
                 # t21[k][j]: W branch k, then H branch j
                 t21 = [split(t, -2, True) for t in split(cur, -1, False)]
             else:
                 # the (H, W) stage pair of each shard in one launch
-                u = _map(pair, cur)
-                t21 = [[_map(lambda t: t[j][k], u) for j in range(2)]
+                u = self._hw_split(cur, level == 0)
+                t21 = [[_map(lambda t: t[2 * j + k], u) for j in range(2)]
                        for k in range(2)]
             octs = {}
             for j in range(2):
@@ -321,6 +328,99 @@ class ShardedTransform3d(GridShards):
                 dict(zip(_OCTANTS, v)), planes, sdt),
                 *(octs[o] for o in _OCTANTS)))
         return _map(lambda v: v.to(sdt), cur), Yh, Yscale
+
+    # ------------------------------------------------------------------
+    # the stages that run as one Function each besides the grid's passes:
+    # the (H, W) stage pair of every shard and a replicated forward level
+    # ------------------------------------------------------------------
+    def _hw_split(self, g, level1: bool):
+        """The (H, W) analysis stage pair of each shard of *g* in one
+        launch (``hw.filter_hw22`` at level 1, ``hw.dfilt_hw22`` after): a
+        grid of ``(u00, u01, u10, u11)``.  Its adjoint is the per-axis
+        level-1 adjoints (``adjoint.filter_hw22_adj``) or the synthesis
+        pair ``hw.ifilt_sum_hw22``."""
+        b, q = self.biort, self.qshift
+        name, f = (("filter_hw22", (b[0], b[2])) if level1
+                   else ("dfilt_hw22", ((q[1], q[0]), (q[5], q[4]))))
+
+        def run(grid, plain):
+            fn = linearize.entry(hw, name, plain)
+            return _map(lambda v: tuple(u for row in fn(v, *f) for u in row),
+                        grid)
+
+        def adj():
+            x = g[0][0]
+            if not adjoint.explicit_route(b, q, x.dtype):
+                return None
+            if level1:
+                # the fold reads a border of half the longer filter
+                if min(x.shape[-2:]) < adjoint.fold_width(*f):
+                    return None
+                return lambda cot: _map(
+                    lambda c: adjoint.filter_hw22_adj(*c, *f), cot)
+            syn = ((q[3], q[2]), (q[7], q[6]))
+            return lambda cot: _map(lambda c: hw.ifilt_sum_hw22(*c, *syn),
+                                    cot)
+        return linearize.dispatch(run, g, adj)
+
+    def _hw_merge(self, V, level1: bool):
+        """The (H, W) synthesis stage pair of each shard in one launch
+        (``hw.filter_sum_hw22`` at level 1, ``hw.ifilt_sum_hw22`` after)
+        of the four grids *V* (``v00, v01, v10, v11``).  Its adjoint is
+        ``adjoint.filter_sum_hw22_adj`` or ``hw.dfilt_hw22``."""
+        b, q = self.biort, self.qshift
+        name, f = (("filter_sum_hw22", (b[1], b[3])) if level1
+                   else ("ifilt_sum_hw22", ((q[3], q[2]), (q[7], q[6]))))
+
+        def run(grid, plain):
+            fn = linearize.entry(hw, name, plain)
+            return _map(lambda t: fn(*t, *f), grid)
+
+        def adj():
+            x = V[0][0][0]
+            if not adjoint.explicit_route(b, q, x.dtype):
+                return None
+            if level1:
+                if min(x.shape[-2:]) < adjoint.fold_width(*f):
+                    return None
+                return lambda cot: _map(
+                    lambda y: adjoint.filter_sum_hw22_adj(y, *f), cot)
+            ana = ((q[1], q[0]), (q[5], q[4]))
+            return lambda cot: _map(lambda y: tuple(
+                u for row in hw.dfilt_hw22(y, *ana) for u in row), cot)
+        return linearize.dispatch(run, _map(lambda *v: v, *V), adj)
+
+    def _replicated_level(self, g, level: int, planes: bool):
+        """A forward level of the gathered volume (the grid *g* of one
+        shard) as :class:`Transform3d` runs it: ``(lowpass, subbands)``.
+        Its adjoint is the level's piece of Transform3d's explicit
+        adjoint, for odd filters and a pad-free level."""
+        single3 = self._single
+        step = single3._level1_fwd if level == 0 else single3._level2_fwd
+
+        def run(grid, plain):
+            lll, hp = step(grid[0][0], planes, plain)
+            return [[(lll,) + (tuple(hp) if planes else (hp,))]]
+
+        def adj():
+            x = g[0][0]
+            if not adjoint.explicit_route(self.biort, self.qshift, x.dtype):
+                return None
+            if level == 0:
+                if min(x.shape[-3:]) < adjoint.fold_width(self.biort[0],
+                                                          self.biort[2]):
+                    return None
+                piece = single3._level1_fwd_adj
+            else:
+                if any(s % self.ext_mode for s in x.shape[-3:]):
+                    return None
+                piece = single3._level2_fwd_adj
+            # the subbands' gradient as _levels gives it: (re, im) planes
+            # or (complex, None)
+            return lambda cot: [[piece(cot[0][0][0], cot[0][0][1:] if planes
+                                       else (cot[0][0][1], None))]]
+        lll, *hp = linearize.dispatch(run, g, adj)[0][0]
+        return lll, tuple(hp) if planes else hp[0]
 
     # ------------------------------------------------------------------
     # inverse
@@ -413,9 +513,7 @@ class ShardedTransform3d(GridShards):
             # shard in one launch
             V = [merge(octs[(0, j, k)], octs[(1, j, k)], -3, d_on, level1)
                  for j in range(2) for k in range(2)]
-            if level1:
-                return _map(lambda *v: hw.filter_sum_hw22(*v, g0o, g1o), *V)
-            return _map(lambda *v: hw.ifilt_sum_hw22(*v, p0, p1), *V)
+            return self._hw_merge(V, level1)
 
         def unpack(g):
             per = _map(pack3d.unpack_octants, g)

@@ -296,24 +296,38 @@ class Transform3d(nn.Module):
         if (not self._adjoint_shapes_ok(spatial, nlevels)
                 or min(spatial) < max(h0o.size, h1o.size) // 2):
             return None
-        q = self.qshift
-        pair0, pair1 = (q[3], q[2]), (q[7], q[6])
 
         def adj(cot):
             levels = _levels(cot)
             Yl = cot.lowpass
             for level in range(nlevels - 1, 0, -1):
-                Yl = pack3d.inv_level2_pack(Yl, *levels[level], pair0, pair1)
-            re, im = levels[0]
-            oc = pack3d.unpack_octants(re if im is None else (re, im))
-            oc[(0, 0, 0)] = Yl
-            V = {(j, k): adjoint.filter2_sum_adj_axis(
-                oc[(0, j, k)], oc[(1, j, k)], h0o, h1o, -3)
-                for j in range(2) for k in range(2)}
-            u0, u1 = (adjoint.filter2_sum_adj_axis(V[(0, k)], V[(1, k)], h0o,
-                                                   h1o, -2) for k in range(2))
-            return adjoint.filter2_sum_adj_axis(u0, u1, h0o, h1o, -1)
+                Yl = self._level2_fwd_adj(Yl, levels[level])
+            return self._level1_fwd_adj(Yl, levels[0])
         return adj
+
+    def _level1_fwd_adj(self, lll_bar, band_bar):
+        """Adjoint of the odd-filter level 1 (``fwd_level1_pack``): the
+        gradients of its lowpass and of its subbands (``(re, im)`` planes
+        or ``(complex, None)``, see :func:`_levels`) to the volume's; the
+        sharded transform's replicated level 1 takes it too."""
+        h0o, h1o = self.biort[0], self.biort[2]
+        re, im = band_bar
+        oc = pack3d.unpack_octants(re if im is None else (re, im))
+        oc[(0, 0, 0)] = lll_bar
+        V = {(j, k): adjoint.filter2_sum_adj_axis(
+            oc[(0, j, k)], oc[(1, j, k)], h0o, h1o, -3)
+            for j in range(2) for k in range(2)}
+        u0, u1 = (adjoint.filter2_sum_adj_axis(V[(0, k)], V[(1, k)], h0o,
+                                               h1o, -2) for k in range(2))
+        return adjoint.filter2_sum_adj_axis(u0, u1, h0o, h1o, -1)
+
+    def _level2_fwd_adj(self, lll_bar, band_bar):
+        """Adjoint of a pad-free qshift level (``fwd_level2_pack``): the
+        opposite level kernel, ``inv_level2_pack`` with the synthesis
+        pairs."""
+        q = self.qshift
+        return pack3d.inv_level2_pack(lll_bar, *band_bar, (q[3], q[2]),
+                                      (q[7], q[6]))
 
     def _inv_adjoint_fn(self, pyramid):
         """The inverse's adjoint (volume gradient -> pyramid gradient) of

@@ -447,11 +447,10 @@ def test_cuda_level_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 @pytest.mark.cuda
 def test_cuda_wrappers_refuse_inputs_that_need_grad(cuda):
     """The wrappers without gradients (the low-level filters, a level or hw
-    kernel's entry called directly, the sharded transform) raise on an
-    input that requires grad while grad mode is on, naming device="cpu";
-    under torch.no_grad() the same calls run the kernels.  The transforms
+    kernel's entry called directly) raise on an input that requires grad
+    while grad mode is on, naming device="cpu"; under torch.no_grad() the
+    same calls run the kernels.  The transforms, sharded ones included,
     take such inputs and run their kernels inside ``linear_vjp``."""
-    from dtcwt_tpu_torch.parallel import ShardedTransform3d, make_mesh
     need = r'requires grad.*device="cpu"'
     t = dt.Transform2d()
     x = torch.rand(2, 64, 96, device=cuda, requires_grad=True)
@@ -466,15 +465,12 @@ def test_cuda_wrappers_refuse_inputs_that_need_grad(cuda):
     im = torch.rand(64, 96, device=cuda, requires_grad=True)
     v = torch.rand(32, 32, 32, device=cuda, requires_grad=True)
     b, q = biort("near_sym_a"), qshift("qshift_a")
-    st = ShardedTransform3d(make_mesh((1, 4), ("data", "depth"),
-                                      ["cuda"] * 4))
     calls = [lambda: single.colfilter(im, b[0]),
              lambda: single.coldfilt(im, q[1], q[0]),
              lambda: single.colifilt(im, q[3], q[2]),
              lambda: level1.fwd_level1(im, b[0], b[2]),
              lambda: dual.filter2_axis(im.contiguous(), b[0], b[2], 0),
-             lambda: hw.filter_hw22(v, b[0], b[2]),
-             lambda: st.forward(v[None], 2)]
+             lambda: hw.filter_hw22(v, b[0], b[2])]
     for call in calls:
         with pytest.raises(RuntimeError, match=need):
             call()
@@ -523,12 +519,12 @@ _DUAL = tuple((dual, n) for n in (
     "filter2_fromext_axis", "filter2_sum_fromext_axis"))
 
 
-def _round_trip_grads(t, x, layout, seed, fwd_kw=None):
+def _round_trip_grads(t, x, layout, seed, fwd_kw=None, nlevels=3):
     """Gradients of a loss on a forward's leaves and on its round trip:
     (d/dx of forward, d/dpyramid of inverse)."""
     fwd_kw = fwd_kw or {}
     xg = x.detach().requires_grad_()
-    p = t.forward(xg, 3, layout=layout, **fwd_kw)
+    p = t.forward(xg, nlevels, layout=layout, **fwd_kw)
     leaves = _grad_leaves(p)
     rng = np.random.RandomState(seed)
     cots = [torch.from_numpy(rng.randn(*a.shape)).to(a.device, a.dtype)
@@ -2409,22 +2405,167 @@ def test_cuda_estimatereg_sharded_matches_estimatereg(cuda):
     assert not [w for w in caught if "synchroniz" in str(w.message)]
 
 
-@pytest.mark.cuda
-def test_cuda_sharded_transforms_refuse_inputs_that_need_grad(cuda):
-    """On a card mesh the sharded 2-D and 1-D transforms and BatchSharded's
-    wrapped sharded transform raise on an input that requires grad while
-    grad mode is on (their kernel wrappers' check_no_grad, naming
-    device="cpu"); under torch.no_grad() the same calls run."""
+# --- gradients through the sharded transforms on card meshes ----------------
+
+def _sharded_grad_case(cuda, kind, fams=()):
+    """(sharded transform on a ["cuda"] * 4 mesh, the unsharded transform,
+    input shape, nlevels, the (module, entry) pairs of its kernel entries)
+    of one sharded class: every level sharded."""
+    from dtcwt_tpu_torch.ops import pack3d
     from dtcwt_tpu_torch.parallel import (
-        ShardedTransform1d, ShardedTransform2d, make_mesh)
-    mesh = make_mesh((1, 4), ("data", "rows"), ["cuda"] * 4)
-    x2 = torch.rand(1, 128, 128, device=cuda, requires_grad=True)
-    x1 = torch.rand(1, 1024, 4, device=cuda, requires_grad=True)
-    calls = [lambda: ShardedTransform2d(mesh).forward(x2, 2),
-             lambda: ShardedTransform1d(mesh).forward(x1, 3)]
-    for call in calls:
-        with pytest.raises(RuntimeError, match=r'requires grad.*device="cpu"'):
-            call()
-        with torch.no_grad():
-            call()
+        ShardedTransform1d, ShardedTransform2d, ShardedTransform3d, make_mesh)
+    names = {"2d-cols": ("data", "rows", "cols"), "3d": ("data", "depth")}
+    shape = (1, 2, 2) if kind == "2d-cols" else (1, 4)
+    mesh = make_mesh(shape, names.get(kind, ("data", "rows")),
+                     ["cuda"] * 4)
+    dual_pairs = tuple((dual, n + s) for n in ("filter2", "dfilt2",
+                                               "filter2_sum", "ifilt2_sum")
+                       for s in ("_axis", "_fromext_axis"))
+    if kind == "1d":
+        return (ShardedTransform1d(mesh, *fams), dt.Transform1d(*fams),
+                (1, 4096, 8), 8, dual_pairs)
+    if kind == "3d":
+        return (ShardedTransform3d(mesh, *fams), dt.Transform3d(*fams),
+                (1, 128, 32, 32), 3,
+                dual_pairs + tuple((hw, n) for n in (
+                    "filter_hw22", "dfilt_hw22", "filter_sum_hw22",
+                    "ifilt_sum_hw22")) + tuple(
+                    (pack3d, n) for n in ("fwd_level1_pack",
+                                          "fwd_level2_pack")))
+    kw = {"cols_axis": "cols"} if kind == "2d-cols" else {}
+    return (ShardedTransform2d(mesh, *fams, **kw), dt.Transform2d(*fams),
+            (1, 256, 256), 3, dual_pairs + tuple(
+                (single, n + s) for n in ("filter", "dfilt", "ifilt")
+                for s in ("_axis", "_fromext_axis")))
+
+
+_SHARDED_KINDS = ["2d-rows", "2d-cols", "1d", "3d"]
+_SHARDED_GTOL = {torch.float32: 2e-5, torch.float64: 1e-12}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", _SHARDED_KINDS)
+def test_cuda_sharded_grads_match_unsharded_and_plain(cuda, monkeypatch,
+                                                      kind, dtype):
+    """A sharded class on four shards of the card takes an input and a
+    pyramid that require grad: its forward and inverse gradients equal the
+    unsharded transform's on the card and the plain path's autograd on
+    the card, float32 within 2e-5 and float64 within 1e-12 of the
+    largest value."""
+    st, t, shape, nl, entries = _sharded_grad_case(cuda, kind)
+    x = _rand(shape, 40, cuda, dtype)
+    got = _round_trip_grads(st, x, "interleaved", 41, nlevels=nl)
+    want = _round_trip_grads(t, x, "interleaved", 41, nlevels=nl)
+    with monkeypatch.context() as m:
+        _plain_entries(m, *entries)
+        plain = _round_trip_grads(st, x, "interleaved", 41, nlevels=nl)
+    assert len(got) == len(want) == len(plain)
+    for g, w, p in zip(got, want, plain):
+        assert g.device == w.device and g.dtype == w.dtype
+        assert _kerr(g, w) < _SHARDED_GTOL[dtype]
+        assert _kerr(g, p) < _SHARDED_GTOL[dtype]
+
+
+# the explicit backward's launches of each sharded round trip with every
+# level sharded: (the forward's adjoint, the inverse's adjoint)
+_SHARDED_BWD = {
+    "2d-rows": ({"filter2_sum": 12, "ifilt2_sum": 24},
+                {"filter2": 12, "dfilt2": 24}),
+    "2d-cols": ({"filter2_sum": 12, "ifilt2_sum": 24},
+                {"filter2": 12, "dfilt2": 24}),
+    "1d": ({"filter2_sum": 4, "ifilt2_sum": 28},
+           {"filter2": 4, "dfilt2": 28}),
+    # the level-1 (H, W) adjoint: three filter2_sum / filter2 a shard
+    "3d": ({"ifilt_sum_hw22": 8, "ifilt2_sum": 32, "filter2_sum": 16 + 12},
+           {"dfilt_hw22": 8, "dfilt2": 32, "filter2": 16 + 12})}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", _SHARDED_KINDS)
+def test_cuda_sharded_backward_launches(cuda, monkeypatch, kind):
+    """With every plain version patched to raise, the backward of each
+    direction of a sharded round trip runs the opposite passes on the
+    kernels: the launch counts of PERF.md."""
+    from dtcwt_tpu_torch.ops import linearize, pack3d
+    st, _, shape, nl, _ = _sharded_grad_case(cuda, kind)
+    _no_plain(monkeypatch, *_ALL_ENTRIES, *((hw, n) for n in (
+        "filter_hw22", "dfilt_hw22", "filter_sum_hw22", "ifilt_sum_hw22")),
+              *((pack3d, n) for n in ("fwd_level1_pack", "fwd_level2_pack",
+                                      "inv_level1_pack", "inv_level2_pack")))
+    x = _rand(shape, 42, cuda, torch.float32).requires_grad_()
+    p = st.forward(x, nl)
+    leaves = _grad_leaves(p)
     torch.cuda.synchronize()
+    _build.reset_launches()
+    torch.autograd.backward(leaves, [torch.ones_like(a) for a in leaves])
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == _SHARDED_BWD[kind][0]
+    pl = [a.detach().requires_grad_() for a in leaves]
+    z = st.inverse(linearize._fill(linearize._tree(p)[1], pl))
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    z.backward(torch.ones_like(z))
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == _SHARDED_BWD[kind][1]
+    assert x.grad is not None and all(a.grad is not None for a in pl)
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_grads_bandpass_and_planes(cuda, monkeypatch):
+    """The bandpass families (every pass on the plain route) and the
+    planes layout on the (1, 4) rows mesh of the card: gradients equal
+    Transform2d's on the card within 2e-5."""
+    for fams, layout in ((("near_sym_b_bp", "qshift_b_bp"), "interleaved"),
+                         ((), "planes")):
+        st, t, shape, nl, _ = _sharded_grad_case(cuda, "2d-rows", fams)
+        x = _rand(shape, 43, cuda, torch.float32)
+        got = _round_trip_grads(st, x, layout, 44, nlevels=nl)
+        want = _round_trip_grads(t, x, layout, 44, nlevels=nl)
+        for g, w in zip(got, want):
+            assert _kerr(g, w) < 2e-5
+
+
+@pytest.mark.cuda
+def test_cuda_batch_sharded_grads_match_the_whole_batch(cuda):
+    """BatchSharded(Transform2d()) over the four devices of a data mesh on
+    the card: the forward's input gradient and the inverse's pyramid
+    gradients equal Transform2d's on the whole batch within 2e-5."""
+    from dtcwt_tpu_torch.parallel import BatchSharded, make_mesh
+    t = dt.Transform2d()
+    bt = BatchSharded(t, make_mesh((4,), ("data",), ["cuda"] * 4))
+    x = _rand((8, 96, 128), 45, cuda, torch.float32)
+    got = _round_trip_grads(bt, x, "interleaved", 46)
+    want = _round_trip_grads(t, x, "interleaved", 46)
+    for g, w in zip(got, want):
+        assert _kerr(g, w) < 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["2d-rows", "3d"])
+def test_cuda_sharded_grad_steps_free_their_memory(cuda, kind):
+    """Twenty forward, inverse and backward steps of a sharded round trip
+    leave the card's allocated memory where it was after the first, with
+    the garbage collector off: no pass's Function node keeps a shard
+    alive."""
+    import gc
+    st, _, shape, nl, _ = _sharded_grad_case(cuda, kind)
+    x = _rand(shape, 47, cuda, torch.float32)
+
+    def step():
+        xg = x.detach().requires_grad_()
+        st.inverse(st.forward(xg, nl)).pow(2).sum().backward()
+        return float(xg.grad.abs().max())
+
+    step()      # the plans' and folds' caches fill once
+    torch.cuda.synchronize()
+    gc.collect()
+    gc.disable()
+    try:
+        start = torch.cuda.memory_allocated()
+        for _ in range(20):
+            assert step() > 0
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated() == start
+    finally:
+        gc.enable()
