@@ -63,7 +63,15 @@ complex float32, float32 planes, bfloat16 planes):
   rows mesh, ``[1, 131072, 128]`` at 8 levels; ``BatchSharded(
   Transform2d())`` on ``make_mesh((4,), ("data",), ["cuda"] * 4)``, 100
   x 512 x 512 at 3 levels (the four level kernels per slice); and
-  ``estimatereg_sharded`` of the registration pair on a (4,) rows mesh.
+  ``estimatereg_sharded`` of the registration pair on a (4,) rows mesh;
+* filters past the kernels' tap bounds: ``Transform2d``, ``Transform1d``
+  and ``Transform3d`` with a random 35/37-tap biort and a random 36-tap
+  qshift family (2-D 4096^2 and 3-D 128^3 at 3 levels in three layouts,
+  1-D ``[131072, 128]`` at 8 levels) and a 2-D gradient with qshift_32
+  zero-padded to 36 taps: the long-filter kernel of ``csrc/longfir.cu``
+  in place of every level kernel (``longfir_filter`` / ``dfilt`` /
+  ``ifilt`` 6/6/6 a 2-D round trip, 14/14/14 a 3-D one; the 1-D inverse
+  keeps ``ifilt2_sum``, whose kernel takes pairs of 64).
 
 Phases, each printing its own lines:
 
@@ -152,7 +160,14 @@ Phases, each printing its own lines:
    ``dfilt2`` 24; 1-D: 4 / 28 and 4 / 28; 3-D: ``ifilt_sum_hw22`` 8,
    ``ifilt2_sum`` 32, ``filter2_sum`` 28, and ``dfilt_hw22`` 8,
    ``dfilt2`` 32, ``filter2`` 28), against the unsharded transform's
-   gradients on the card and the plain path's autograd within 2e-5;
+   gradients on the card and the plain path's autograd within 2e-5; the
+   long-filter kernel in each form (one- and two-branch analysis,
+   two-input sum, for filter, dfilt and ifilt) and both modes against
+   its plain version at 4096^2 (f32, bf16) and at small float64 shapes,
+   the long-family round trips' launches and agreement with the plain
+   path on the card, and the 2-D gradient's launches (forward
+   ``longfir_ifilt`` 6, ``longfir_filter`` 3; inverse ``longfir_filter``
+   3, ``longfir_dfilt`` 6) within 2e-5;
 5. timing: CUDA events, median of 10 runs after 2 warm-up runs (for a round
    trip the time its caller waits; for a kernel, its plain version and a
    library call the device's time alone, the stream held while the host
@@ -193,7 +208,12 @@ Phases, each printing its own lines:
    sharded gradient round trip: the primal, the backward alone, its
    ratios to the primal and to the unsharded transform's backward, the
    byte bound of its launches, and a trace by kernel and by aten
-   operator (device time, idle share, host enqueue).
+   operator (device time, idle share, host enqueue).  The long-filter
+   kernel: each of its 18 launches in one long-family 2-D round trip
+   alone against its plain version and its bound (bytes or float32
+   multiply-adds), summed by operation; ``F.conv2d`` for its first
+   column pass; the long-family round trips against the plain path, a
+   trace of the 2-D one, and the 2-D gradient's backward.
 
 Tolerances, relative to the largest reference value: float32 1e-5 (sums in
 another order), bfloat16 1e-2 (one bfloat16 step of the stored outputs),
@@ -266,6 +286,12 @@ KERNELS = {   # name -> (CUDA source, the TPU kernel it replaces)
     "filter_sum_hw22": (_HWSUM_SRC, "dtcwt_tpu/ops/pallas_hw.py:223"),
     "ifilt_sum_hw22": (_HWSUM_SRC, "dtcwt_tpu/ops/pallas_hw.py:234"),
 }
+# the long-filter kernel replaces no TPU kernel
+_LONG_REPLACES = ("none: dtcwt_tpu runs these lengths in pallas_level1/"
+                  "level2 up to 129/128 taps and on its XLA path beyond")
+KERNELS.update({n: ("dtcwt_tpu_torch/csrc/longfir.cu", _LONG_REPLACES)
+                for n in ("longfir_filter", "longfir_dfilt",
+                          "longfir_ifilt")})
 LAUNCHES_2D = {"level1": 1, "level2": 2, "ilevel2": 2, "ilevel1": 1}
 LAUNCHES_1D = {"filter2": 1, "dfilt2": 7, "ifilt2_sum": 7, "filter2_sum": 1}
 
@@ -2845,6 +2871,396 @@ def time_sharded_grad(dev, smi) -> None:
         del y, xg, v, st, t, x
 
 
+# --- filters past the kernels' tap bounds: the long-filter kernel ---------
+
+LONG_NAMES = ("longfir_filter", "longfir_dfilt", "longfir_ifilt")
+LONG_VOL = 128
+# per round trip with the long families (35/37-tap biort, 36-tap qshift):
+# 2-D and 3-D 3 levels, every level on the long kernel; 1-D 8 levels, whose
+# inverse merges on ifilt2_sum (its kernel takes qshift pairs of 64)
+LAUNCHES_LONG_2D = {"longfir_filter": 6, "longfir_dfilt": 6,
+                    "longfir_ifilt": 6}
+LAUNCHES_LONG_1D = {"longfir_filter": 2, "longfir_dfilt": 7,
+                    "ifilt2_sum": 7}
+LAUNCHES_LONG_3D = {"longfir_filter": 14, "longfir_dfilt": 14,
+                    "longfir_ifilt": 14}
+# the explicit backward of the 2-D round trip with the long families
+LAUNCHES_LONG_GRAD = {"forward": {"longfir_ifilt": 6, "longfir_filter": 3},
+                      "inverse": {"longfir_filter": 3, "longfir_dfilt": 6}}
+
+
+def long_taps(m, seed):
+    """*m* seeded random taps, none zero (a zero-padded published filter
+    hides a tap offset), at a unit sum of magnitudes."""
+    rs = np.random.RandomState(seed)
+    h = rs.uniform(0.5, 1.5, m) * rs.choice((-1.0, 1.0), m)
+    return h / np.abs(h).sum()
+
+
+def long_families():
+    """(biort, qshift, qshift for the gradient): a random 35/37/37/35-tap
+    biort family, a random 36-tap qshift family, and qshift_32 zero-padded
+    to 36 taps (within the explicit adjoint's tolerance)."""
+    import dtcwt_tpu_torch as dt
+    b = tuple(long_taps(m, i) for i, m in enumerate((35, 37, 37, 35)))
+    q = tuple(long_taps(36, 10 + i) for i in range(8))
+    qa = tuple(np.pad(np.asarray(h).ravel(), 2)
+               for h in dt.qshift("qshift_32"))
+    return b, q, qa
+
+
+def long_entry_args(name, b, q):
+    """The filters of stream entry *name* as its ``*_axis`` entry takes them
+    (the main path's: biort for filter, the qshift pairs otherwise)."""
+    p0, p1 = (q[1], q[0]), (q[5], q[4])
+    s0, s1 = (q[3], q[2]), (q[7], q[6])
+    return {"filter": (b[0],), "filter2": (b[0], b[2]),
+            "filter2_sum": (b[1], b[3]), "dfilt": p0, "dfilt2": (p0, p1),
+            "ifilt": s0, "ifilt2_sum": (s0, s1)}[name]
+
+
+def long_flat(args):
+    return tuple(h for a in args for h in (a if isinstance(a, tuple)
+                                           else (a,)))
+
+
+def long_call(name, ins, args, axis, side=None):
+    """(the long-filter kernel's wrapper, the entry's plain version) of
+    stream entry *name* on *ins*: the analysis forms return each branch,
+    the sums one output."""
+    from dtcwt_tpu_torch.ops import dual, longfir, single
+    mod = single if name in ("filter", "dfilt", "ifilt") else dual
+    n = ins[0].shape[axis] - 2 * (side or 0)
+
+    def kern():
+        out = longfir.stream(name, list(ins), long_flat(args), n, axis, side)
+        return tuple(out) if len(out) > 1 else out[0]
+    if side is None:
+        p = getattr(mod, name + "_axis_reference")
+        return kern, lambda: p(*ins, *args, axis)
+    p = getattr(mod, name + "_fromext_axis_reference")
+    return kern, lambda: p(*ins, side, *args, axis)
+
+
+def long_macs(name, flat, outs) -> int:
+    """Multiply-adds of one long-kernel call: each output sample takes its
+    stream's taps (a filter's, a qshift filter's, half of one for ifilt),
+    summed over the branches of a sum."""
+    from dtcwt_tpu_torch.ops import longfir
+    P = longfir.STREAMS[name]
+    m = [np.asarray(h).size for h in (flat if P == 1 else flat[::2])]
+    per = [k // 2 if P == 4 else k for k in m]
+    outs = list(outs) if isinstance(outs, (tuple, list)) else [outs]
+    if len(outs) == len(per):
+        return sum(o.numel() * k for o, k in zip(outs, per))
+    return outs[0].numel() * sum(per)
+
+
+def long_op(name) -> str:
+    from dtcwt_tpu_torch.ops import longfir
+    return "longfir_" + longfir._OPS[longfir.STREAMS[name]][0]
+
+
+def check_long(dev, report) -> dict:
+    """Phase 3 and 4 for filters past the kernels' tap bounds: every form
+    and mode of the long-filter kernel against its plain version, then the
+    2-D 4096^2, 1-D [131072, 128] and 3-D 128^3 round trips and a 2-D
+    gradient with the long families: their launches (the long kernel only,
+    and no level kernel), agreement with the plain path on the card.
+    Returns the launch counts of the 2-D f32 interleaved round trip."""
+    import dtcwt_tpu_torch as dt
+    from dtcwt_tpu_torch.ops import _build, dual, fb, longfir, pack3d
+    b, q, qa = long_families()
+    # each form at the 2-D round trip's shapes (columns: inner 4096; rows:
+    # the axis contiguous), float32 and bfloat16, both modes in float32
+    for name in longfir.STREAMS:
+        args = long_entry_args(name, b, q)
+        n_in = 2 if name.endswith("_sum") else 1
+        for dtype in (torch.float32, torch.bfloat16):
+            worst = 0.0
+            xs = [rand((N, N), 60 + k, dev, dtype) for k in range(n_in)]
+            for axis in (-2, -1):
+                modes = [None] + ([max(map(np.size, long_flat(args))) + 8]
+                                  if dtype == torch.float32 else [])
+                for side in modes:
+                    ins = xs if side is None else [
+                        fb.symmetric_extend(x, side, axis).contiguous()
+                        for x in xs]
+                    kern, plain = long_call(name, ins, args, axis, side)
+                    _build.reset_launches()
+                    got = kern()
+                    torch.cuda.synchronize()
+                    ok = dict(_build.launches) == {long_op(name): 1}
+                    want = plain()
+                    worst = max(worst, rel_err(got, want))
+                    if dtype == torch.float32:
+                        r = report[long_op(name)]
+                        r["max_abs_err"] = max(r["max_abs_err"],
+                                               abs_err(got, want))
+                    check(ok, "kernel %s %s axis %d %s: one launch of %s"
+                          % (name, dtype, axis, "reflect" if side is None
+                             else "from-extension", long_op(name)))
+                    del got, want, ins
+            check(worst <= TOL[dtype], "kernel %s (long) %dx%d %s, both "
+                  "axes%s: worst rel err %.3g (tol %g)" % (
+                      name, N, N, dtype, ", both modes" if dtype ==
+                      torch.float32 else "", worst, TOL[dtype]))
+            del xs
+        # float64 at small shapes: every axis, one signal (inner = 1), an
+        # axis of 8 shorter than the filters, both modes
+        worst = 0.0
+        for seed, (shape, axes) in enumerate((((8, 20, 36), (-1, -2, -3)),
+                                              ((1028, 1), (0,)),
+                                              ((5, 8, 7), (1,)))):
+            xs = [rand(shape, seed + k, dev, torch.float64)
+                  for k in range(n_in)]
+            for axis in axes:
+                for side in (None, max(map(np.size, long_flat(args))) + 3):
+                    ins = xs if side is None else [
+                        fb.symmetric_extend(x, side, axis).contiguous()
+                        for x in xs]
+                    kern, plain = long_call(name, ins, args, axis, side)
+                    got = kern()
+                    torch.cuda.synchronize()
+                    worst = max(worst, rel_err(got, plain()))
+        check(worst <= TOL[torch.float64], "kernel %s (long) float64, every "
+              "axis, inner = 1, an axis shorter than the filter, both "
+              "modes: worst rel err %.3g (tol %g)" % (
+                  name, worst, TOL[torch.float64]))
+
+    # the 2-D round trip with the long families, three layouts
+    t2 = dt.Transform2d(biort=b, qshift=q)
+    x = rand((N, N), 61, dev, torch.float32)
+    launches = {}
+    for label, dtype, layout in LAYOUTS:
+        xd = x.to(dtype)
+        _build.reset_launches()
+        with patched(level_no_plain()):
+            pyr = t2.forward(xd, NLEVELS, layout=layout)
+            rec = t2.inverse(pyr)
+            torch.cuda.synchronize()
+        counts = dict(_build.launches)
+        if not launches:
+            launches = counts
+        check(counts == LAUNCHES_LONG_2D, "long 2-D %s: launches %s (want "
+              "%s: the long kernel only)" % (label, counts,
+                                             LAUNCHES_LONG_2D))
+        with patched(level_plain_path()):
+            pp = t2.forward(xd, NLEVELS, layout=layout)
+            rp = t2.inverse(pp)
+        hp = pyr.highpasses if layout == "interleaved" else \
+            pyr.highpasses_re + pyr.highpasses_im
+        hq = pp.highpasses if layout == "interleaved" else \
+            pp.highpasses_re + pp.highpasses_im
+        e = max([rel_err(pyr.lowpass, pp.lowpass), rel_err(rec, rp)]
+                + [rel_err(a, c) for a, c in zip(hp, hq)])
+        finite = bool(torch.isfinite(rec.float()).all())
+        check(e <= TOL[dtype] * 10 and finite and rec.shape == xd.shape,
+              "long 2-D %s: %dx%d %d-level round trip, every leaf and the "
+              "inverse against the plain path on the card: rel err %.3g "
+              "(tol %g), finite %s" % (label, N, N, NLEVELS, e,
+                                       TOL[dtype] * 10, finite))
+        del pyr, rec, pp, rp, hp, hq
+    del x, xd
+
+    # the 1-D round trip
+    t1 = dt.Transform1d(biort=b, qshift=q)
+    x1 = rand((N1, C1), 62, dev, torch.float32)
+    names = ("filter2", "dfilt2", "ifilt2_sum", "filter2_sum")
+    _build.reset_launches()
+    with patched([(dual, n + "_axis_reference", refuse) for n in names]):
+        p1 = t1.forward(x1, NLEVELS1)
+        r1 = t1.inverse(p1)
+        torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    check(counts == LAUNCHES_LONG_1D, "long 1-D [%d, %d] %d levels: "
+          "launches %s (want %s)" % (N1, C1, NLEVELS1, counts,
+                                     LAUNCHES_LONG_1D))
+    with patched([(dual, n + "_axis", getattr(dual, n + "_axis_reference"))
+                  for n in names]):
+        q1 = t1.forward(x1, NLEVELS1)
+        s1 = t1.inverse(q1)
+    e = max([rel_err(p1.lowpass, q1.lowpass), rel_err(r1, s1)]
+            + [rel_err(a, c) for a, c in zip(p1.highpasses, q1.highpasses)])
+    check(e <= TOL[torch.float32] * 10, "long 1-D: every leaf and the "
+          "inverse against the plain path on the card: rel err %.3g (tol "
+          "%g)" % (e, TOL[torch.float32] * 10))
+    del x1, p1, r1, q1, s1
+
+    # the 3-D round trip
+    t3 = dt.Transform3d(biort=b, qshift=q)
+    x3 = rand((LONG_VOL,) * 3, 63, dev, torch.float32)
+    for label, dtype, layout in LAYOUTS:
+        xd = x3.to(dtype)
+        _build.reset_launches()
+        with patched([(pack3d, n + "_reference", refuse)
+                      for n in PACK_NAMES]):
+            p3 = t3.forward(xd, NLEVELS, layout=layout)
+            r3 = t3.inverse(p3)
+            torch.cuda.synchronize()
+        counts = dict(_build.launches)
+        check(counts == LAUNCHES_LONG_3D, "long 3-D %d^3 %s: launches %s "
+              "(want %s)" % (LONG_VOL, label, counts, LAUNCHES_LONG_3D))
+        with patched([(pack3d, n, getattr(pack3d, n + "_reference"))
+                      for n in PACK_NAMES]):
+            q3 = t3.forward(xd, NLEVELS, layout=layout)
+            s3 = t3.inverse(q3)
+        hp = p3.highpasses if layout == "interleaved" else \
+            p3.highpasses_re + p3.highpasses_im
+        hq = q3.highpasses if layout == "interleaved" else \
+            q3.highpasses_re + q3.highpasses_im
+        e = max([rel_err(p3.lowpass, q3.lowpass), rel_err(r3, s3)]
+                + [rel_err(a, c) for a, c in zip(hp, hq)])
+        check(e <= TOL[dtype] * 10, "long 3-D %d^3 %s: every leaf and the "
+              "inverse against the plain path on the card: rel err %.3g "
+              "(tol %g)" % (LONG_VOL, label, e, TOL[dtype] * 10))
+        del p3, r3, q3, s3, hp, hq
+    del x3, xd
+
+    # a 2-D gradient through the explicit route
+    from dtcwt_tpu_torch.ops import adjoint, ilevel1, ilevel2, level1, level2
+    l2d = ((level1, "fwd_level1"), (level2, "fwd_level2"),
+           (ilevel2, "inv_level2"), (ilevel1, "inv_level1"))
+    tg = dt.Transform2d(biort=b, qshift=qa)
+    check(adjoint.explicit_route(b, qa, torch.float32), "long grad: the "
+          "random biort family and qshift_32 padded to 36 taps take the "
+          "explicit route")
+    xg = rand((N, N), 64, dev, torch.float32)
+    with patched(grad_no_plain(l2d)):
+        gx, gp, cf, ci = grads(tg, xg, "interleaved", NLEVELS, 65)
+    for way, counts in (("forward", cf), ("inverse", ci)):
+        check(counts == LAUNCHES_LONG_GRAD[way], "long grad 2-D %dx%d: the "
+              "%s's backward launches %s (want %s)" % (
+                  N, N, way, counts, LAUNCHES_LONG_GRAD[way]))
+    with patched(grad_plain_path(l2d)):
+        rx, rp, _, _ = grads(tg, xg, "interleaved", NLEVELS, 65)
+    e = max([rel_err(gx, rx)] + [rel_err(a, c) for a, c in zip(gp, rp)])
+    check(e <= GRAD_TOL, "long grad 2-D %dx%d f32: forward and inverse "
+          "gradients against the plain path's autograd on the card: rel err "
+          "%.3g (tol %g)" % (N, N, e, GRAD_TOL))
+    del gx, gp, rx, rp, xg
+    return launches
+
+
+def time_long(dev, report, smi) -> None:
+    """Phase 5 for the long-filter kernel: each of its launches in one f32
+    interleaved 2-D round trip with the long families, timed alone (stream
+    held) against its plain version and its bound, summed by operation
+    into the kernels line; F.conv2d for the first filter pass; the round
+    trips (2-D in three layouts, 1-D, 3-D) against the plain path, a trace
+    of the 2-D one, and the 2-D gradient's backward."""
+    import dtcwt_tpu_torch as dt
+    from dtcwt_tpu_torch.ops import dual, longfir, pack3d
+    b, q, qa = long_families()
+    t2 = dt.Transform2d(biort=b, qshift=q)
+    x = rand((N, N), 61, dev, torch.float32)
+    calls = []
+    stream = longfir.stream
+
+    def record(name, ins, filters, n, axis, side=None):
+        calls.append((name, list(ins), tuple(filters), n, axis, side))
+        return stream(name, ins, filters, n, axis, side)
+    with patched([(longfir, "stream", record)]):
+        t2.inverse(t2.forward(x, NLEVELS))
+    tot = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+               "bound_by": "bytes"} for k in LONG_NAMES}
+    for name, ins, flat, n, axis, side in calls:
+        P = longfir.STREAMS[name]
+        args = flat if P == 1 else tuple(zip(flat[::2], flat[1::2]))
+        if name in ("dfilt", "ifilt"):
+            args = flat
+        kern, plain = long_call(name, ins, args, axis, side)
+        outs = kern()
+        ms = cuda_ms(kern, hold=True)
+        pms = cuda_ms(plain, hold=True, reps=3, warmup=1)
+        bms, by = bound(nbytes(ins) + nbytes(outs),
+                        long_macs(name, flat, outs))
+        t = tot[long_op(name)]
+        for k, v in (("ms", ms), ("plain_ms", pms), ("bound_ms", bms)):
+            t[k] += v
+        if by != "bytes":
+            t["bound_by"] = by
+        print("time %s (%s) %s axis %d, %s taps: kernel %.4f ms, plain "
+              "%.4f ms, bound %.4f ms (%s), %.1f%% of the bound" % (
+                  long_op(name), name, "x".join(map(str, ins[0].shape)),
+                  axis, "/".join(str(np.size(h)) for h in flat), ms, pms,
+                  bms, by, 100 * bms / ms), flush=True)
+        del outs
+    for k in LONG_NAMES:
+        report[k].update(tot[k])
+        print("time %s, its launches of one long-family 2-D round trip "
+              "(%s): kernel %.4f ms, plain %.4f ms, bound %.4f ms (%s)" % (
+                  k, smi, tot[k]["ms"], tot[k]["plain_ms"],
+                  tot[k]["bound_ms"], tot[k]["bound_by"]), flush=True)
+    # one PyTorch call computing the first filter pass (filter2 down the
+    # columns): a convolution over the pre-extended input
+    name, ins, flat, n, axis, side = calls[0]
+    p = max(np.size(h) for h in flat) // 2
+    w = torch.zeros((2, 2 * p + 1), dtype=torch.float64)
+    for c, h in enumerate(flat):
+        h = np.asarray(h, np.float64)
+        off = p - h.size // 2
+        w[c, off:off + h.size] = torch.from_numpy(h[::-1].copy())
+    from dtcwt_tpu_torch.ops import fb
+    ext = fb.symmetric_extend(ins[0], p, axis)[None, None]
+    weight = w[:, None, :, None].to(dev, torch.float32)
+    lib = lambda: F.conv2d(ext, weight)
+    got = lib()[0]
+    want = long_call(name, ins, flat, axis)[0]()
+    lms = cuda_ms(lib, hold=True)
+    report["longfir_filter"]["library_ms"] = lms
+    print("time longfir_filter library call F.conv2d [1, 1, %d, %d] to 2 "
+          "channels (TF32 off), the first column pass: %.4f ms; rel err "
+          "against the kernel %.3g" % (ext.shape[2], ext.shape[3], lms,
+                                       rel_err((got[0], got[1]), want)),
+          flush=True)
+    del calls, ext, got, want
+    for label, dtype, layout in LAYOUTS:
+        xd = x.to(dtype)
+        run = lambda: t2.inverse(t2.forward(xd, NLEVELS, layout=layout))
+        ms = cuda_ms(run)
+        with patched(level_plain_path()):
+            pms = cuda_ms(run, reps=3, warmup=1)
+        print("time round trip long 2-D %dx%d %d levels %s (%s): kernels "
+              "%.3f ms, plain %.3f ms" % (N, N, NLEVELS, label, smi, ms, pms),
+              flush=True)
+        if layout == "interleaved":
+            print_trace("round trip long 2-D %s" % label, run)
+    t1 = dt.Transform1d(biort=b, qshift=q)
+    x1 = rand((N1, C1), 62, dev, torch.float32)
+    run = lambda: t1.inverse(t1.forward(x1, NLEVELS1))
+    names = ("filter2", "dfilt2", "ifilt2_sum", "filter2_sum")
+    ms = cuda_ms(run)
+    with patched([(dual, n + "_axis", getattr(dual, n + "_axis_reference"))
+                  for n in names]):
+        pms = cuda_ms(run, reps=3, warmup=1)
+    print("time round trip long 1-D [%d, %d] %d levels f32 interleaved: "
+          "kernels %.3f ms, plain %.3f ms" % (N1, C1, NLEVELS1, ms, pms),
+          flush=True)
+    t3 = dt.Transform3d(biort=b, qshift=q)
+    x3 = rand((LONG_VOL,) * 3, 63, dev, torch.float32)
+    run = lambda: t3.inverse(t3.forward(x3, NLEVELS))
+    ms = cuda_ms(run)
+    with patched([(pack3d, n, getattr(pack3d, n + "_reference"))
+                  for n in PACK_NAMES]):
+        pms = cuda_ms(run, reps=3, warmup=1)
+    print("time round trip long 3-D %d^3 %d levels f32 interleaved: "
+          "kernels %.3f ms, plain %.3f ms" % (LONG_VOL, NLEVELS, ms, pms),
+          flush=True)
+    del x1, x3
+    tg = dt.Transform2d(biort=b, qshift=qa)
+    with torch.no_grad():
+        pms = cuda_ms(lambda: tg.inverse(tg.forward(x, NLEVELS)))
+    xg = x.detach().requires_grad_()
+    y = tg.inverse(tg.forward(xg, NLEVELS))
+    v = cot_like(y, 66)
+    ms = cuda_ms(lambda: torch.autograd.grad(y, xg, v, retain_graph=True))
+    print("time grad long 2-D %dx%d %d levels f32 round trip: primal %.3f "
+          "ms; explicit backward %.3f ms (%.2fx the primal)" % (
+              N, N, NLEVELS, pms, ms, ms / pms), flush=True)
+    del x, xg, y, v
+
+
 def main() -> int:
     # --- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3140,6 +3556,7 @@ def main() -> int:
     check_algorithms(dev)
     launches_par = check_parallel(dev)
     check_sharded_grad(dev)
+    launches_long = check_long(dev, report)
 
     # --- 5. timing -----------------------------------------------------------
     print("timing on %s: CUDA events, median of 10 runs after 2 warm-up runs"
@@ -3264,6 +3681,7 @@ def main() -> int:
     time_algorithms(dev, smi)
     time_parallel(dev, smi)
     time_sharded_grad(dev, smi)
+    time_long(dev, report, smi)
     for what, counts in launches_par.items():
         print("launches parallel %s (f32 interleaved round trip): %s"
               % (what, counts), flush=True)
@@ -3274,7 +3692,8 @@ def main() -> int:
     counts = dict(launches_3d, **launches, **launches_1d,
                   filter=launches_discard["filter"],
                   dfilt=launches_low["dfilt"], ifilt=launches_low["ifilt"],
-                  **{n: launches_sharded[n] for n in HW_NAMES})
+                  **{n: launches_sharded[n] for n in HW_NAMES},
+                  **launches_long)
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": counts.get(name, 0),
                 **report[name]}

@@ -28,10 +28,14 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from dtcwt_tpu_torch.ops import fb
+
 __all__ = ["library", "build", "launches", "reset_launches", "count",
            "flatten_batch", "dtype_code", "stream_ptr", "check", "taps_arg",
            "ints_arg", "ptr", "check_smem_bytes",
-           "odd_filters", "pair_filters", "fir_args", "check_no_grad"]
+           "odd_filters", "pair_filters", "fir_args", "check_no_grad",
+           "INT_MAX", "on_cpu", "ext_len", "axis_view", "check_reach",
+           "check_sizes", "TAP_BOUNDS", "within_bound"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -43,6 +47,27 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 MAX_TAPS = 32
 #: Dynamic shared memory one block may use on an H100 (232,448 bytes).
 SMEM_LIMIT = 232448
+#: The largest size or index the kernels' 32-bit ints hold.
+INT_MAX = 2 ** 31 - 1
+
+#: The longest filter, in taps, that each kernel wrapper's own kernel takes
+#: (the bounds the wrappers hold: ``odd_filters`` / ``pair_filters`` of the
+#: 2-D levels, MAX_TAPS of ``filter``, a stream of at most MAX_TAPS taps in
+#: ``dual._table`` with ``dual._TAP_BOUNDS``, ``hw._SUM_BOUNDS`` /
+#: ``_HW_BOUNDS``, ``pack3d._INV_BOUNDS``).  A dfilt stream holds a whole
+#: qshift filter, an ifilt stream half of one (64); the 3-D level-2
+#: synthesis centres 17 taps a stream on its halo of 8 (34).  Past its
+#: bound a wrapper runs the kernels of ``csrc/longfir.cu``
+#: (:mod:`longfir`).
+TAP_BOUNDS = {
+    "filter": 32, "filter2": 32, "filter2_sum": 32,
+    "dfilt": 32, "dfilt2": 32, "ifilt": 64, "ifilt2_sum": 64,
+    "fwd_level1": 31, "inv_level1": 31, "fwd_level2": 32, "inv_level2": 32,
+    "filter_hw22": 31, "filter_sum_hw22": 31, "dfilt_hw22": 32,
+    "ifilt_sum_hw22": 64,
+    "fwd_level1_pack": 31, "inv_level1_pack": 31, "fwd_level2_pack": 32,
+    "inv_level2_pack": 34,
+}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # argument types of each exported function (see csrc/*.cu); a null third
@@ -101,6 +126,12 @@ for _name, _n_ptr in (("filter_hw22", 8), ("dfilt_hw22", 8),
                       ("filter_sum_hw22", 5), ("ifilt_sum_hw22", 5)):
     _SIGNATURES["dtcwt_" + _name] = (_P,) * _n_ptr + (_I,) * 5 + (
         _P,) * 3 + (_I,) * 7 + (_P,)
+
+# the long-filter kernel of csrc/longfir.cu: x0, x1, y0, y1, outer, n_in,
+# inner, sum, side, refl, taps (device), meta (host), dtype, vc, tx, stream
+_L = ctypes.c_longlong
+_SIGNATURES["dtcwt_longfir"] = (_P,) * 4 + (_L, _I, _L) + (_I,) * 3 + (
+    _P, _P) + (_I,) * 3 + (_P,)
 
 #: Kernel launches per wrapper, counted where each wrapper launches.
 launches = collections.Counter()
@@ -220,6 +251,79 @@ def check_no_grad(name: str, *inputs) -> None:
                 "path, which has them" % name)
 
 
+def within_bound(name: str, lengths) -> bool:
+    """The route rule of every kernel wrapper: whether filters of *lengths*
+    taps (None for an absent filter) lie within the tap bound of wrapper
+    *name*'s own kernel (:data:`TAP_BOUNDS`).  A wrapper evaluates it
+    before any launch and, where it is false, launches the long-filter
+    kernels instead; no route catches a kernel's error."""
+    return max(n for n in lengths if n is not None) <= TAP_BOUNDS[name]
+
+
+def on_cpu(x: torch.Tensor, name: str) -> bool:
+    """True for a CPU tensor (plain route), False for a CUDA tensor (kernel
+    route); any other device raises."""
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError("%s runs on CPU or CUDA tensors, not %s"
+                         % (name, x.device))
+    return False
+
+
+def ext_len(ext: torch.Tensor, side: int, axis: int) -> int:
+    """The signal's length in a buffer extended by *side* a side."""
+    n = ext.shape[axis] - 2 * side
+    if side < 0 or n < 1:
+        raise ValueError("an extension of %d per side leaves no signal in "
+                         "an axis of %d" % (side, ext.shape[axis]))
+    return n
+
+
+def axis_view(name: str, ins, axis: int):
+    """(axis, outer, n_in, inner, dtype code): the kernels' [outer, n_in,
+    inner] view of the inputs *ins* along *axis*, which must be contiguous
+    and share one dtype and device."""
+    x = ins[0]
+    ax = fb._norm_axis(axis, x.ndim)
+    code = dtype_code(x.dtype)
+    for t in ins:
+        if t.dtype != x.dtype or t.device != x.device:
+            raise ValueError("%s: inputs must share one dtype and device"
+                             % name)
+        if not t.is_contiguous():
+            raise ValueError("%s needs contiguous inputs" % name)
+    shape = tuple(x.shape)
+    return (ax, int(np.prod(shape[:ax], dtype=np.int64)), shape[ax],
+            int(np.prod(shape[ax + 1:], dtype=np.int64)), code)
+
+
+def check_reach(name: str, plans, groups, D: int, S: int, n_in: int,
+                side) -> None:
+    """From-extension mode (*side* not None): raise ValueError unless every
+    read of branch b's streams ``plans[b] = (taps [P, m_b], offsets)``
+    over its ``groups[b]`` groups stays inside the buffer of *n_in*."""
+    if side is None:
+        return
+    for (taps, offs), g in zip(plans, groups):
+        for off in offs:
+            first = off + side
+            last = first + D * (g - 1) + S * (taps.shape[1] - 1)
+            if g > 0 and (first < 0 or last >= n_in):
+                raise ValueError(
+                    "%s: an extension of %d per side does not cover the "
+                    "filters' reach" % (name, side))
+
+
+def check_sizes(name: str, outer: int, n_in: int, inner: int,
+                rows: int) -> None:
+    """Raise ValueError where an axis view exceeds the kernels' 32-bit
+    sizes."""
+    if max(outer, n_in, inner, rows) > INT_MAX:
+        raise ValueError("%s: the axis view [%d, %d, %d] exceeds the "
+                         "kernel's 32-bit sizes" % (name, outer, n_in, inner))
+
+
 def check(name: str, err: int) -> None:
     """Raise if a launch returned a CUDA error code."""
     if err != 0:
@@ -276,26 +380,28 @@ def check_smem_bytes(name: str, nbytes: int) -> None:
 
 def odd_filters(name: str, *filters):
     """Flat float64 taps of a level-1 kernel's filters (a None stays None),
-    held to the kernel's rule: odd lengths of at most MAX_TAPS."""
+    held to the level's rule: odd lengths (their tap bound is the route's,
+    :func:`within_bound`)."""
     h = [None if f is None else np.asarray(f, np.float64).reshape(-1)
          for f in filters]
     lens = [f.size for f in h if f is not None]
-    if any(n % 2 == 0 or n > MAX_TAPS for n in lens):
-        raise ValueError("%s takes odd-length filters of at most %d taps, "
-                         "got lengths %s" % (name, MAX_TAPS, lens))
+    if any(n % 2 == 0 for n in lens):
+        raise ValueError("%s takes odd-length filters, got lengths %s"
+                         % (name, lens))
     return h
 
 
 def pair_filters(name: str, *filters):
     """Flat float64 taps of a qshift level kernel's filters (a None stays
-    None), held to the kernel's rule: one even length of at most MAX_TAPS
-    for all of them, the third pair's included."""
+    None), held to the level's rule: one even length for all of them, the
+    third pair's included (their tap bound is the route's,
+    :func:`within_bound`)."""
     h = [None if f is None else np.asarray(f, np.float64).reshape(-1)
          for f in filters]
     lens = [f.size for f in h if f is not None]
-    if len(set(lens)) != 1 or lens[0] % 2 or lens[0] > MAX_TAPS:
-        raise ValueError("%s takes filters of one even length of at most %d "
-                         "taps, got lengths %s" % (name, MAX_TAPS, lens))
+    if len(set(lens)) != 1 or lens[0] % 2:
+        raise ValueError("%s takes filters of one even length, got lengths "
+                         "%s" % (name, lens))
     return h
 
 

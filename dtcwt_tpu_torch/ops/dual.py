@@ -41,7 +41,9 @@ bound (:func:`_plan`, cached per filter set) and their tiling comes from
 filters of up to 32 taps of either parity (``filter2``, whose two
 branches may differ in parity and so in output length, and
 ``filter2_sum``), qshift pairs of up to 32 taps (``dfilt2``, two streams
-of 32) and of up to 64 (``ifilt2_sum``, four streams of up to 32).
+of 32) and of up to 64 (``ifilt2_sum``, four streams of up to 32); past
+those bounds :func:`_launch_stream` runs the long-filter kernel
+(:mod:`longfir`) in one launch instead.
 :mod:`single`'s ``dfilt`` and ``ifilt`` (``csrc/single.cu``) are the
 one-branch instances of the same two kernels, launched here too, and take
 the same pairs; :mod:`single`'s ``filter`` has a kernel of its own
@@ -56,7 +58,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from dtcwt_tpu_torch.ops import _build, fb
+from dtcwt_tpu_torch.ops import _build, fb, longfir
 from dtcwt_tpu_torch.ops.ilevel2 import ifilt_streams
 from dtcwt_tpu_torch.ops.level2 import dfilt_streams
 from dtcwt_tpu_torch.utils import compute_view
@@ -73,7 +75,6 @@ __all__ = [
 ]
 
 _MAX_TAPS = 32      # csrc/common.cuh MAX_TAPS, per output stream
-_INT_MAX = 2 ** 31 - 1
 # stream entry -> (streams P, input step per group D, tap step S) of its
 # branches' plans, each writing Y[P g + s] = sum_k t[s][k] x[D g + c[s] +
 # S k]: the dual entries' two branches, single's dfilt and ifilt one
@@ -115,22 +116,7 @@ ifilt2_sum_fromext_axis_reference = _plain(fb.ifilt2_sum_from_wide_ext)
 # host plans and the launch
 # ---------------------------------------------------------------------------
 
-def _on_cpu(x: torch.Tensor, name: str) -> bool:
-    """True for a CPU tensor (plain route), False for a CUDA tensor (kernel
-    route); any other device raises."""
-    if x.device.type == "cpu":
-        return True
-    if x.device.type != "cuda":
-        raise ValueError("%s runs on CPU or CUDA tensors, not %s"
-                         % (name, x.device))
-    return False
-
-
-def _filter_plan(h):
-    """The non-decimating filter as one stream: Y[i] = sum_k rev(h)[k]
-    x[i - m//2 + k]; the output has r + 1 - m % 2 samples."""
-    h = fb._as_taps(h)
-    return h[::-1][None, :], (-(h.size // 2),)
+_filter_plan = fb.filter_streams
 
 
 def _pairs(*pairs):
@@ -144,14 +130,6 @@ def _same_inputs(a: torch.Tensor, b: torch.Tensor, name: str) -> None:
     if a.shape != b.shape:
         raise ValueError("%s: branch inputs must have the same shape, got %s"
                          " and %s" % (name, tuple(a.shape), tuple(b.shape)))
-
-
-def _ext_len(ext: torch.Tensor, side: int, axis: int) -> int:
-    n = ext.shape[axis] - 2 * side
-    if side < 0 or n < 1:
-        raise ValueError("an extension of %d per side leaves no signal in "
-                         "an axis of %d" % (side, ext.shape[axis]))
-    return n
 
 
 def _table(plans):
@@ -168,48 +146,6 @@ def _table(plans):
         lens += [t.shape[1]] * P
         offs += list(o)
     return taps, _build.ints_arg(lens), _build.ints_arg(offs)
-
-
-def _axis_view(name: str, ins, axis: int):
-    """(axis, outer, n_in, inner, dtype code): the kernels' [outer, n_in,
-    inner] view of the inputs *ins* along *axis*, which must be contiguous
-    and share one dtype and device."""
-    x = ins[0]
-    ax = fb._norm_axis(axis, x.ndim)
-    code = _build.dtype_code(x.dtype)
-    for t in ins:
-        if t.dtype != x.dtype or t.device != x.device:
-            raise ValueError("%s: inputs must share one dtype and device"
-                             % name)
-        if not t.is_contiguous():
-            raise ValueError("%s needs contiguous inputs" % name)
-    shape = tuple(x.shape)
-    return (ax, int(np.prod(shape[:ax], dtype=np.int64)), shape[ax],
-            int(np.prod(shape[ax + 1:], dtype=np.int64)), code)
-
-
-def _check_reach(name: str, plans, groups, D: int, S: int, n_in: int,
-                 side) -> None:
-    """From-extension mode (*side* not None): raise ValueError unless every
-    read of branch b's streams ``plans[b] = (taps [P, m_b], offsets)``
-    over its ``groups[b]`` groups stays inside the buffer of *n_in*."""
-    if side is None:
-        return
-    for (taps, offs), g in zip(plans, groups):
-        for off in offs:
-            first = off + side
-            last = first + D * (g - 1) + S * (taps.shape[1] - 1)
-            if g > 0 and (first < 0 or last >= n_in):
-                raise ValueError(
-                    "%s: an extension of %d per side does not cover the "
-                    "filters' reach" % (name, side))
-
-
-def _check_sizes(name: str, outer: int, n_in: int, inner: int,
-                 rows: int) -> None:
-    if max(outer, n_in, inner, rows) > _INT_MAX:
-        raise ValueError("%s: the axis view [%d, %d, %d] exceeds the "
-                         "kernel's 32-bit sizes" % (name, outer, n_in, inner))
 
 
 # ---------------------------------------------------------------------------
@@ -421,17 +357,21 @@ def _launch_stream(name: str, ins, filters, n: int, axis: int, side=None):
     the two pairs' four, or one pair's two (dfilt, ifilt).  *side*: the
     inputs are extended by that many samples per side (from-extension
     mode) instead of reflected.  Returns the list of outputs: each
-    branch's (analysis, dfilt, ifilt), or the sum."""
+    branch's (analysis, dfilt, ifilt), or the sum.  Filters past the
+    kernels' tap bound run on the long-filter kernel instead."""
+    filters = [fb._as_taps(f) for f in filters]
+    if not _build.within_bound(name, [f.size for f in filters]):
+        return longfir.stream(name, ins, filters, n, axis, side)
     _build.check_no_grad(name, ins)
     P, D, S = _STREAM_GEOM[name]
     plan = _plan(name, filters)
     nb = len(plan.plans)
     x = ins[0]
-    ax, outer, n_in, inner, code = _axis_view(name, ins, axis)
+    ax, outer, n_in, inner, code = _build.axis_view(name, ins, axis)
     # filter: n + 1 - m % 2 outputs a branch; dfilt, ifilt: n // D groups
     groups = [n + 1 - odd for odd in plan.odd] if P == 1 else [n // D] * nb
-    _check_reach(name, plan.plans, groups, D, S, n_in, side)
-    _check_sizes(name, outer, n_in, inner, P * max(groups))
+    _build.check_reach(name, plan.plans, groups, D, S, n_in, side)
+    _build.check_sizes(name, outer, n_in, inner, P * max(groups))
     # an analysis entry writes each branch, a sum one output
     g_out = groups if len(ins) == 1 else groups[:1]
     outs = []
@@ -467,16 +407,16 @@ def _filter2(x, h0, h1, axis, n, side=None):
 def filter2_axis(x: torch.Tensor, h0, h1, axis: int):
     """Both non-decimating branch filters with the input read once:
     ``(filter(x, h0), filter(x, h1))``."""
-    if _on_cpu(x, "filter2_axis"):
+    if _build.on_cpu(x, "filter2_axis"):
         return filter2_axis_reference(x, h0, h1, axis)
     return _filter2(x, h0, h1, axis, x.shape[axis])
 
 
 def filter2_fromext_axis(ext: torch.Tensor, side: int, h0, h1, axis: int):
     """:func:`filter2_axis` on a buffer extended by *side* per side."""
-    if _on_cpu(ext, "filter2_fromext_axis"):
+    if _build.on_cpu(ext, "filter2_fromext_axis"):
         return filter2_fromext_axis_reference(ext, side, h0, h1, axis)
-    return _filter2(ext, h0, h1, axis, _ext_len(ext, side, axis), side)
+    return _filter2(ext, h0, h1, axis, _build.ext_len(ext, side, axis), side)
 
 
 def _dfilt2(x, pair0, pair1, axis, n, side=None):
@@ -490,7 +430,7 @@ def dfilt2_axis(x: torch.Tensor, pair0, pair1, axis: int):
     multiple of 4."""
     if x.shape[axis] % 4:
         raise ValueError("Length of axis %d must be a multiple of 4" % axis)
-    if _on_cpu(x, "dfilt2_axis"):
+    if _build.on_cpu(x, "dfilt2_axis"):
         return dfilt2_axis_reference(x, pair0, pair1, axis)
     return _dfilt2(x, pair0, pair1, axis, x.shape[axis])
 
@@ -498,9 +438,10 @@ def dfilt2_axis(x: torch.Tensor, pair0, pair1, axis: int):
 def dfilt2_fromext_axis(ext: torch.Tensor, side: int, pair0, pair1,
                         axis: int):
     """:func:`dfilt2_axis` on a buffer extended by *side* per side."""
-    if _on_cpu(ext, "dfilt2_fromext_axis"):
+    if _build.on_cpu(ext, "dfilt2_fromext_axis"):
         return dfilt2_fromext_axis_reference(ext, side, pair0, pair1, axis)
-    return _dfilt2(ext, pair0, pair1, axis, _ext_len(ext, side, axis), side)
+    return _dfilt2(ext, pair0, pair1, axis, _build.ext_len(ext, side, axis),
+                   side)
 
 
 def _filter2_sum(a, b, h0, h1, axis, n, side=None):
@@ -518,7 +459,7 @@ def filter2_sum_axis(a: torch.Tensor, b: torch.Tensor, h0, h1, axis: int):
     with the sum kept on chip.  Both filters odd or both even."""
     _check_parity(h0, h1)
     _same_inputs(a, b, "filter2_sum_axis")
-    if _on_cpu(a, "filter2_sum_axis"):
+    if _build.on_cpu(a, "filter2_sum_axis"):
         return filter2_sum_axis_reference(a, b, h0, h1, axis)
     return _filter2_sum(a, b, h0, h1, axis, a.shape[axis])
 
@@ -528,9 +469,10 @@ def filter2_sum_fromext_axis(a: torch.Tensor, b: torch.Tensor, side: int,
     """:func:`filter2_sum_axis` on buffers extended by *side* per side."""
     _check_parity(h0, h1)
     _same_inputs(a, b, "filter2_sum_fromext_axis")
-    if _on_cpu(a, "filter2_sum_fromext_axis"):
+    if _build.on_cpu(a, "filter2_sum_fromext_axis"):
         return filter2_sum_fromext_axis_reference(a, b, side, h0, h1, axis)
-    return _filter2_sum(a, b, h0, h1, axis, _ext_len(a, side, axis), side)
+    return _filter2_sum(a, b, h0, h1, axis, _build.ext_len(a, side, axis),
+                        side)
 
 
 def _ifilt2_sum(a, b, pair0, pair1, axis, n, side=None):
@@ -545,7 +487,7 @@ def ifilt2_sum_axis(a: torch.Tensor, b: torch.Tensor, pair0, pair1,
     if a.shape[axis] % 2:
         raise ValueError("Length of axis %d must be a multiple of 2" % axis)
     _same_inputs(a, b, "ifilt2_sum_axis")
-    if _on_cpu(a, "ifilt2_sum_axis"):
+    if _build.on_cpu(a, "ifilt2_sum_axis"):
         return ifilt2_sum_axis_reference(a, b, pair0, pair1, axis)
     return _ifilt2_sum(a, b, pair0, pair1, axis, a.shape[axis])
 
@@ -554,8 +496,8 @@ def ifilt2_sum_fromext_axis(a: torch.Tensor, b: torch.Tensor, side: int,
                             pair0, pair1, axis: int):
     """:func:`ifilt2_sum_axis` on buffers extended by *side* per side."""
     _same_inputs(a, b, "ifilt2_sum_fromext_axis")
-    if _on_cpu(a, "ifilt2_sum_fromext_axis"):
+    if _build.on_cpu(a, "ifilt2_sum_fromext_axis"):
         return ifilt2_sum_fromext_axis_reference(a, b, side, pair0, pair1,
                                                  axis)
-    return _ifilt2_sum(a, b, pair0, pair1, axis, _ext_len(a, side, axis),
+    return _ifilt2_sum(a, b, pair0, pair1, axis, _build.ext_len(a, side, axis),
                        side)

@@ -37,6 +37,7 @@ __all__ = [
     "trim_ext", "filter_from_wide_ext", "dfilt_from_wide_ext",
     "ifilt_from_wide_ext", "filter2_from_wide_ext", "dfilt2_from_wide_ext",
     "filter2_sum_from_wide_ext", "ifilt2_sum_from_wide_ext",
+    "filter_streams", "dfilt_streams", "ifilt_streams",
     "colfilter", "rowfilter", "coldfilt", "rowdfilt", "colifilt", "rowifilt",
 ]
 
@@ -302,6 +303,65 @@ def ifilt2_sum_from_wide_ext(a, b, side: int, pair0, pair1, axis: int):
                            axis)
             + ifilt_from_ext(trim_ext(b, side, ha1.size // 2, axis), ha1,
                              hb1, axis))
+
+
+# ---------------------------------------------------------------------------
+# the primitives as output streams, the plans the CUDA kernels take:
+# ``Y[P i + s] = sum_k taps[s][k] x[D i + offs[s] + S k]`` with x indexed by
+# symmetric reflection; filter P = D = S = 1, dfilt P = 2, D = 4, S = 2,
+# ifilt P = 4, D = 2, S = 2
+# ---------------------------------------------------------------------------
+
+def filter_streams(h):
+    """The non-decimating filter as one stream: ``Y[i] = sum_k rev(h)[k]
+    x[i - m//2 + k]``; the output has r + 1 - m % 2 samples."""
+    h = _as_taps(h)
+    return h[::-1][None, :], (-(h.size // 2),)
+
+
+def dfilt_streams(ha, hb):
+    """The decimator ``dfilt(x, ha, hb)`` as two output streams
+    ``Y[2i + s] = sum_k taps[s][k] x[4i + offs[s] + 2k]``, from the closed
+    form of :func:`dfilt_from_ext`: branch a reads ``ext[4i + 2 + 2k]``,
+    branch b ``ext[4i + 3 + 2k]`` with reversed taps, and the sign of
+    ``sum(ha*hb)`` says which comes first."""
+    ha = np.asarray(ha, np.float64).reshape(-1)
+    hb = np.asarray(hb, np.float64).reshape(-1)
+    m = ha.size
+    a, b = (ha[::-1], 2 - m), (hb[::-1], 3 - m)
+    first, second = (a, b) if float(np.sum(ha * hb)) > 0 else (b, a)
+    return (np.stack([first[0], second[0]]), (first[1], second[1]))
+
+
+def ifilt_streams(ha, hb):
+    """The interpolator ``ifilt(x, ha, hb)`` as four output streams
+    ``Y[4i + s] = sum_k taps[s][k] x[2i + offs[s] + 2k]``, from the four
+    parity cases of :func:`ifilt_from_ext`: a stream reads the ``ev``
+    (extended index ``m2 % 2 + 2n``) or ``od`` phase at offset 0 or 1, with
+    the reversed even- or odd-index taps of *ha* or *hb*."""
+    ha = np.asarray(ha, np.float64).reshape(-1)
+    hb = np.asarray(hb, np.float64).reshape(-1)
+    m2 = ha.size // 2
+    ev, od = m2 % 2, (m2 + 1) % 2
+    e = lambda h: h[0::2][::-1]
+    o = lambda h: h[1::2][::-1]
+    pos = float(np.sum(ha * hb)) > 0
+    if m2 % 2 == 0:
+        if pos:
+            plan = ((ev, o(ha), 0), (od, o(hb), 0), (ev, e(ha), 1),
+                    (od, e(hb), 1))
+        else:
+            plan = ((od, o(ha), 0), (ev, o(hb), 0), (od, e(ha), 1),
+                    (ev, e(hb), 1))
+    elif pos:
+        plan = ((ev, e(ha), 0), (od, e(hb), 1), (ev, o(ha), 0),
+                (od, o(hb), 1))
+    else:
+        plan = ((od, e(ha), 1), (ev, e(hb), 0), (od, o(ha), 1),
+                (ev, o(hb), 0))
+    taps = np.stack([t for _, t, _ in plan])
+    offs = tuple(int(ph + 2 * off - m2) for ph, _, off in plan)
+    return taps, offs
 
 
 # ---------------------------------------------------------------------------

@@ -34,7 +34,9 @@ analysis kernel is ``csrc/hwana.cuh``'s, the synthesis kernel
 any other, and ``tests/test_torch_hw_tiling.py`` replays both on the CPU.
 The kernels take float32, bfloat16 and float64, and filters of up to 32
 taps a stream: odd filters of up to 31 taps, qshift pairs of up to 32
-(``dfilt_hw22``) and 64 (``ifilt_sum_hw22``).
+(``dfilt_hw22``) and 64 (``ifilt_sum_hw22``); past that the card runs
+the entry's plain pass pair on the long-filter kernel
+(:mod:`longfir`: a two-branch launch, or a two-input sum, a pass).
 """
 
 from __future__ import annotations
@@ -45,11 +47,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from dtcwt_tpu_torch.ops import _build, dual, fb
+from dtcwt_tpu_torch.ops import _build, dual, fb, longfir
 from dtcwt_tpu_torch.ops.ilevel2 import ifilt_streams
 from dtcwt_tpu_torch.ops.level2 import dfilt_streams
 from dtcwt_tpu_torch.ops.dual import _inv_taps, _table
-from dtcwt_tpu_torch.ops.pack3d import _SMEM_MAX, _filter_plans
+from dtcwt_tpu_torch.ops.pack3d import (
+    _SMEM_MAX, _dfilt2, _filter2, _filter2_sum, _filter_plans, _ifilt2_sum)
 from dtcwt_tpu_torch.utils import compute_view
 
 __all__ = ["filter_hw22", "dfilt_hw22", "filter_sum_hw22", "ifilt_sum_hw22",
@@ -81,25 +84,22 @@ def _merge22(vs, merge):
 
 def filter_hw22_reference(x: torch.Tensor, h0, h1):
     """Plain version of :func:`filter_hw22`."""
-    return _split22(x, lambda v, ax: fb.filter2_axis(v, h0, h1, ax))
+    return _split22(x, _filter2(fb, h0, h1))
 
 
 def dfilt_hw22_reference(x: torch.Tensor, pair0, pair1):
     """Plain version of :func:`dfilt_hw22`."""
-    return _split22(x, lambda v, ax: fb.dfilt2_axis(v, pair0, pair1, ax))
+    return _split22(x, _dfilt2(fb, pair0, pair1))
 
 
 def filter_sum_hw22_reference(v00, v01, v10, v11, g0, g1):
     """Plain version of :func:`filter_sum_hw22`."""
-    return _merge22((v00, v01, v10, v11),
-                    lambda a, b, ax: fb.filter2_sum_axis(a, b, g0, g1, ax))
+    return _merge22((v00, v01, v10, v11), _filter2_sum(fb, g0, g1))
 
 
 def ifilt_sum_hw22_reference(v00, v01, v10, v11, pair0, pair1):
     """Plain version of :func:`ifilt_sum_hw22`."""
-    return _merge22((v00, v01, v10, v11),
-                    lambda a, b, ax: fb.ifilt2_sum_axis(a, b, pair0, pair1,
-                                                        ax))
+    return _merge22((v00, v01, v10, v11), _ifilt2_sum(fb, pair0, pair1))
 
 
 # ---------------------------------------------------------------------------
@@ -156,7 +156,7 @@ def _launch(name: str, ins, Ho: int, Wo: int, n_out: int, args):
     x = ins[0]
     lead, (H, W) = tuple(x.shape[:-2]), tuple(x.shape[-2:])
     N = int(np.prod(lead, dtype=np.int64))
-    if max(N, H, W, Ho, Wo) > dual._INT_MAX:
+    if max(N, H, W, Ho, Wo) > _build.INT_MAX:
         raise ValueError("%s: [%d, %d, %d] exceeds the kernel's 32-bit sizes"
                          % (name, N, H, W))
     code = _build.dtype_code(x.dtype)
@@ -399,8 +399,10 @@ def filter_hw22(x: torch.Tensor, h0, h1):
     ``u[j][k] = filter_H(filter_W(x, h_k), h_j)``, each ``[..., H, W]``."""
     H, W = _slices([x], "filter_hw22", 1)
     h0, h1 = _odd(h0, h1, "filter_hw22")
-    if dual._on_cpu(x, "filter_hw22"):
+    if _build.on_cpu(x, "filter_hw22"):
         return filter_hw22_reference(x, h0, h1)
+    if not _build.within_bound("filter_hw22", [h0.size, h1.size]):
+        return _split22(x, _filter2(longfir, h0, h1))
     return _nest(_launch("filter_hw22", [x], H, W, 4, lambda: _args(
         "filter_hw22", (h0, h1), x.dtype)))
 
@@ -411,8 +413,10 @@ def dfilt_hw22(x: torch.Tensor, pair0, pair1):
     ``[..., H/2, W/2]``."""
     H, W = _slices([x], "dfilt_hw22", 4)
     pairs = _equal_pairs(pair0, pair1, "dfilt_hw22")
-    if dual._on_cpu(x, "dfilt_hw22"):
+    if _build.on_cpu(x, "dfilt_hw22"):
         return dfilt_hw22_reference(x, pair0, pair1)
+    if not _build.within_bound("dfilt_hw22", [pairs[0][0].size]):
+        return _split22(x, _dfilt2(longfir, pair0, pair1))
     return _nest(_launch("dfilt_hw22", [x], H // 2, W // 2, 4, lambda: _args(
         "dfilt_hw22", pairs[0] + pairs[1], x.dtype)))
 
@@ -423,8 +427,10 @@ def filter_sum_hw22(v00, v01, v10, v11, g0, g1):
     vs = [v00, v01, v10, v11]
     H, W = _slices(vs, "filter_sum_hw22", 1)
     g0, g1 = _odd(g0, g1, "filter_sum_hw22")
-    if dual._on_cpu(v00, "filter_sum_hw22"):
+    if _build.on_cpu(v00, "filter_sum_hw22"):
         return filter_sum_hw22_reference(*vs, g0, g1)
+    if not _build.within_bound("filter_sum_hw22", [g0.size, g1.size]):
+        return _merge22(vs, _filter2_sum(longfir, g0, g1))
     return _launch("filter_sum_hw22", vs, H, W, 1, lambda: _args(
         "filter_sum_hw22", (g0, g1), v00.dtype))[0]
 
@@ -435,7 +441,9 @@ def ifilt_sum_hw22(v00, v01, v10, v11, pair0, pair1):
     vs = [v00, v01, v10, v11]
     H, W = _slices(vs, "ifilt_sum_hw22", 2)
     pairs = _equal_pairs(pair0, pair1, "ifilt_sum_hw22")
-    if dual._on_cpu(v00, "ifilt_sum_hw22"):
+    if _build.on_cpu(v00, "ifilt_sum_hw22"):
         return ifilt_sum_hw22_reference(*vs, pair0, pair1)
+    if not _build.within_bound("ifilt_sum_hw22", [pairs[0][0].size]):
+        return _merge22(vs, _ifilt2_sum(longfir, pair0, pair1))
     return _launch("ifilt_sum_hw22", vs, 2 * H, 2 * W, 1, lambda: _args(
         "ifilt_sum_hw22", pairs[0] + pairs[1], v00.dtype))[0]

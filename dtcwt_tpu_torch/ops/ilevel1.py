@@ -17,8 +17,10 @@ runs :func:`inv_level1_reference`, a CUDA tensor launches the kernel or
 raises.  The subbands come as in :func:`ilevel2.inv_level2`.  The bandpass
 families' third filter *g2o* is the kernel's third stream: the ``hh`` quad
 image gets ``g2o`` on both axes instead of sharing the second column stage;
-like ``g0o`` and ``g1o`` it must have an odd length of at most 32 taps, and
-the largest of the three half-lengths sets the tile's halo.
+like ``g0o`` and ``g1o`` it must have an odd length, and the largest of the
+three half-lengths sets the tile's halo.  The kernel takes filters of up
+to 31 taps; past that the card runs the plain version's chain on
+the long-filter kernel (:mod:`longfir`: three two-input launches).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from dtcwt_tpu_torch.ops import _build, fb
+from dtcwt_tpu_torch.ops import _build, fb, longfir
 from dtcwt_tpu_torch.ops.ilevel2 import _band_args, _quads
 from dtcwt_tpu_torch.utils import compute_view
 
@@ -39,16 +41,22 @@ def inv_level1_reference(z: torch.Tensor, yh=None, g0o=None, g1o=None,
     """Plain PyTorch level-1 inverse: lowpass ``[..., H, W]`` plus the
     level-1 subbands -> the image ``[..., H, W]`` in the lowpass's dtype.
     *g2o* is the bandpass families' third synthesis filter."""
+    return _inverse(z, yh, g0o, g1o, bands, g2o, fb)
+
+
+def _inverse(z, yh, g0o, g1o, bands, g2o, ops):
+    """:func:`inv_level1_reference`'s chain with the filters of *ops*:
+    :mod:`fb`, or on the card's long route :mod:`longfir`."""
     lh, hl, hh = _quads(yh, bands)
-    y1 = fb.filter2_sum_axis(compute_view(z), lh, g0o, g1o, -2)
+    y1 = ops.filter2_sum_axis(compute_view(z), lh, g0o, g1o, -2)
     if g2o is not None:
-        y2 = fb.filter_axis(hl, g0o, -2)
-        y2bp = fb.filter_axis(hh, g2o, -2)
-        out = (fb.filter2_sum_axis(y1, y2, g0o, g1o, -1)
-               + fb.filter_axis(y2bp, g2o, -1))
+        y2 = ops.filter_axis(hl, g0o, -2)
+        y2bp = ops.filter_axis(hh, g2o, -2)
+        out = (ops.filter2_sum_axis(y1, y2, g0o, g1o, -1)
+               + ops.filter_axis(y2bp, g2o, -1))
     else:
-        y2 = fb.filter2_sum_axis(hl, hh, g0o, g1o, -2)
-        out = fb.filter2_sum_axis(y1, y2, g0o, g1o, -1)
+        y2 = ops.filter2_sum_axis(hl, hh, g0o, g1o, -2)
+        out = ops.filter2_sum_axis(y1, y2, g0o, g1o, -1)
     return out.to(z.dtype)
 
 
@@ -128,11 +136,8 @@ def _ilevel1_geometry(B: int, H: int, W: int, m_max: int,
 def inv_level1(z: torch.Tensor, yh=None, g0o=None, g1o=None, bands=None,
                g2o=None):
     """Level-1 inverse; see :func:`inv_level1_reference`."""
-    if z.device.type == "cpu":
+    if _build.on_cpu(z, "inv_level1"):
         return inv_level1_reference(z, yh, g0o, g1o, bands, g2o)
-    if z.device.type != "cuda":
-        raise ValueError("inv_level1 runs on CPU or CUDA tensors, not %s"
-                         % z.device)
     _build.check_no_grad("inv_level1", z, yh, bands)
     filt = _build.odd_filters("inv_level1", g0o, g1o, g2o)
     if z.ndim < 2 or z.shape[-2] % 2 or z.shape[-1] % 2:
@@ -143,6 +148,8 @@ def inv_level1(z: torch.Tensor, yh=None, g0o=None, g1o=None, bands=None,
     code = _build.dtype_code(z.dtype)
     band_a, band_b, planes = _band_args(z, yh, bands, "inv_level1")
     n = [f.size for f in filt if f is not None]
+    if not _build.within_bound("inv_level1", n):
+        return _inverse(z, yh, *filt[:2], bands, filt[2], longfir)
     z3, lead = _build.flatten_batch(z)
     B, H, W = z3.shape
     out = torch.empty_like(z3)

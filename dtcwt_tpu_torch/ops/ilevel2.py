@@ -22,8 +22,11 @@ the transform's call order ``ifilt(x, g0b, g0a)`` / ``ifilt(x, g1b, g1a)``.
 The bandpass families' third pair *g2a*/*g2b* is the kernel's third stream:
 the ``hh`` quad image gets ``ifilt(., g2b, g2a)`` on both axes instead of
 sharing the second column stage, planned on the host as the main pairs
-are; all six filters must share one even length of at most 32 taps, which
-sets the tile's halo.  The output is uncropped: the transform crops.
+are; all six filters must share one even length, which sets the tile's
+halo.  The kernel takes filters of up to 32 taps; past that the card runs
+the plain version's chain on the long-filter kernel
+(:mod:`longfir`: three two-input interpolating launches).  The output is
+uncropped: the transform crops.
 """
 
 from __future__ import annotations
@@ -34,44 +37,13 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from dtcwt_tpu_torch.ops import _build, fb
+from dtcwt_tpu_torch.ops import _build, fb, longfir
+from dtcwt_tpu_torch.ops.fb import ifilt_streams
 from dtcwt_tpu_torch.ops.packing import c2q, c2q_planes
 from dtcwt_tpu_torch.transforms.pyramid import _PLANE_POS
 from dtcwt_tpu_torch.utils import compute_view
 
 __all__ = ["inv_level2", "inv_level2_reference", "ifilt_streams"]
-
-
-def ifilt_streams(ha, hb):
-    """The interpolator ``ifilt(x, ha, hb)`` as four output streams
-    ``Y[4i + s] = sum_k taps[s][k] x[2i + offs[s] + 2k]`` (``x`` indexed
-    with symmetric reflection), from the four parity cases of
-    :func:`fb.ifilt_from_ext`: a stream reads the ``ev`` (extended index
-    ``m2 % 2 + 2n``) or ``od`` phase at offset 0 or 1, with the reversed
-    even- or odd-index taps of *ha* or *hb*."""
-    ha = np.asarray(ha, np.float64).reshape(-1)
-    hb = np.asarray(hb, np.float64).reshape(-1)
-    m2 = ha.size // 2
-    ev, od = m2 % 2, (m2 + 1) % 2
-    e = lambda h: h[0::2][::-1]
-    o = lambda h: h[1::2][::-1]
-    pos = float(np.sum(ha * hb)) > 0
-    if m2 % 2 == 0:
-        if pos:
-            plan = ((ev, o(ha), 0), (od, o(hb), 0), (ev, e(ha), 1),
-                    (od, e(hb), 1))
-        else:
-            plan = ((od, o(ha), 0), (ev, o(hb), 0), (od, e(ha), 1),
-                    (ev, e(hb), 1))
-    elif pos:
-        plan = ((ev, e(ha), 0), (od, e(hb), 1), (ev, o(ha), 0),
-                (od, o(hb), 1))
-    else:
-        plan = ((od, e(ha), 1), (ev, e(hb), 0), (od, o(ha), 1),
-                (ev, o(hb), 0))
-    taps = np.stack([t for _, t, _ in plan])
-    offs = tuple(int(ph + 2 * off - m2) for ph, _, off in plan)
-    return taps, offs
 
 
 def _quads(yh=None, bands=None):
@@ -92,17 +64,23 @@ def inv_level2_reference(z: torch.Tensor, yh=None, g0a=None, g0b=None,
     """Plain PyTorch qshift inverse level: lowpass ``[..., H, W]`` plus the
     level's subbands -> ``[..., 2H, 2W]`` in the lowpass's dtype.
     *g2a*/*g2b* are the bandpass families' third synthesis pair."""
+    return _inverse(z, yh, g0a, g0b, g1a, g1b, bands, g2a, g2b, fb)
+
+
+def _inverse(z, yh, g0a, g0b, g1a, g1b, bands, g2a, g2b, ops):
+    """:func:`inv_level2_reference`'s chain with the filters of *ops*:
+    :mod:`fb`, or on the card's long route :mod:`longfir`."""
     lh, hl, hh = _quads(yh, bands)
     p0, p1 = (g0b, g0a), (g1b, g1a)
-    y1 = fb.ifilt2_sum_axis(compute_view(z), lh, p0, p1, -2)
+    y1 = ops.ifilt2_sum_axis(compute_view(z), lh, p0, p1, -2)
     if g2b is not None:
-        y2 = fb.ifilt_axis(hl, g0b, g0a, -2)
-        y2bp = fb.ifilt_axis(hh, g2b, g2a, -2)
-        out = (fb.ifilt2_sum_axis(y1, y2, p0, p1, -1)
-               + fb.ifilt_axis(y2bp, g2b, g2a, -1))
+        y2 = ops.ifilt_axis(hl, g0b, g0a, -2)
+        y2bp = ops.ifilt_axis(hh, g2b, g2a, -2)
+        out = (ops.ifilt2_sum_axis(y1, y2, p0, p1, -1)
+               + ops.ifilt_axis(y2bp, g2b, g2a, -1))
     else:
-        y2 = fb.ifilt2_sum_axis(hl, hh, p0, p1, -2)
-        out = fb.ifilt2_sum_axis(y1, y2, p0, p1, -1)
+        y2 = ops.ifilt2_sum_axis(hl, hh, p0, p1, -2)
+        out = ops.ifilt2_sum_axis(y1, y2, p0, p1, -1)
     return out.to(z.dtype)
 
 
@@ -280,12 +258,9 @@ def _plan(g0b, g0a, g1b, g1a, g2b, g2a) -> _Plan:
 def inv_level2(z: torch.Tensor, yh=None, g0a=None, g0b=None, g1a=None,
                g1b=None, bands=None, g2a=None, g2b=None):
     """Qshift inverse level; see :func:`inv_level2_reference`."""
-    if z.device.type == "cpu":
+    if _build.on_cpu(z, "inv_level2"):
         return inv_level2_reference(z, yh, g0a, g0b, g1a, g1b, bands, g2a,
                                     g2b)
-    if z.device.type != "cuda":
-        raise ValueError("inv_level2 runs on CPU or CUDA tensors, not %s"
-                         % z.device)
     _build.check_no_grad("inv_level2", z, yh, bands)
     if (g2a is None) != (g2b is None):
         raise ValueError("inv_level2 takes the third pair g2a, g2b together")
@@ -297,6 +272,9 @@ def inv_level2(z: torch.Tensor, yh=None, g0a=None, g0b=None, g1a=None,
     plan = _plan(g0b, g0a, g1b, g1a, g2b, g2a)
     code = _build.dtype_code(z.dtype)
     band_a, band_b, planes = _band_args(z, yh, bands, "inv_level2")
+    if not _build.within_bound("inv_level2", [plan.m]):
+        return _inverse(z, yh, g0a, g0b, g1a, g1b, bands, g2a, g2b,
+                        longfir)
     z3, lead = _build.flatten_batch(z)
     B, H, W = z3.shape
     geo = _ilevel2_geometry(B, H, W, plan.m, z.dtype, bool(planes),

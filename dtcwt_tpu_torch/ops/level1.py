@@ -11,12 +11,15 @@ compile-time tap bound, the store vectors) and the kernel refuses any
 other; the CPU tests replay it (``tests/test_torch_level1_tiling.py``).
 The bandpass families' third filter *h2o* is the kernel's third stream
 (bands 1 and 4 from ``h2o`` on both axes); like ``h0o`` and ``h1o`` it
-must have an odd length of at most 32 taps, and the largest of the three
-half-lengths sets the tile's halo.
+must have an odd length, and the largest of the three half-lengths sets
+the tile's halo.
 
 :func:`fwd_level1` takes its route from the input's device: a CPU tensor
 runs :func:`fwd_level1_reference`, a CUDA tensor launches the kernel or
-raises.
+raises.  The kernel takes filters of up to 31 taps; past that the card
+runs the plain version's chain on the long-filter kernel
+(:mod:`longfir`: a two-branch launch down the columns, two along the
+rows).
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from dtcwt_tpu_torch.ops import _build, fb
+from dtcwt_tpu_torch.ops import _build, fb, longfir
 from dtcwt_tpu_torch.ops.packing import q2c, q2c_planes
 from dtcwt_tpu_torch.transforms.pyramid import PLANE_BAND_ORDER
 from dtcwt_tpu_torch.utils import compute_view
@@ -53,16 +56,20 @@ def fwd_level1_reference(x: torch.Tensor, h0o, h1o, planes: bool = False,
     """Plain PyTorch level-1 forward: ``(lolo [..., R, C], subbands)``, the
     subbands complex ``[..., R/2, C/2, 6]`` or ``(re, im)`` planes
     ``[..., 6, R/2, C/2]``.  *h2o* is the bandpass families' third filter."""
+    return _forward(x, h0o, h1o, planes, h2o, fb)
+
+
+def _forward(x, h0o, h1o, planes, h2o, ops):
+    """:func:`fwd_level1_reference`'s chain with the filters of *ops*:
+    :mod:`fb`, or on the card's long route :mod:`longfir`."""
     X = compute_view(x)
-    lo = fb.filter_axis(X, h0o, -2)
-    hi = fb.filter_axis(X, h1o, -2)
-    lolo = fb.filter_axis(lo, h0o, -1)
-    im23 = fb.filter_axis(lo, h1o, -1)
-    im05 = fb.filter_axis(hi, h0o, -1)
+    lo, hi = ops.filter2_axis(X, h0o, h1o, -2)
+    lolo, im23 = ops.filter2_axis(lo, h0o, h1o, -1)
     if h2o is not None:
-        im14 = fb.filter_axis(fb.filter_axis(X, h2o, -2), h2o, -1)
+        im05 = ops.filter_axis(hi, h0o, -1)
+        im14 = ops.filter_axis(ops.filter_axis(X, h2o, -2), h2o, -1)
     else:
-        im14 = fb.filter_axis(hi, h1o, -1)
+        im05, im14 = ops.filter2_axis(hi, h0o, h1o, -1)
     return lolo.to(x.dtype), _pack(im05, im23, im14, planes, x.dtype)
 
 
@@ -131,11 +138,8 @@ def _level1_geometry(B: int, R: int, C: int, m_max: int, dtype: torch.dtype,
 def fwd_level1(x: torch.Tensor, h0o, h1o, planes: bool = False, h2o=None):
     """Level-1 forward of ``[..., R, C]`` (R, C even); see
     :func:`fwd_level1_reference` for the outputs."""
-    if x.device.type == "cpu":
+    if _build.on_cpu(x, "fwd_level1"):
         return fwd_level1_reference(x, h0o, h1o, planes, h2o)
-    if x.device.type != "cuda":
-        raise ValueError("fwd_level1 runs on CPU or CUDA tensors, not %s"
-                         % x.device)
     _build.check_no_grad("fwd_level1", x)
     filt = _build.odd_filters("fwd_level1", h0o, h1o, h2o)
     if x.ndim < 2 or x.shape[-2] % 2 or x.shape[-1] % 2:
@@ -147,6 +151,8 @@ def fwd_level1(x: torch.Tensor, h0o, h1o, planes: bool = False, h2o=None):
     if code == 1 and not planes:
         raise TypeError("bfloat16 subbands exist only in the plane layout")
     n = [f.size for f in filt if f is not None]
+    if not _build.within_bound("fwd_level1", n):
+        return _forward(x, *filt[:2], planes, filt[2], longfir)
     x3, lead = _build.flatten_batch(x)
     B, R, C = x3.shape
     geo = _level1_geometry(B, R, C, max(n), x.dtype, planes, len(n))

@@ -19,36 +19,25 @@ applies ``dfilt(x, h0b, h0a)`` and ``dfilt(x, h1b, h1a)``, so branch *a* of
 the decimator runs the *b* filter.  The bandpass families' third pair
 *h2a*/*h2b* is the kernel's third stream (bands 1 and 4 from
 ``dfilt(., h2b, h2a)`` on both axes), planned on the host as the main pairs
-are; all six filters must share one even length of at most 32 taps, which
-sets the tile's halo.
+are; all six filters must share one even length, which sets the tile's
+halo.  The kernel takes filters of up to 32 taps; past that the card runs
+the plain version's chain on the long-filter kernel
+(:mod:`longfir`: a two-branch decimating launch down the columns, two
+along the rows).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
-import numpy as np
 import torch
 
-from dtcwt_tpu_torch.ops import _build, fb
+from dtcwt_tpu_torch.ops import _build, fb, longfir
+from dtcwt_tpu_torch.ops.fb import dfilt_streams
 from dtcwt_tpu_torch.ops.level1 import _pack
 from dtcwt_tpu_torch.utils import compute_view
 
 __all__ = ["fwd_level2", "fwd_level2_reference", "dfilt_streams"]
-
-
-def dfilt_streams(ha, hb):
-    """The decimator ``dfilt(x, ha, hb)`` as two output streams
-    ``Y[2i + s] = sum_k taps[s][k] x[4i + offs[s] + 2k]`` (``x`` indexed
-    with symmetric reflection), from the closed form in :mod:`fb`: branch a
-    reads ``ext[4i + 2 + 2k]``, branch b ``ext[4i + 3 + 2k]`` with reversed
-    taps, and the sign of ``sum(ha*hb)`` says which comes first."""
-    ha = np.asarray(ha, np.float64).reshape(-1)
-    hb = np.asarray(hb, np.float64).reshape(-1)
-    m = ha.size
-    a, b = (ha[::-1], 2 - m), (hb[::-1], 3 - m)
-    first, second = (a, b) if float(np.sum(ha * hb)) > 0 else (b, a)
-    return (np.stack([first[0], second[0]]), (first[1], second[1]))
 
 
 def fwd_level2_reference(x: torch.Tensor, h0a, h0b, h1a, h1b,
@@ -57,16 +46,21 @@ def fwd_level2_reference(x: torch.Tensor, h0a, h0b, h1a, h1b,
     of 4): ``(lolo [..., R/2, C/2], subbands)``, the subbands complex
     ``[..., R/4, C/4, 6]`` or ``(re, im)`` planes ``[..., 6, R/4, C/4]``.
     *h2a*/*h2b* are the bandpass families' third filter pair."""
+    return _forward(x, h0a, h0b, h1a, h1b, planes, h2a, h2b, fb)
+
+
+def _forward(x, h0a, h0b, h1a, h1b, planes, h2a, h2b, ops):
+    """:func:`fwd_level2_reference`'s chain with the filters of *ops*:
+    :mod:`fb`, or on the card's long route :mod:`longfir`."""
     X = compute_view(x)
-    lo = fb.dfilt_axis(X, h0b, h0a, -2)
-    hi = fb.dfilt_axis(X, h1b, h1a, -2)
-    lolo = fb.dfilt_axis(lo, h0b, h0a, -1)
-    im23 = fb.dfilt_axis(lo, h1b, h1a, -1)
-    im05 = fb.dfilt_axis(hi, h0b, h0a, -1)
+    p0, p1 = (h0b, h0a), (h1b, h1a)
+    lo, hi = ops.dfilt2_axis(X, p0, p1, -2)
+    lolo, im23 = ops.dfilt2_axis(lo, p0, p1, -1)
     if h2b is not None:
-        im14 = fb.dfilt_axis(fb.dfilt_axis(X, h2b, h2a, -2), h2b, h2a, -1)
+        im05 = ops.dfilt_axis(hi, h0b, h0a, -1)
+        im14 = ops.dfilt_axis(ops.dfilt_axis(X, h2b, h2a, -2), h2b, h2a, -1)
     else:
-        im14 = fb.dfilt_axis(hi, h1b, h1a, -1)
+        im05, im14 = ops.dfilt2_axis(hi, p0, p1, -1)
     return lolo.to(x.dtype), _pack(im05, im23, im14, planes, x.dtype)
 
 
@@ -161,11 +155,8 @@ def _level2_geometry(B: int, R: int, C: int, m: int, dtype: torch.dtype,
 def fwd_level2(x: torch.Tensor, h0a, h0b, h1a, h1b, planes: bool = False,
                h2a=None, h2b=None):
     """Qshift forward level; see :func:`fwd_level2_reference`."""
-    if x.device.type == "cpu":
+    if _build.on_cpu(x, "fwd_level2"):
         return fwd_level2_reference(x, h0a, h0b, h1a, h1b, planes, h2a, h2b)
-    if x.device.type != "cuda":
-        raise ValueError("fwd_level2 runs on CPU or CUDA tensors, not %s"
-                         % x.device)
     _build.check_no_grad("fwd_level2", x)
     if (h2a is None) != (h2b is None):
         raise ValueError("fwd_level2 takes the third pair h2a, h2b together")
@@ -173,14 +164,17 @@ def fwd_level2(x: torch.Tensor, h0a, h0b, h1a, h1b, planes: bool = False,
         raise ValueError("fwd_level2 needs [..., R, C] with R, C multiples "
                          "of 4, got %s" % (tuple(x.shape),))
     f = _build.pair_filters("fwd_level2", h0b, h0a, h1b, h1a, h2b, h2a)
-    t0, o0 = dfilt_streams(f[0], f[1])
-    t1, o1 = dfilt_streams(f[2], f[3])
-    t2, o2 = (None, None) if h2a is None else dfilt_streams(f[4], f[5])
     if not x.is_contiguous():
         raise ValueError("fwd_level2 needs a contiguous input")
     code = _build.dtype_code(x.dtype)
     if code == 1 and not planes:
         raise TypeError("bfloat16 subbands exist only in the plane layout")
+    if not _build.within_bound("fwd_level2", [f[0].size]):
+        return _forward(x, f[1], f[0], f[3], f[2], planes, f[5], f[4],
+                        longfir)
+    t0, o0 = dfilt_streams(f[0], f[1])
+    t1, o1 = dfilt_streams(f[2], f[3])
+    t2, o2 = (None, None) if h2a is None else dfilt_streams(f[4], f[5])
     x3, lead = _build.flatten_batch(x)
     B, R, C = x3.shape
     geo = _level2_geometry(B, R, C, t0.shape[1], x.dtype, planes,

@@ -23,9 +23,12 @@ design does about it is in that source (the synthesis kernel's in
 :func:`_fwd_pack_geometry`, the synthesis kernels theirs (and their tap
 bound) from :func:`_inv_pack_geometry`, and each refuses any other; the
 CPU tests replay both (``tests/test_torch_pack3d_tiling.py``,
-``tests/test_torch_ipack3d_tiling.py``).  The
-synthesis kernels take qshift filters of at most 34 taps (the longest
-published family, qshift_32, has 32).  On a CPU tensor each
+``tests/test_torch_ipack3d_tiling.py``).  The kernels take
+level-1 filters of up to 31 taps and qshift filters of up to 32 (analysis)
+and 34 (synthesis; the longest published family, qshift_32, has 32); past
+that the card runs the entry's plain chain on the long-filter
+kernel (:mod:`longfir`: a two-branch launch or a two-input sum a stage),
+then the same packing.  On a CPU tensor each
 entry runs its ``*_reference`` plain version: the dual forms of :mod:`fb`
 along W, H and D, then :func:`packing.cube2c_planes` (or
 :func:`packing.cube2c`) per octant, computed at float32 for bfloat16
@@ -48,7 +51,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from dtcwt_tpu_torch.ops import _build, dual, fb
+from dtcwt_tpu_torch.ops import _build, dual, fb, longfir
 from dtcwt_tpu_torch.ops.dual import _inv_taps, _table
 from dtcwt_tpu_torch.ops.ilevel2 import ifilt_streams
 from dtcwt_tpu_torch.ops.level2 import dfilt_streams
@@ -75,7 +78,6 @@ _OCTANTS = (
     (1, 1, 1),   # HHH
 )
 
-_MAX_TAPS = 32  # csrc/common.cuh MAX_TAPS, per stream
 _THREADS = 256                  # csrc/hwstage.cuh PACK_THREADS
 _TILE = 32                      # PACK_TILE: the largest output tile side
 _SMEM_MAX = 220 * 1024          # PACK_SMEM_MAX
@@ -146,21 +148,49 @@ def synthesis(octs, merge):
 # plain versions
 # ---------------------------------------------------------------------------
 
+def _analysis(x: torch.Tensor, split, planes):
+    """A plain version's analysis level: the octants of *split* (a dual
+    form of :mod:`fb`, or on the card's long route of :mod:`longfir`),
+    then the packing."""
+    octs = analysis_octants(compute_view(x), split)
+    return octs[(0, 0, 0)].to(x.dtype), pack_octants(octs, planes, x.dtype)
+
+
+def _synthesis(lll: torch.Tensor, re, im, merge):
+    """A plain version's synthesis level: the unpacking, then the octants
+    merged by *merge* (as :func:`_analysis` takes *split*)."""
+    octs = unpack_octants(_band_arg(re, im))
+    octs[(0, 0, 0)] = compute_view(lll)
+    return synthesis(octs, merge).to(lll.dtype)
+
+
+def _filter2(ops, h0, h1):
+    return lambda v, ax: ops.filter2_axis(v, h0, h1, ax)
+
+
+def _dfilt2(ops, pair0, pair1):
+    return lambda v, ax: ops.dfilt2_axis(v, pair0, pair1, ax)
+
+
+def _filter2_sum(ops, g0, g1):
+    return lambda a, b, ax: ops.filter2_sum_axis(a, b, g0, g1, ax)
+
+
+def _ifilt2_sum(ops, pair0, pair1):
+    return lambda a, b, ax: ops.ifilt2_sum_axis(a, b, pair0, pair1, ax)
+
+
 def fwd_level1_pack_reference(x: torch.Tensor, h0o, h1o, planes=True):
     """Plain level-1 analysis of ``[..., D, H, W]``: ``(lll [..., D, H, W],
     subbands)``, the subbands ``(re, im) [..., 28, D/2, H/2, W/2]`` or
     complex ``[..., D/2, H/2, W/2, 28]``."""
-    octs = analysis_octants(compute_view(x),
-                            lambda v, ax: fb.filter2_axis(v, h0o, h1o, ax))
-    return octs[(0, 0, 0)].to(x.dtype), pack_octants(octs, planes, x.dtype)
+    return _analysis(x, _filter2(fb, h0o, h1o), planes)
 
 
 def fwd_level2_pack_reference(x: torch.Tensor, pair0, pair1, planes=True):
     """Plain qshift analysis of ``[..., D, H, W]`` (multiples of 4):
     ``(lll [..., D/2, H/2, W/2], subbands [..., 28, D/4, H/4, W/4])``."""
-    octs = analysis_octants(
-        compute_view(x), lambda v, ax: fb.dfilt2_axis(v, pair0, pair1, ax))
-    return octs[(0, 0, 0)].to(x.dtype), pack_octants(octs, planes, x.dtype)
+    return _analysis(x, _dfilt2(fb, pair0, pair1), planes)
 
 
 def _band_arg(re, im):
@@ -171,22 +201,14 @@ def inv_level1_pack_reference(lll: torch.Tensor, re, im, g0o, g1o):
     """Plain level-1 synthesis: the lowpass ``[..., D, H, W]`` and the
     subbands, ``(re, im)`` planes ``[..., 28, D/2, H/2, W/2]`` or (with *im*
     None) the complex band-minor *re*, back to ``[..., D, H, W]``."""
-    octs = unpack_octants(_band_arg(re, im))
-    octs[(0, 0, 0)] = compute_view(lll)
-    out = synthesis(octs, lambda a, b, ax: fb.filter2_sum_axis(a, b, g0o,
-                                                               g1o, ax))
-    return out.to(lll.dtype)
+    return _synthesis(lll, re, im, _filter2_sum(fb, g0o, g1o))
 
 
 def inv_level2_pack_reference(lll: torch.Tensor, re, im, pair0, pair1):
     """Plain qshift synthesis: ``[..., D, H, W]`` and subbands
     ``[..., 28, D/2, H/2, W/2]`` back to the uncropped
     ``[..., 2D, 2H, 2W]``."""
-    octs = unpack_octants(_band_arg(re, im))
-    octs[(0, 0, 0)] = compute_view(lll)
-    out = synthesis(octs, lambda a, b, ax: fb.ifilt2_sum_axis(a, b, pair0,
-                                                              pair1, ax))
-    return out.to(lll.dtype)
+    return _synthesis(lll, re, im, _ifilt2_sum(fb, pair0, pair1))
 
 
 # ---------------------------------------------------------------------------
@@ -210,11 +232,14 @@ def _storage(x: torch.Tensor, planes: bool) -> None:
 
 
 def _odd(h0, h1, name: str):
-    for h in (h0, h1):
-        m = fb._as_taps(h).size
-        if m % 2 == 0 or m >= _MAX_TAPS:
-            raise ValueError("%s takes odd-length level-1 filters of at most "
-                             "%d taps, got %d" % (name, _MAX_TAPS - 1, m))
+    """The lengths of two level-1 filters, which must be odd (on both
+    devices: their tap bound is the card route's,
+    :func:`_build.within_bound`)."""
+    lens = [fb._as_taps(h).size for h in (h0, h1)]
+    if any(m % 2 == 0 for m in lens):
+        raise ValueError("%s takes odd-length level-1 filters, got %d and %d "
+                         "taps" % (name, *lens))
+    return lens
 
 
 def _check_bands(lll: torch.Tensor, re, im, name: str):
@@ -472,10 +497,12 @@ def fwd_level1_pack(x: torch.Tensor, h0o, h1o, planes: bool = True):
     """Level-1 analysis with odd-length biort filters; see
     :func:`fwd_level1_pack_reference`.  D, H, W even."""
     D, H, W = _volume(x, "fwd_level1_pack", 2)
-    _odd(h0o, h1o, "fwd_level1_pack")
+    lens = _odd(h0o, h1o, "fwd_level1_pack")
     _storage(x, planes)
-    if dual._on_cpu(x, "fwd_level1_pack"):
+    if _build.on_cpu(x, "fwd_level1_pack"):
         return fwd_level1_pack_reference(x, h0o, h1o, planes)
+    if not _build.within_bound("fwd_level1_pack", lens):
+        return _analysis(x, _filter2(longfir, h0o, h1o), planes)
     return _fwd("fwd_level1_pack", x,
                 lambda v: dual.filter2_axis(v, h0o, h1o, -3),
                 _filter_plans(h0o, h1o), planes, H, W)
@@ -487,8 +514,10 @@ def fwd_level2_pack(x: torch.Tensor, pair0, pair1, planes: bool = True):
     D, H, W = _volume(x, "fwd_level2_pack", 4)
     pairs = dual._pairs(pair0, pair1)
     _storage(x, planes)
-    if dual._on_cpu(x, "fwd_level2_pack"):
+    if _build.on_cpu(x, "fwd_level2_pack"):
         return fwd_level2_pack_reference(x, pair0, pair1, planes)
+    if not _build.within_bound("fwd_level2_pack", [p[0].size for p in pairs]):
+        return _analysis(x, _dfilt2(longfir, pair0, pair1), planes)
     return _fwd("fwd_level2_pack", x,
                 lambda v: dual.dfilt2_axis(v, pair0, pair1, -3),
                 [dfilt_streams(*p) for p in pairs], planes, H // 2, W // 2)
@@ -498,10 +527,12 @@ def inv_level1_pack(lll: torch.Tensor, re, im, g0o, g1o):
     """Level-1 synthesis with odd-length biort filters; see
     :func:`inv_level1_pack_reference`."""
     D, H, W = _volume(lll, "inv_level1_pack", 2)
-    _odd(g0o, g1o, "inv_level1_pack")
+    lens = _odd(g0o, g1o, "inv_level1_pack")
     _check_bands(lll, re, im, "inv_level1_pack")
-    if dual._on_cpu(lll, "inv_level1_pack"):
+    if _build.on_cpu(lll, "inv_level1_pack"):
         return inv_level1_pack_reference(lll, re, im, g0o, g1o)
+    if not _build.within_bound("inv_level1_pack", lens):
+        return _synthesis(lll, re, im, _filter2_sum(longfir, g0o, g1o))
     return _inv("inv_level1_pack", lll, re, im, _filter_plans(g0o, g1o),
                 lambda a, b: dual.filter2_sum_axis(a, b, g0o, g1o, -3), H, W)
 
@@ -511,8 +542,10 @@ def inv_level2_pack(lll: torch.Tensor, re, im, pair0, pair1):
     D, H, W = _volume(lll, "inv_level2_pack", 2)
     pairs = dual._pairs(pair0, pair1)
     _check_bands(lll, re, im, "inv_level2_pack")
-    if dual._on_cpu(lll, "inv_level2_pack"):
+    if _build.on_cpu(lll, "inv_level2_pack"):
         return inv_level2_pack_reference(lll, re, im, pair0, pair1)
+    if not _build.within_bound("inv_level2_pack", [p[0].size for p in pairs]):
+        return _synthesis(lll, re, im, _ifilt2_sum(longfir, pair0, pair1))
     return _inv("inv_level2_pack", lll, re, im,
                 [ifilt_streams(*p) for p in pairs],
                 lambda a, b: dual.ifilt2_sum_axis(a, b, pair0, pair1, -3),

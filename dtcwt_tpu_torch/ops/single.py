@@ -36,7 +36,8 @@ a tensor stays on its device unless *device* is given, a non-tensor input
 goes to *device*, the card (``"cuda"``) by default.  The
 kernels take any axis of a contiguous tensor, float32, bfloat16 or
 float64, filters of up to 32 taps per stream of any length and parity
-(``dfilt`` qshift pairs of up to 32 taps, ``ifilt`` of up to 64), and
+(``dfilt`` qshift pairs of up to 32 taps, ``ifilt`` of up to 64; longer
+filters take the long-filter kernel, :mod:`longfir`, in one launch), and
 signals shorter than the filter; the host plans
 (:func:`level2.dfilt_streams`, :func:`ilevel2.ifilt_streams`) and
 :func:`_filter` hold every parity rule.
@@ -49,10 +50,8 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from dtcwt_tpu_torch.ops import _build, fb
-from dtcwt_tpu_torch.ops.dual import (
-    _INT_MAX, _MAX_TAPS, _axis_view, _ext_len, _launch_stream, _on_cpu,
-    _plain)
+from dtcwt_tpu_torch.ops import _build, fb, longfir
+from dtcwt_tpu_torch.ops.dual import _launch_stream, _plain
 
 __all__ = [
     "filter_axis", "dfilt_axis", "ifilt_axis",
@@ -156,21 +155,21 @@ def _filter_geometry(outer: int, n_in: int, inner: int, g: int, m: int,
 def _filter(x, h, axis, n, side=None):
     """Launch ``csrc/filter.cu``: Y[i] = sum_k rev(h)[k] x[i + c + k] for
     the r + 1 - m % 2 outputs, c = -(m//2) reflected, or side - m//2 into
-    a buffer extended by *side*."""
-    _build.check_no_grad("filter", x)
+    a buffer extended by *side*; filters past the kernel's tap bound on the
+    long-filter kernel."""
     h = fb._as_taps(h)
     m = h.size
-    if m > _MAX_TAPS:
-        raise ValueError("filter takes at most %d taps, got %d"
-                         % (_MAX_TAPS, m))
-    ax, outer, n_in, inner, code = _axis_view("filter", [x], axis)
+    if not _build.within_bound("filter", [m]):
+        return longfir.stream("filter", [x], (h,), n, axis, side)[0]
+    _build.check_no_grad("filter", x)
+    ax, outer, n_in, inner, code = _build.axis_view("filter", [x], axis)
     shape = tuple(x.shape)
     g = n + 1 - m % 2
     c = (side or 0) - m // 2
     if side is not None and (c < 0 or c + g + m - 2 >= n_in):
         raise ValueError("filter: an extension of %d per side does not "
                          "cover the filters' reach" % side)
-    if max(outer, n_in, inner, g) > _INT_MAX:
+    if max(outer, n_in, inner, g) > _build.INT_MAX:
         raise ValueError("filter: the axis view [%d, %d, %d] exceeds the "
                          "kernel's 32-bit sizes" % (outer, n_in, inner))
     out = torch.empty(shape[:ax] + (g,) + shape[ax + 1:], dtype=x.dtype,
@@ -194,7 +193,7 @@ def filter_axis(x, h, axis: int, device=None) -> torch.Tensor:
     """Non-decimating filter along *axis* with symmetric extension: as many
     samples as the input for odd-length *h*, one more for even-length."""
     x = _input(x, device)
-    if _on_cpu(x, "filter_axis"):
+    if _build.on_cpu(x, "filter_axis"):
         return filter_axis_reference(x, h, axis)
     return _filter(x, h, axis, x.shape[axis])
 
@@ -204,9 +203,9 @@ def filter_fromext_axis(ext: torch.Tensor, side: int, h,
     """:func:`filter_axis` on a buffer extended by *side* >= ``len(h)//2``
     per side."""
     ext = fb._asfloat(ext)
-    if _on_cpu(ext, "filter_fromext_axis"):
+    if _build.on_cpu(ext, "filter_fromext_axis"):
         return filter_fromext_axis_reference(ext, side, h, axis)
-    return _filter(ext, h, axis, _ext_len(ext, side, axis), side)
+    return _filter(ext, h, axis, _build.ext_len(ext, side, axis), side)
 
 
 def _dfilt(x, ha, hb, axis, n, side=None):
@@ -221,7 +220,7 @@ def dfilt_axis(x, ha, hb, axis: int, device=None) -> torch.Tensor:
     if x.shape[axis] % 4:
         raise ValueError("Length of axis %d must be a multiple of 4" % axis)
     ha, hb = _pair(ha, hb)
-    if _on_cpu(x, "dfilt_axis"):
+    if _build.on_cpu(x, "dfilt_axis"):
         return dfilt_axis_reference(x, ha, hb, axis)
     return _dfilt(x, ha, hb, axis, x.shape[axis])
 
@@ -232,9 +231,9 @@ def dfilt_fromext_axis(ext: torch.Tensor, side: int, ha, hb,
     side."""
     ext = fb._asfloat(ext)
     ha, hb = _pair(ha, hb)
-    if _on_cpu(ext, "dfilt_fromext_axis"):
+    if _build.on_cpu(ext, "dfilt_fromext_axis"):
         return dfilt_fromext_axis_reference(ext, side, ha, hb, axis)
-    return _dfilt(ext, ha, hb, axis, _ext_len(ext, side, axis), side)
+    return _dfilt(ext, ha, hb, axis, _build.ext_len(ext, side, axis), side)
 
 
 def _ifilt(x, ha, hb, axis, n, side=None):
@@ -248,7 +247,7 @@ def ifilt_axis(x, ha, hb, axis: int, device=None) -> torch.Tensor:
     if x.shape[axis] % 2:
         raise ValueError("Length of axis %d must be a multiple of 2" % axis)
     ha, hb = _pair(ha, hb)
-    if _on_cpu(x, "ifilt_axis"):
+    if _build.on_cpu(x, "ifilt_axis"):
         return ifilt_axis_reference(x, ha, hb, axis)
     return _ifilt(x, ha, hb, axis, x.shape[axis])
 
@@ -259,9 +258,9 @@ def ifilt_fromext_axis(ext: torch.Tensor, side: int, ha, hb,
     per side."""
     ext = fb._asfloat(ext)
     ha, hb = _pair(ha, hb)
-    if _on_cpu(ext, "ifilt_fromext_axis"):
+    if _build.on_cpu(ext, "ifilt_fromext_axis"):
         return ifilt_fromext_axis_reference(ext, side, ha, hb, axis)
-    return _ifilt(ext, ha, hb, axis, _ext_len(ext, side, axis), side)
+    return _ifilt(ext, ha, hb, axis, _build.ext_len(ext, side, axis), side)
 
 
 # ---------------------------------------------------------------------------

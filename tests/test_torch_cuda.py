@@ -19,7 +19,8 @@ import torch
 import dtcwt_tpu_torch as dt
 from dtcwt_tpu_torch.coeffs import biort, qshift
 from dtcwt_tpu_torch.ops import (
-    _build, dual, fb, hw, ilevel1, ilevel2, level1, level2, single)
+    _build, dual, fb, hw, ilevel1, ilevel2, level1, level2, longfir, pack3d,
+    single)
 from dtcwt_tpu_torch.transforms.pyramid import PLANE_BAND_ORDER
 
 _KTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float64: 1e-12}
@@ -1677,8 +1678,11 @@ def test_cuda_single_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(TypeError, match="float32, bfloat16 or float64"):
         single.filter_axis(torch.zeros(16, 8, device=cuda,
                                        dtype=torch.float16), b[0], 0)
-    with pytest.raises(ValueError, match="at most 32 taps"):
-        single.filter_axis(torch.zeros(16, 8, device=cuda), np.ones(33), 0)
+    # past filter.cu's 32 taps the long-filter kernel takes the filter and
+    # its host refuses an extension short of the reach
+    with pytest.raises(ValueError, match="reach"):
+        single.filter_fromext_axis(torch.zeros(40, 8, device=cuda), 4,
+                                   np.ones(33), 0)
     with pytest.raises(ValueError, match="reach"):
         single.filter_fromext_axis(torch.zeros(16, 8, device=cuda), 2, b[1],
                                    0)
@@ -2569,3 +2573,364 @@ def test_cuda_sharded_grad_steps_free_their_memory(cuda, kind):
         assert torch.cuda.memory_allocated() == start
     finally:
         gc.enable()
+
+
+# --- filters past the kernels' tap bounds (ops/longfir, csrc/longfir.cu) ---
+
+def _long_taps(m, seed):
+    """*m* seeded random taps, none zero, at a unit sum of magnitudes."""
+    rs = np.random.RandomState(seed)
+    h = rs.uniform(0.5, 1.5, m) * rs.choice((-1.0, 1.0), m)
+    return h / np.abs(h).sum()
+
+
+# a random 35/37-tap biort family, a random 36-tap qshift family, and
+# qshift_32 zero-padded to 36 taps (within QSHIFT_ADJOINT_TOL: the
+# gradients' explicit route)
+_LONG_B = tuple(_long_taps(m, i) for i, m in enumerate((35, 37, 37, 35)))
+_LONG_Q = tuple(_long_taps(36, 10 + i) for i in range(8))
+_LONG_QADJ = tuple(np.pad(np.asarray(h).ravel(), 2)
+                   for h in qshift("qshift_32"))
+_LTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float64: 1e-12}
+
+
+def _lt(m, seed=0):
+    return _long_taps(m, seed)
+
+
+# entry -> (inputs, filters past its bound), as ``mod.<entry>_axis`` takes
+# them after the inputs
+_LONG_STREAMS = {
+    "filter": (single, 1, lambda: (_lt(35),)),
+    "filter2": (dual, 1, lambda: (_lt(33), _lt(36, 1))),
+    "filter2_sum": (dual, 2, lambda: (_lt(37), _lt(33, 1))),
+    "dfilt": (single, 1, lambda: (_lt(34), _lt(34, 1))),
+    "dfilt2": (dual, 1, lambda: ((_lt(36), _lt(36, 1)),
+                                 (_lt(36, 2), _lt(36, 3)))),
+    "ifilt": (single, 1, lambda: (_lt(66), _lt(66, 1))),
+    "ifilt2_sum": (dual, 2, lambda: ((_lt(68), _lt(68, 1)),
+                                     (_lt(68, 2), _lt(68, 3)))),
+}
+# (shape, axis): columns four a thread (inner 300), a short inner, the
+# axis contiguous (inner = 1), a middle axis, an axis of 8 under 37+ taps
+_LONG_VIEWS = [((3, 28, 300), 1), ((28, 5), 0), ((4, 2, 1028), -1),
+               ((2, 28, 3, 2), 1), ((5, 8, 7), 1)]
+
+
+def _nest_lens(f):
+    if isinstance(f, (tuple, list)):
+        return [n for g in f for n in _nest_lens(g)]
+    return [np.asarray(f).size]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["reflect", "fromext"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("name", list(_LONG_STREAMS))
+def test_cuda_long_stream_entries_match_plain(cuda, name, dtype, mode):
+    """Each dual and single entry with filters past its kernel's bound:
+    one launch of the long-filter kernel, against its plain version, on
+    every view and in both boundary modes."""
+    mod, n_in, filters = _LONG_STREAMS[name]
+    f = filters()
+    op = longfir._OPS[longfir.STREAMS[name]][0]
+    suffix = "_fromext_axis" if mode == "fromext" else "_axis"
+    kern = getattr(mod, name + suffix)
+    plain = getattr(mod, name + suffix + "_reference")
+    for seed, (shape, axis) in enumerate(_LONG_VIEWS):
+        if name.startswith("dfilt") and shape[axis] % 4:
+            continue
+        xs = [_rand(shape, seed + k, cuda, dtype) for k in range(n_in)]
+        args = list(xs)
+        if mode == "fromext":
+            side = max(_nest_lens(f)) + 3
+            args = [fb.symmetric_extend(x, side, axis).contiguous()
+                    for x in xs] + [side]
+        _build.reset_launches()
+        got = kern(*args, *f, axis)
+        torch.cuda.synchronize()
+        assert dict(_build.launches) == {"longfir_" + op: 1}
+        assert _kerr(got, plain(*args, *f, axis)) < _LTOL[dtype], (shape,
+                                                                     axis)
+
+
+def _long_level_cases(cuda, dtype, planes):
+    """entry -> (call, plain version, launches) of every level and hw
+    entry with filters past its bound."""
+    b, q = _LONG_B, _LONG_Q
+    bp = _lt(33, 20)
+    q2 = (_lt(36, 30), _lt(36, 31))
+    p0, p1 = (q[1], q[0]), (q[5], q[4])
+    s0, s1 = (q[3], q[2]), (q[7], q[6])
+    l0, l1 = (_lt(66, 40), _lt(66, 41)), (_lt(66, 42), _lt(66, 43))
+    x = _rand((2, 136, 200), 1, cuda, dtype)
+    z, band = _inverse_inputs((2, 68, 100), dtype, planes, cuda)
+    v = _rand((2, 16, 24, 40), 2, cuda, dtype)
+    lo = _rand((2, 8, 12, 20), 3, cuda, dtype)
+    sub = (2, 28, 4, 6, 10)
+    if planes:
+        bands = (_rand(sub, 4, cuda, dtype), _rand(sub, 5, cuda, dtype))
+    else:
+        cd = torch.complex128 if dtype == torch.float64 else torch.complex64
+        bands = (torch.complex(_rand((2, 4, 6, 10, 28), 4, cuda,
+                                     torch.float64),
+                               _rand((2, 4, 6, 10, 28), 5, cuda,
+                                     torch.float64)).to(cd), None)
+    hs = [_rand((3, 40, 56), 6 + k, cuda, dtype) for k in range(4)]
+    f, d, i = "longfir_filter", "longfir_dfilt", "longfir_ifilt"
+    return {
+        "fwd_level1": (lambda: level1.fwd_level1(x, b[0], b[2], planes),
+                       lambda: level1.fwd_level1_reference(x, b[0], b[2],
+                                                           planes), {f: 3}),
+        "fwd_level1 bandpass": (
+            lambda: level1.fwd_level1(x, b[0], b[2], planes, bp),
+            lambda: level1.fwd_level1_reference(x, b[0], b[2], planes, bp),
+            {f: 5}),
+        "fwd_level2": (
+            lambda: level2.fwd_level2(x, q[0], q[1], q[4], q[5], planes),
+            lambda: level2.fwd_level2_reference(x, q[0], q[1], q[4], q[5],
+                                                planes), {d: 3}),
+        "fwd_level2 bandpass": (
+            lambda: level2.fwd_level2(x, q[0], q[1], q[4], q[5], planes,
+                                      *q2),
+            lambda: level2.fwd_level2_reference(x, q[0], q[1], q[4], q[5],
+                                                planes, *q2), {d: 5}),
+        "inv_level2": (
+            lambda: ilevel2.inv_level2(z, g0a=q[2], g0b=q[3], g1a=q[6],
+                                       g1b=q[7], **band),
+            lambda: ilevel2.inv_level2_reference(
+                z, g0a=q[2], g0b=q[3], g1a=q[6], g1b=q[7], **band), {i: 3}),
+        "inv_level2 bandpass": (
+            lambda: ilevel2.inv_level2(z, g0a=q[2], g0b=q[3], g1a=q[6],
+                                       g1b=q[7], g2a=q2[0], g2b=q2[1],
+                                       **band),
+            lambda: ilevel2.inv_level2_reference(
+                z, g0a=q[2], g0b=q[3], g1a=q[6], g1b=q[7], g2a=q2[0],
+                g2b=q2[1], **band), {i: 5}),
+        "inv_level1": (
+            lambda: ilevel1.inv_level1(z, g0o=b[1], g1o=b[3], **band),
+            lambda: ilevel1.inv_level1_reference(z, g0o=b[1], g1o=b[3],
+                                                 **band), {f: 3}),
+        "inv_level1 bandpass": (
+            lambda: ilevel1.inv_level1(z, g0o=b[1], g1o=b[3], g2o=bp,
+                                       **band),
+            lambda: ilevel1.inv_level1_reference(z, g0o=b[1], g1o=b[3],
+                                                 g2o=bp, **band), {f: 5}),
+        "fwd_level1_pack": (
+            lambda: pack3d.fwd_level1_pack(v, b[0], b[2], planes),
+            lambda: pack3d.fwd_level1_pack_reference(v, b[0], b[2], planes),
+            {f: 7}),
+        "fwd_level2_pack": (
+            lambda: pack3d.fwd_level2_pack(v, p0, p1, planes),
+            lambda: pack3d.fwd_level2_pack_reference(v, p0, p1, planes),
+            {d: 7}),
+        "inv_level1_pack": (
+            lambda: pack3d.inv_level1_pack(lo, *bands, b[1], b[3]),
+            lambda: pack3d.inv_level1_pack_reference(lo, *bands, b[1], b[3]),
+            {f: 7}),
+        "inv_level2_pack": (
+            lambda: pack3d.inv_level2_pack(lo, *bands, s0, s1),
+            lambda: pack3d.inv_level2_pack_reference(lo, *bands, s0, s1),
+            {i: 7}),
+        "filter_hw22": (lambda: hw.filter_hw22(hs[0], b[0], b[2]),
+                        lambda: hw.filter_hw22_reference(hs[0], b[0], b[2]),
+                        {f: 3}),
+        "dfilt_hw22": (lambda: hw.dfilt_hw22(hs[0], p0, p1),
+                       lambda: hw.dfilt_hw22_reference(hs[0], p0, p1),
+                       {d: 3}),
+        "filter_sum_hw22": (
+            lambda: hw.filter_sum_hw22(*hs, b[1], b[3]),
+            lambda: hw.filter_sum_hw22_reference(*hs, b[1], b[3]), {f: 3}),
+        "ifilt_sum_hw22": (
+            lambda: hw.ifilt_sum_hw22(*hs, l0, l1),
+            lambda: hw.ifilt_sum_hw22_reference(*hs, l0, l1), {i: 3}),
+    }
+
+
+_LONG_LEVELS = ["fwd_level1", "fwd_level1 bandpass", "fwd_level2",
+                "fwd_level2 bandpass", "inv_level2", "inv_level2 bandpass",
+                "inv_level1", "inv_level1 bandpass", "fwd_level1_pack",
+                "fwd_level2_pack", "inv_level1_pack", "inv_level2_pack",
+                "filter_hw22", "dfilt_hw22", "filter_sum_hw22",
+                "ifilt_sum_hw22"]
+
+
+def _flat_out(t):
+    if isinstance(t, (tuple, list)):
+        return [a for v in t for a in _flat_out(v)]
+    return [t]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry,dtype,planes", [
+    (e, d, p) for e in _LONG_LEVELS for d, p in _CASES
+    if p or "hw22" not in e])   # the hw entries have no layout
+def test_cuda_long_level_entries_match_plain(cuda, entry, dtype, planes):
+    """Each level and hw entry with filters past its kernel's bound runs its
+    plain chain on the long-filter kernel (no launch of its own kernel)
+    and agrees with its plain version on the card."""
+    call, plain, launches = _long_level_cases(cuda, dtype, planes)[entry]
+    _build.reset_launches()
+    got = call()
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == launches
+    for a, c in zip(_flat_out(got), _flat_out(plain())):
+        assert _kerr(a, c) < _LTOL[dtype], entry
+
+
+def _long_transform(kind, device, qs=_LONG_Q):
+    return getattr(dt, kind)(biort=_LONG_B, qshift=qs, device=device)
+
+
+# kind -> (input shape, levels, launches of a float32 round trip)
+_LONG_TRANSFORMS = {
+    "Transform1d": ((1024, 8), 4, {"longfir_filter": 2, "longfir_dfilt": 3,
+                                   "ifilt2_sum": 3}),
+    "Transform2d": ((2, 136, 200), 3, {"longfir_filter": 6,
+                                       "longfir_dfilt": 6,
+                                       "longfir_ifilt": 6}),
+    "Transform3d": ((24, 32, 40), 2, {"longfir_filter": 14,
+                                      "longfir_dfilt": 7,
+                                      "longfir_ifilt": 7}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(_LONG_TRANSFORMS))
+def test_cuda_long_transforms_match_cpu(cuda, kind):
+    """Each transform's round trip with the long families on the card: the
+    launches (the 1-D inverse's 36-tap pairs stay on ifilt2_sum, whose
+    kernel takes 64), float32 against float64 on the CPU at storage
+    grade, and float64 every leaf and the inverse against device="cpu"
+    within 1e-12."""
+    shape, nl, launches = _LONG_TRANSFORMS[kind]
+    x = np.random.RandomState(7).rand(*shape)
+    tc, tg = _long_transform(kind, "cpu"), _long_transform(kind, cuda)
+    pc = tc.forward(torch.from_numpy(x), nl)
+    rc = tc.inverse(pc)
+    _build.reset_launches()
+    p32 = tg.forward(torch.from_numpy(x).float(), nl)
+    r32 = tg.inverse(p32)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == launches
+    assert _kerr(r32.cpu(), rc) < 1e-5
+    pg = tg.forward(torch.from_numpy(x), nl)
+    rg = tg.inverse(pg)
+    assert _kerr(pg.lowpass.cpu(), pc.lowpass) < 1e-12
+    assert all(_kerr(a.cpu(), c) < 1e-12
+               for a, c in zip(pg.highpasses, pc.highpasses))
+    assert _kerr(rg.cpu(), rc) < 1e-12
+
+
+@pytest.mark.cuda
+def test_cuda_long_sharded3d_matches_cpu(cuda):
+    """ShardedTransform3d on a (1, 2) card mesh with the long families:
+    level 1 depth-sharded (each shard's 32 samples hold the 24-sample
+    halo) on the long kernel's from-extension mode, float64 against the
+    CPU mesh within 1e-12."""
+    from dtcwt_tpu_torch.parallel import ShardedTransform3d, make_mesh
+    x = torch.from_numpy(np.random.RandomState(8).rand(1, 64, 16, 24))
+    mk = lambda dev: ShardedTransform3d(
+        make_mesh((1, 2), ("data", "depth"), [dev] * 2), biort=_LONG_B,
+        qshift=_LONG_Q)
+    sg, sc = mk("cuda"), mk("cpu")
+    assert sg._plan(64, 2)[0]
+    _build.reset_launches()
+    pg = sg.forward(x, 2)
+    rg = sg.inverse(pg)
+    torch.cuda.synchronize()
+    assert _build.launches["longfir_filter"] > 0
+    assert not {"hw", "filter_hw22", "dfilt_hw22", "filter2", "dfilt2"} & \
+        set(_build.launches)
+    pc = sc.forward(x, 2)
+    assert _kerr(pg.lowpass.cpu(), pc.lowpass) < 1e-12
+    assert all(_kerr(a.cpu(), c) < 1e-12
+               for a, c in zip(pg.highpasses, pc.highpasses))
+    assert _kerr(rg.cpu(), sc.inverse(pc)) < 1e-12
+
+
+def _grads(t, x, nl, seed):
+    """(d/dx of a loss on the forward's leaves, d/dleaves of a loss on
+    the inverse)."""
+    xg = x.detach().requires_grad_()
+    p = t.forward(xg, nl)
+    leaves = _grad_leaves(p)
+    rng = np.random.RandomState(seed)
+    cots = [torch.complex(*(torch.from_numpy(rng.randn(*a.shape))
+                            for _ in "ri")).to(a.device, a.dtype)
+            if a.is_complex() else
+            torch.from_numpy(rng.randn(*a.shape)).to(a.device, a.dtype)
+            for a in leaves]
+    (gx,) = torch.autograd.grad(leaves, xg, cots)
+    from dtcwt_tpu_torch.ops import linearize
+    pl = [a.detach().requires_grad_() for a in leaves]
+    z = t.inverse(linearize._fill(linearize._tree(p)[1], pl))
+    w = torch.from_numpy(rng.randn(*z.shape)).to(z.device, z.dtype)
+    return (gx,) + torch.autograd.grad(z, pl, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(_LONG_TRANSFORMS))
+def test_cuda_long_transform_grads_match_cpu(cuda, kind):
+    """Each transform's gradients with a random 35/37-tap biort family and
+    qshift_32 zero-padded to 36 taps (the explicit route for the 2-D and
+    3-D transforms, whose backward runs the long-filter kernel; the 1-D
+    transform's plain route), float64, against the plain path's autograd
+    on the CPU within 1e-12."""
+    from dtcwt_tpu_torch.ops import adjoint
+    assert adjoint.explicit_route(_LONG_B, _LONG_QADJ, torch.float64)
+    shape, nl, _ = _LONG_TRANSFORMS[kind]
+    x = torch.from_numpy(np.random.RandomState(9).rand(*shape))
+    tg = _long_transform(kind, cuda, _LONG_QADJ)
+    got = _grads(tg, x.to(cuda), nl, 10)
+    torch.cuda.synchronize()
+    want = _grads(_long_transform(kind, "cpu", _LONG_QADJ), x, nl, 10)
+    for g, w in zip(got, want):
+        assert _kerr(g.cpu(), w) < 1e-12
+
+
+@pytest.mark.cuda
+def test_cuda_long_transform2d_backward_launches(cuda, monkeypatch):
+    """The 2-D explicit backward with the long families launches the
+    long-filter kernel only (every plain version patched to raise): the
+    forward's adjoint is the inverse's chain (ifilt 3 a qshift level,
+    filter 3 for level 1), the inverse's the forward's (filter 3, dfilt 3 a
+    level)."""
+    _no_plain(monkeypatch, *_LEVELS_2D, *_DUAL)
+    t = _long_transform("Transform2d", cuda, _LONG_QADJ)
+    x = _rand((136, 200), 11, cuda, torch.float32).requires_grad_()
+    p = t.forward(x, 3)
+    leaves = _grad_leaves(p)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    torch.autograd.backward(leaves, [torch.ones_like(a) for a in leaves])
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"longfir_ifilt": 6, "longfir_filter": 3}
+    assert x.grad is not None
+
+
+@pytest.mark.cuda
+def test_cuda_long_route_refuses_inputs_that_need_grad(cuda):
+    """A long route called directly refuses an input that requires grad
+    while grad mode is on, naming device="cpu", as every wrapper does;
+    under torch.no_grad() it launches the long-filter kernel."""
+    need = r'requires grad.*device="cpu"'
+    im = torch.rand(64, 96, device=cuda, requires_grad=True)
+    v = torch.rand(16, 16, 16, device=cuda, requires_grad=True)
+    b, q = _LONG_B, _LONG_Q
+    calls = [lambda: single.colfilter(im, b[0]),
+             lambda: single.coldfilt(im, q[1], q[0]),
+             lambda: dual.filter2_axis(im, b[0], b[2], 0),
+             lambda: level1.fwd_level1(im, b[0], b[2]),
+             lambda: level2.fwd_level2(im, q[0], q[1], q[4], q[5]),
+             lambda: hw.filter_hw22(v, b[0], b[2]),
+             lambda: pack3d.fwd_level1_pack(v, b[0], b[2])]
+    for call in calls:
+        with pytest.raises(RuntimeError, match=need):
+            call()
+        _build.reset_launches()
+        with torch.no_grad():
+            call()
+        assert set(_build.launches) <= {"longfir_filter", "longfir_dfilt"}
+    torch.cuda.synchronize()

@@ -82,7 +82,7 @@ def test_every_launch_site_calls_the_guard():
     library calls ``_build.check_no_grad`` before it: the eight launch
     sites of the 2-D level kernels, the stream kernels (the dual entries
     and the single-stream ``dfilt`` and ``ifilt``), ``filter``, the 3-D
-    level kernels and the hw kernels."""
+    level kernels, the hw kernels and the long-filter kernel."""
     sites = {}
     for path in sorted(glob.glob(_OPS)):
         if os.path.basename(path) == "_build.py":
@@ -92,8 +92,8 @@ def test_every_launch_site_calls_the_guard():
     assert sorted(sites) == [
         "dual.py:_launch_stream", "hw.py:_launch",
         "ilevel1.py:inv_level1", "ilevel2.py:inv_level2",
-        "level1.py:fwd_level1",
-        "level2.py:fwd_level2", "pack3d.py:_launch", "single.py:_filter"]
+        "level1.py:fwd_level1", "level2.py:fwd_level2",
+        "longfir.py:stream", "pack3d.py:_launch", "single.py:_filter"]
     for site, (guard, lib) in sites.items():
         assert guard is not None and guard < lib, site
 
