@@ -211,8 +211,9 @@ Phases, each printing its own lines:
    operator (device time, idle share, host enqueue).  The long-filter
    kernel: each of its 18 launches in one long-family 2-D round trip
    alone against its plain version and its bound (bytes or float32
-   multiply-adds), summed by operation; ``F.conv2d`` for its first
-   column pass; the long-family round trips against the plain path, a
+   multiply-adds), summed by operation beside the earlier design's sums;
+   ``F.conv2d`` for its first column pass and its first row pass; the
+   long-family round trips against the plain path, a
    trace of the 2-D one, and the 2-D gradient's backward.
 
 Tolerances, relative to the largest reference value: float32 1e-5 (sums in
@@ -3142,16 +3143,42 @@ def check_long(dev, report) -> dict:
     return launches
 
 
-def time_long(dev, report, smi) -> None:
-    """Phase 5 for the long-filter kernel: each of its launches in one f32
-    interleaved 2-D round trip with the long families, timed alone (stream
-    held) against its plain version and its bound, summed by operation
-    into the kernels line; F.conv2d for the first filter pass; the round
-    trips (2-D in three layouts, 1-D, 3-D) against the plain path, a trace
-    of the 2-D one, and the 2-D gradient's backward."""
+# the long-filter kernel's earlier design (one output a thread, each tap
+# a load from device memory): its times over the long-family 2-D round
+# trip's launches, from this script's two runs of that design on an NVIDIA
+# H100 80GB HBM3 at 700 W
+LONG_EARLIER_MS = {"longfir_filter": "7.810-7.851", "longfir_dfilt": "1.428",
+                   "longfir_ifilt": "2.092-2.101"}
+
+
+def long_conv(name, ins, flat, axis, dev):
+    """One PyTorch call computing a filter2 pass of the long route: a
+    convolution of the pre-extended input, its 2 output channels the
+    branches; returns (call, the kernel's outputs)."""
+    from dtcwt_tpu_torch.ops import fb
+    p = max(np.size(h) for h in flat) // 2
+    w = torch.zeros((2, 2 * p + 1), dtype=torch.float64)
+    for c, h in enumerate(flat):
+        h = np.asarray(h, np.float64)
+        off = p - h.size // 2
+        w[c, off:off + h.size] = torch.from_numpy(h[::-1].copy())
+    ext = fb.symmetric_extend(ins[0], p, axis)[None, None]
+    shape = (2, 1, 2 * p + 1, 1) if axis in (-2, 0) else (2, 1, 1, 2 * p + 1)
+    weight = w.reshape(shape).to(dev, torch.float32)
+    return (lambda: F.conv2d(ext, weight)), long_call(name, ins, flat,
+                                                       axis)[0]()
+
+
+def time_long_launches(dev, report, smi) -> None:
+    """The long-filter kernel's launches in one f32 interleaved 2-D round
+    trip with the long families, each timed alone (stream held) against
+    its plain version and its bound and summed by operation into the
+    kernels line, with the earlier design's sums beside them; one F.conv2d
+    (TF32 off) for the first column pass and the first row pass (the
+    contiguous axis)."""
     import dtcwt_tpu_torch as dt
-    from dtcwt_tpu_torch.ops import dual, longfir, pack3d
-    b, q, qa = long_families()
+    from dtcwt_tpu_torch.ops import longfir
+    b, q, _ = long_families()
     t2 = dt.Transform2d(biort=b, qshift=q)
     x = rand((N, N), 61, dev, torch.float32)
     calls = []
@@ -3189,32 +3216,43 @@ def time_long(dev, report, smi) -> None:
     for k in LONG_NAMES:
         report[k].update(tot[k])
         print("time %s, its launches of one long-family 2-D round trip "
-              "(%s): kernel %.4f ms, plain %.4f ms, bound %.4f ms (%s)" % (
-                  k, smi, tot[k]["ms"], tot[k]["plain_ms"],
-                  tot[k]["bound_ms"], tot[k]["bound_by"]), flush=True)
-    # one PyTorch call computing the first filter pass (filter2 down the
-    # columns): a convolution over the pre-extended input
-    name, ins, flat, n, axis, side = calls[0]
-    p = max(np.size(h) for h in flat) // 2
-    w = torch.zeros((2, 2 * p + 1), dtype=torch.float64)
-    for c, h in enumerate(flat):
-        h = np.asarray(h, np.float64)
-        off = p - h.size // 2
-        w[c, off:off + h.size] = torch.from_numpy(h[::-1].copy())
-    from dtcwt_tpu_torch.ops import fb
-    ext = fb.symmetric_extend(ins[0], p, axis)[None, None]
-    weight = w[:, None, :, None].to(dev, torch.float32)
-    lib = lambda: F.conv2d(ext, weight)
-    got = lib()[0]
-    want = long_call(name, ins, flat, axis)[0]()
-    lms = cuda_ms(lib, hold=True)
-    report["longfir_filter"]["library_ms"] = lms
-    print("time longfir_filter library call F.conv2d [1, 1, %d, %d] to 2 "
-          "channels (TF32 off), the first column pass: %.4f ms; rel err "
-          "against the kernel %.3g" % (ext.shape[2], ext.shape[3], lms,
-                                       rel_err((got[0], got[1]), want)),
-          flush=True)
-    del calls, ext, got, want
+              "(%s): kernel %.4f ms (the earlier design: %s ms), plain "
+              "%.4f ms, bound %.4f ms (%s), %.1f%% of the bound" % (
+                  k, smi, tot[k]["ms"], LONG_EARLIER_MS[k],
+                  tot[k]["plain_ms"],
+                  tot[k]["bound_ms"], tot[k]["bound_by"],
+                  100 * tot[k]["bound_ms"] / tot[k]["ms"]), flush=True)
+    # one PyTorch call computing the first column pass (filter2 down the
+    # columns) and the first row pass (along the contiguous axis)
+    for what, i in (("column", 0), ("row", next(
+            k for k, c in enumerate(calls)
+            if c[0] == "filter2" and c[4] in (-1, 1)))):
+        name, ins, flat, n, axis, side = calls[i]
+        lib, want = long_conv(name, ins, flat, axis, dev)
+        got = lib()[0]
+        lms = cuda_ms(lib, hold=True)
+        kms = cuda_ms(long_call(name, ins, flat, axis)[0], hold=True)
+        if what == "column":
+            report["longfir_filter"]["library_ms"] = lms
+        print("time longfir_filter library call F.conv2d %s to 2 channels "
+              "(TF32 off), the first %s pass: %.4f ms against the kernel's "
+              "%.4f ms; rel err against the kernel %.3g" % (
+                  list(got.shape), what, lms, kms,
+                  rel_err((got[0], got[1]), want)), flush=True)
+        del got, want, lib
+
+
+def time_long(dev, report, smi) -> None:
+    """Phase 5 for the long-filter kernel: its launches
+    (:func:`time_long_launches`); the round trips (2-D in three layouts,
+    1-D, 3-D) against the plain path, a trace of the 2-D one, and the 2-D
+    gradient's backward."""
+    import dtcwt_tpu_torch as dt
+    from dtcwt_tpu_torch.ops import dual, pack3d
+    time_long_launches(dev, report, smi)
+    b, q, qa = long_families()
+    t2 = dt.Transform2d(biort=b, qshift=q)
+    x = rand((N, N), 61, dev, torch.float32)
     for label, dtype, layout in LAYOUTS:
         xd = x.to(dtype)
         run = lambda: t2.inverse(t2.forward(xd, NLEVELS, layout=layout))

@@ -128,10 +128,10 @@ for _name, _n_ptr in (("filter_hw22", 8), ("dfilt_hw22", 8),
         _P,) * 3 + (_I,) * 7 + (_P,)
 
 # the long-filter kernel of csrc/longfir.cu: x0, x1, y0, y1, outer, n_in,
-# inner, sum, side, refl, taps (device), meta (host), dtype, vc, tx, stream
+# inner, sum, side, refl, taps (device), meta and tile (host), dtype, stream
 _L = ctypes.c_longlong
 _SIGNATURES["dtcwt_longfir"] = (_P,) * 4 + (_L, _I, _L) + (_I,) * 3 + (
-    _P, _P) + (_I,) * 3 + (_P,)
+    _P,) * 3 + (_I, _P)
 
 #: Kernel launches per wrapper, counted where each wrapper launches.
 launches = collections.Counter()

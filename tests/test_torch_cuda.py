@@ -2655,6 +2655,78 @@ def test_cuda_long_stream_entries_match_plain(cuda, name, dtype, mode):
                                                                      axis)
 
 
+def _long_edges(name):
+    """Filter sets of entry *name* whose streams fill 1, 2 and 3 chunks of
+    the kernel's 8 taps (LF_MT) from one tap short of an edge to one past
+    it: 7, 9, 17 taps (filter), qshift pairs of 8, 10, 18 (dfilt, a
+    stream a filter), 14, 18, 34 (ifilt, half a filter, one tap more where
+    a stream starts a window step in), then a few hundred taps, staged
+    again along the rows (301, pairs of 300)."""
+    P = longfir.STREAMS[name]
+    two = name in ("filter2", "filter2_sum", "dfilt2", "ifilt2_sum")
+    sets = []
+    for i, m in enumerate({1: (7, 9, 17, 301), 2: (8, 10, 18, 300),
+                           4: (14, 18, 34, 300)}[P]):
+        if P == 1:
+            other = m if name == "filter2_sum" else m + 1
+            sets.append((_lt(m, i),) + ((_lt(other, i + 9),) if two else ()))
+        else:
+            pair = lambda k, i=i, m=m: (_lt(m, i + k), _lt(m, i + k + 1))
+            sets.append((pair(0), pair(2)) if two else pair(0))
+    return sets
+
+
+def _least_side(name, flat):
+    """The least extension a side that the plain from-extension versions
+    take (fb's own widths: half a filter for filter and ifilt, a whole
+    filter for dfilt)."""
+    P = longfir.STREAMS[name]
+    return max(np.size(h) // (1 if P == 2 else 2) for h in flat)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["reflect", "fromext"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("name", list(_LONG_STREAMS))
+def test_cuda_long_kernel_at_its_tile_and_chunk_edges(cuda, name, dtype,
+                                                      mode):
+    """The long-filter kernel itself (``longfir.stream``, whatever the
+    entry's bound) at its chunk edges and past one staging round
+    (:func:`_long_edges`), in from-extension mode with the least side
+    the plain versions take, with inner 1 (rows path: one block of 3 rows,
+    and 300 rows in several), 3 (columns, one a thread) and 4096
+    (columns, a 16-byte vector a thread): one launch against the entry's
+    plain version."""
+    mod, n_in, _ = _LONG_STREAMS[name]
+    op = longfir._OPS[longfir.STREAMS[name]][0]
+    for f in _long_edges(name):
+        flat = tuple(h for g in f for h in (g if isinstance(g, tuple)
+                                            else (g,)))
+        for seed, (shape, axis) in enumerate((((3, 40), -1),
+                                              ((300, 40), -1), ((40, 3), 0),
+                                              ((2, 20, 4096), 1))):
+            n = shape[axis]
+            xs = [_rand(shape, seed + k, cuda, dtype) for k in range(n_in)]
+            if mode == "reflect":
+                side, ins = None, xs
+                plain = getattr(mod, name + "_axis_reference")
+                want = plain(*ins, *f, axis)
+            else:
+                side = _least_side(name, flat)
+                ins = [fb.symmetric_extend(x, side, axis).contiguous()
+                       for x in xs]
+                plain = getattr(mod, name + "_fromext_axis_reference")
+                want = plain(*ins, side, *f, axis)
+            _build.reset_launches()
+            out = longfir.stream(name, ins, flat, n, axis, side)
+            torch.cuda.synchronize()
+            assert dict(_build.launches) == {"longfir_" + op: 1}
+            got = tuple(out) if len(out) > 1 else out[0]
+            assert _kerr(got, want) < _LTOL[dtype], (
+                [np.size(h) for h in flat], shape, axis, side)
+
+
 def _long_level_cases(cuda, dtype, planes):
     """entry -> (call, plain version, launches) of every level and hw
     entry with filters past its bound."""

@@ -15,12 +15,15 @@
   planning refuses it.
 * A replay of ``csrc/longfir.cu``'s index map: :class:`_Replay` stands in
   for the kernel library and runs the kernel's arithmetic thread by thread
-  of every block on host memory (the block decomposition, each thread's
-  row and columns, the stream, group and offset of each output, the fold
-  of the reflection, the from-extension shift), checking that every output
-  is written exactly once; each long route, from a wrapper down to the
-  kernel's arguments, runs through it against its plain version with its
-  launch counts.
+  of every block on host memory (the path and tiling checks of the C
+  entry, the block decomposition, each thread's columns and groups, the
+  chunk loop over each slot's zero-padded taps, the rows path's staging
+  rounds with the fold once a staged sample, the from-extension shift),
+  checking that every output is written exactly once; each long route,
+  from a wrapper down to the kernel's arguments, runs through it against
+  its plain version with its launch counts, as do filters of many chunks
+  and staging rounds and the sharded 2-D and 1-D long routes (those also
+  on the plain path, against the unsharded transform).
 """
 
 import ctypes
@@ -272,7 +275,11 @@ def test_route_rule_at_each_bound(name):
 
 _CTYPES = {np.float32: ctypes.c_float, np.float64: ctypes.c_double,
            np.int32: ctypes.c_int32, np.uint16: ctypes.c_uint16}
-_THREADS = 256      # csrc/longfir.cu LF_THREADS
+# csrc/longfir.cu: LF_THREADS, LF_MT, LF_SMEM_MAX; (P, branches, sum) of
+# its instances
+_THREADS, _MT, _SMEM_MAX = 256, 8, 227 * 1024
+_INSTANCES = {(1, 1, 0), (1, 2, 0), (1, 2, 1), (2, 1, 0), (2, 2, 0),
+              (4, 1, 0), (4, 2, 1)}
 
 
 def _mem(ptr, n, dtype):
@@ -313,13 +320,20 @@ def _to_storage(v, dt):
 
 class _Replay:
     """The kernel library with ``dtcwt_longfir`` replayed on host memory:
-    every thread of every block, as csrc/longfir.cu computes them (all
-    threads at once, in numpy); the outputs' write counts are kept.  Any
-    other entry (an in-bound kernel) is recorded and does nothing."""
+    the C entry's checks of the plan and the tiling against the instance,
+    then every thread of every block of ``lf_cols`` or ``lf_rows`` as
+    csrc/longfir.cu computes them (all threads at once, in numpy): the
+    chunk loop over each slot's zero-padded taps, each thread's columns,
+    groups and window, the rows path's staging rounds into shared memory
+    (the fold once a staged sample; the cells a round does not stage read
+    as NaN) and its register windows, and the stores, whose write counts
+    are kept.  Any other entry (an in-bound kernel) is recorded and does
+    nothing."""
 
     def __init__(self):
         self.other = []
         self.writes = []
+        self.tiles = []
 
     def __getattr__(self, name):
         if not name.startswith("dtcwt_"):
@@ -331,73 +345,195 @@ class _Replay:
         return stub
 
     def dtcwt_longfir(self, x0, x1, y0, y1, outer, n_in, inner, sum_, side,
-                      refl, taps, meta, dtype, vc, tx, stream):
-        meta = _mem(meta, 30, np.int32).astype(np.int64)
-        P, D, S, nb, g0, g1 = meta[:6]
+                      refl, taps, meta, tile, dtype, stream):
+        P, nb, g0, g1, base0, base1, sw0, sw1, chunks = (
+            int(v) for v in _mem(meta, 9, np.int32))
+        mt, path, v, vc, tx, rows, seg, cr, smem = (
+            int(v) for v in _mem(tile, 9, np.int32))
+        self.tiles.append(dict(path=path, vc=vc, rows=rows, cr=cr,
+                               chunks=chunks))
+        assert (P, nb, int(sum_)) in _INSTANCES and mt == _MT
+        assert 0 <= sw0 <= 1 and 0 <= sw1 <= 1 and chunks >= 1
+        assert P > 1 or sw0 == sw1 == 0
+        if sum_:
+            assert g0 == g1 and sw0 == sw1
+        elif nb == 2:
+            assert base0 == base1
+        assert 1 <= cr <= chunks and tx & (tx - 1) == 0 and 1 <= tx <= 256
         g = [g0, g1 if nb == 2 else 0]
-        lens, offs, tap0 = meta[6:14], meta[14:22], meta[22:30]
+        shift = 0 if refl else side
+        lay = dict(P=P, nb=nb, sum_=bool(sum_), g=g, gn=max(g),
+                   base=[base0 + shift, base1 + shift], sw=[sw0, sw1],
+                   chunks=chunks, D={1: 1, 2: 4, 4: 2}[P], S=1 if P == 1
+                   else 2, slots=P if sum_ else P * nb, outer=outer,
+                   n_in=n_in, inner=inner, refl=refl)
         # storage and accumulator types: bfloat16 is stored as the top 16
         # bits of a float32 and accumulates in float32
         dt = {0: np.float32, 1: np.uint16, 2: np.float64}[dtype]
         acc_t = np.float64 if dtype == 2 else np.float32
-        ty = _THREADS // tx
-        rows = P * max(g)
+        xs = [_load(_mem(x0, outer * n_in * inner, dt))]
+        if sum_:
+            xs.append(_load(_mem(x1, outer * n_in * inner, dt)))
+        t = _mem(taps, P * nb * chunks * _MT, acc_t).reshape(P * nb, -1)
+        run = self._cols if path == 1 else self._rows
+        outs = run(lay, xs, t, acc_t, dtype == 2, v, vc, tx, rows, seg, cr,
+                   smem)
+        for b, (idx, val) in outs.items():
+            ptr = y1 if b else y0
+            n = outer * P * g[b] * inner
+            y = _mem(ptr, n, dt)
+            y[idx] = _to_storage(val, dt)
+            count = np.zeros(n, np.int64)
+            np.add.at(count, idx, 1)
+            self.writes.append(count)
+        return 0
+
+    @staticmethod
+    def _phase(q, P):
+        return (q % P) & 1 if P > 1 else 0
+
+    def _pick(self, lay, b):
+        """(accumulator index) of each output stream s of branch b."""
+        P, sw = lay["P"], lay["sw"][b]
+        base = 0 if lay["sum_"] else b * P
+        return [base + (s ^ sw if P > 1 else s) for s in range(P)]
+
+    def _cols(self, lay, xs, t, acc_t, wide, rv, vc, tx, rows, seg, cr,
+              smem):
+        P, D, S, slots = lay["P"], lay["D"], lay["S"], lay["slots"]
+        outer, n_in, inner, gn = lay["outer"], lay["n_in"], lay["inner"], \
+            lay["gn"]
+        assert inner >= 2 and rv == 8 // slots
+        assert vc in (1, 2 if wide else 4) and inner % vc == 0
+        assert rows == 1 and seg == (_THREADS // tx) * rv and smem == 0
+        assert cr == lay["chunks"]
         col_tiles = -(-inner // (tx * vc))
-        row_tiles = -(-rows // ty)
+        row_tiles = -(-gn // seg)
         blocks = outer * row_tiles * col_tiles
-        assert 1 <= blocks <= _build.INT_MAX and tx & (tx - 1) == 0
+        assert 1 <= blocks <= _build.INT_MAX
         blk = np.repeat(np.arange(blocks), _THREADS)
         tid = np.tile(np.arange(_THREADS), blocks)
         ct, rest = blk % col_tiles, blk // col_tiles
         rt, o = rest % row_tiles, rest // row_tiles
-        i = rt * ty + tid // tx
-        c0 = ct * tx * vc + tid % tx
-        live = c0 < inner
-        i, c0, o = i[live], c0[live], o[live]
-        s, grp = i % P, i // P
-        shift = 0 if refl else side
-        xs = [_load(_mem(x0, outer * n_in * inner, dt))]
-        if sum_:
-            xs.append(_load(_mem(x1, outer * n_in * inner, dt)))
-        nt = int(tap0[:P * nb].max() + lens[:P * nb].max())
-        t = _mem(taps, nt, acc_t)
-        total = np.zeros((i.size, vc), acc_t)
-        for b in range(nb):
-            ok = grp < g[b]
-            q = b * P + s
-            j0 = D * grp + offs[q] + shift
-            x = xs[1 if sum_ and b == 1 else 0]
-            acc = np.zeros((i.size, vc), acc_t)
-            for k in range(int(lens[q].max())):
-                on = ok & (k < lens[q])
-                src = _source(j0 + S * k, n_in, refl)
-                assert (src[on] >= 0).all(), "a read outside the buffer"
-                tk = t[np.where(on, tap0[q] + k, 0)]
-                for v in range(vc):
-                    col = c0 + v * tx
-                    m = on & (col < inner)
-                    idx = (o[m] * n_in + src[m]) * inner + col[m]
-                    acc[m, v] += tk[m] * x[idx]
-            if sum_:
-                total += np.where(ok[:, None], acc, 0)
-            else:
-                self._store(y1 if b else y0, outer * P * g[b] * inner, dt,
-                            ok, acc, o, i, c0, P * g[b], inner, vc, tx)
-        if sum_:
-            self._store(y0, outer * P * g[0] * inner, dt, grp < g[0], total,
-                        o, i, c0, P * g[0], inner, vc, tx)
-        return 0
+        c0 = (ct * tx + tid % tx) * vc
+        i0 = (rt * (_THREADS // tx) + tid // tx) * rv
+        live = (c0 < inner) & (i0 < gn)
+        c0, i0, o = c0[live], i0[live], o[live]
+        nwr = (D // S) * (rv - 1) + _MT     # window rows (pairs) a chunk
+        acc = np.zeros((c0.size, rv, slots, vc), acc_t)
+        cols = c0[:, None] + np.arange(vc)
+        for b, x in enumerate(xs):
+            x = x.reshape(outer, n_in, inner)
+            jc0 = D * i0 + lay["base"][b]
+            for c in range(lay["chunks"]):
+                tk = t[b * slots:(b + 1) * slots, c * _MT:(c + 1) * _MT]
+                jc = jc0 + S * _MT * c
+                fast = (jc >= 0) & (jc + S * nwr <= n_in)
+                j = jc[:, None] + np.arange(S * nwr)
+                src = np.where(fast[:, None], j, _source(j, n_in, lay["refl"]))
+                assert ((src[fast] >= 0) & (src[fast] < n_in)).all()
+                ok = src >= 0
+                win = np.where(ok[:, :, None], x[o[:, None, None],
+                                                  np.maximum(src, 0)[:, :, None],
+                                                  cols[:, None, :]], 0)
+                for v in range(rv):
+                    for q in range(slots):
+                        idx = D * v + self._phase(q, P) + S * np.arange(_MT)
+                        assert idx.max() < S * nwr
+                        acc[:, v, q] += np.einsum("k,nkc->nc", tk[q],
+                                                  win[:, idx].astype(acc_t))
+        outs = {}
+        for b in range(1 if lay["sum_"] else lay["nb"]):
+            g, pick = lay["g"][b], self._pick(lay, b)
+            idx, val = [], []
+            for v in range(rv):
+                i = i0 + v
+                ok = i < g
+                for s in range(P):
+                    row = (o * P * g + P * i + s) * inner
+                    idx.append((row[:, None] + cols)[ok].ravel())
+                    val.append(acc[ok, v, pick[s]].ravel())
+            outs[b] = (np.concatenate(idx), np.concatenate(val))
+        return outs
 
-    def _store(self, ptr, n, dt, ok, acc, o, i, c0, rows, inner, vc, tx):
-        y = _mem(ptr, n, dt)
-        count = np.zeros(n, np.int64)
-        for v in range(vc):
-            col = c0 + v * tx
-            m = ok & (col < inner)
-            idx = (o[m] * rows + i[m]) * inner + col[m]
-            y[idx] = _to_storage(acc[m, v], dt)
-            np.add.at(count, idx, 1)
-        self.writes.append(count)
+    def _rows(self, lay, xs, t, acc_t, wide, gv, vc, tx, rows, seg, cr,
+              smem):
+        P, D, S, slots = lay["P"], lay["D"], lay["S"], lay["slots"]
+        outer, n_in, gn, chunks = lay["outer"], lay["n_in"], lay["gn"], \
+            lay["chunks"]
+        nin = len(xs)
+        assert lay["inner"] == 1 and vc == 1 and tx == 1
+        assert gv == ((6 if P == 1 else 3) if wide else {1: 12, 2: 3, 4: 6}[P])
+        assert seg % gv == 0 and rows * (seg // gv) <= _THREADS
+        n_seg = -(-gn // seg)
+        assert n_seg == 1 or rows == 1
+        V, asize = (2, 8) if wide else (4, 4)
+        wp = -(-(D * (seg - 1) + S * _MT * cr + V - 1) // V) * V
+        bufs = 2 if cr < chunks else 1
+        assert smem == bufs * nin * rows * wp * asize <= _SMEM_MAX
+        nw = D * (gv - 1) + S * _MT      # a chunk's window samples
+        nwv = -(-nw // V) * V
+        assert (D * gv) % V == 0 and (S * _MT) % V == 0
+        # a block a unit (segment of rows), its rounds staged into buffer
+        # round & 1
+        units = -(-outer // rows) * n_seg
+        assert 1 <= units <= _build.INT_MAX
+        rounds = -(-chunks // cr)
+        bi = np.arange(units)
+        o0 = (bi // n_seg) * rows
+        nrows = np.minimum(rows, outer - o0)
+        s0 = (bi % n_seg) * seg
+        items = -(-np.minimum(seg, gn - s0) // gv)
+        blk = np.repeat(bi, _THREADS)
+        tid = np.tile(np.arange(_THREADS), units)
+        r = tid // items[blk]
+        q = tid - r * items[blk]
+        live = r < nrows[blk]
+        blk, r, q = blk[live], r[live], q[live]
+        acc = np.zeros((blk.size, gv, slots), acc_t)
+        sm = np.full((units, bufs, nin, rows, wp), np.nan, acc_t)
+        for rd in range(rounds):
+            cn = min(cr, chunks - rd * cr)
+            W = D * (seg - 1) + S * _MT * cn
+            bf = np.full(units, rd & 1)
+            assert bufs == 2 or rd == 0
+            sm[bi, bf] = np.nan
+            for b, x in enumerate(xs):
+                js = D * s0 + lay["base"][b] + S * _MT * cr * rd
+                fast = (js >= 0) & (js + W <= n_in)
+                j = js[:, None] + np.arange(W)
+                src = np.where(fast[:, None], j, _source(j, n_in, lay["refl"]))
+                for k in range(rows):
+                    on = k < nrows
+                    row = x.reshape(outer, n_in)[np.minimum(o0 + k, outer - 1)]
+                    vals = np.where(src >= 0, np.take_along_axis(
+                        row, np.maximum(src, 0), 1), 0)
+                    sm[bi[on], bf[on], b, k, :W] = vals[on]
+            for c in range(rd * cr, rd * cr + cn):
+                for b in range(nin):
+                    tk = t[b * slots:(b + 1) * slots, c * _MT:(c + 1) * _MT]
+                    e0 = D * gv * q + S * _MT * (c - rd * cr)
+                    assert (e0 + nwv <= wp).all()
+                    win = sm[blk, bf[blk], b, r]
+                    for v in range(gv):
+                        for k in range(slots):
+                            idx = (e0[:, None] + D * v + self._phase(k, P)
+                                   + S * np.arange(_MT))
+                            acc[:, v, k] += (np.take_along_axis(win, idx, 1)
+                                             * tk[k]).sum(1)
+        outs = {}
+        i0 = s0[blk] + gv * q
+        o = o0[blk] + r
+        for b in range(1 if lay["sum_"] else lay["nb"]):
+            g, pick = lay["g"][b], self._pick(lay, b)
+            ok = i0 < g
+            n = P * np.minimum(g - i0, gv)
+            val = acc[:, :, pick].reshape(blk.size, gv * P)
+            e = np.arange(gv * P)
+            on = ok[:, None] & (e < n[:, None])
+            idx = (o * P * g + P * i0)[:, None] + e
+            outs[b] = (idx[on], val[on])
+        return outs
 
 
 @pytest.fixture
@@ -490,6 +626,64 @@ def test_longfir_filter_longer_than_the_axis(replay):
     q = (_r(36), _r(36, 1))
     assert _rel(single.dfilt_axis(x.transpose(1, 2).contiguous(), *q, -1),
                 single.dfilt_axis_reference(x.transpose(1, 2), *q, -1)) < TOL
+
+
+# case -> (entry, filters, shape, axis, staging rounds of a float32 rows
+# launch, 0 for the columns path): several chunks of taps (131 taps: 17 of
+# 8; an ifilt pair of 130: 9), several staging rounds (301 taps: 38 chunks
+# in rounds of 32; qshift pairs of 300: rounds of 16), filters longer than
+# the axis they filter, columns one and four a thread, rows in several
+# blocks (many short rows, and a row longer than one segment of 256 items)
+_CHUNK_CASES = {
+    "filter 131 rows": ("filter", lambda: (_r(131),), (3, 40), -1, 1),
+    "filter2 131/130 cols": ("filter2", lambda: (_r(131), _r(130, 1)),
+                             (40, 6), 0, 0),
+    "ifilt 130 cols": ("ifilt", lambda: (_r(130), _r(130, 1)), (2, 36, 8),
+                       1, 0),
+    "ifilt2_sum 130 rows": ("ifilt2_sum", lambda: (
+        (_r(130), _r(130, 1)), (_r(130, 2), _r(130, 3))), (3, 36), -1, 1),
+    "filter 301 rows": ("filter", lambda: (_r(301),), (100, 50), -1, 2),
+    "filter2_sum 301/299 rows": ("filter2_sum", lambda: (_r(301),
+                                                         _r(299, 1)),
+                                 (2, 60), -1, 2),
+    "dfilt2 300 rows": ("dfilt2", lambda: ((_r(300), _r(300, 1)),
+                                           (_r(300, 2), _r(300, 3))),
+                        (90, 64), -1, 3),
+    "ifilt 300 rows": ("ifilt", lambda: (_r(300), _r(300, 1)), (80, 40), -1,
+                       2),
+    "dfilt 300 cols": ("dfilt", lambda: (_r(300), _r(300, 1)), (64, 5), 0,
+                       0),
+    "filter2 segments": ("filter2", lambda: (_r(35), _r(36, 1)), (2, 5000),
+                         -1, 1),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("mode", ["reflect", "fromext"])
+@pytest.mark.parametrize("case", list(_CHUNK_CASES))
+def test_longfir_replay_chunks_and_rounds(replay, case, mode, dtype):
+    """Filters of many chunks, over several staging rounds, longer than
+    their axis, rows in several blocks: one launch, replayed, against the
+    plain version, on the path and with the rounds the case names."""
+    name, filters, shape, axis, rounds = _CHUNK_CASES[case]
+    f = filters()
+    kern, plain = _entry(name, mode == "fromext")
+    n_in = 2 if name.endswith("_sum") else 1
+    args = [_rand(shape, k, dtype) for k in range(n_in)]
+    if mode == "fromext":
+        side = max(_lens(f)) + 40
+        args = [fb.symmetric_extend(x, side, axis).contiguous()
+                for x in args] + [side]
+    got = kern(*args, *f, axis)
+    tol = {torch.float64: TOL, torch.float32: TOL32, torch.bfloat16: 1e-2}[
+        dtype]
+    assert _rel(got, plain(*args, *f, axis)) < tol
+    tile = replay.tiles[-1]
+    assert tile["chunks"] > 1 and tile["path"] == (0 if rounds else 1)
+    if rounds and dtype == torch.float32:
+        assert -(-tile["chunks"] // tile["cr"]) == rounds
+    assert not replay.other
 
 
 def test_in_bound_filters_keep_their_kernels(replay):
@@ -661,6 +855,60 @@ def test_transforms_on_the_long_route(replay, kind, mq, nl, launches):
         mp.setattr(_build, "on_cpu", lambda _x, _n: True)
         want = t.forward(x, nl)
         _check(p, want, rec, t.inverse(want))
+
+
+# mesh -> (mesh shape, axis names, constructor keywords, input, levels,
+# levels sharded along rows and along columns (2-D) or the signal (1-D))
+_SHARDED_LONG = {
+    "2-D rows": ((1, 4), ("data", "rows"), {}, (1, 1024, 64), 3),
+    "2-D cols": ((1, 2, 2), ("data", "rows", "cols"), {"cols_axis": "cols"},
+                 (1, 512, 512), 3),
+    "1-D": ((1, 4), ("data", "rows"), {}, (1, 2048, 3), 3),
+}
+
+
+@pytest.mark.parametrize("route", ["plain", "kernel"])
+@pytest.mark.parametrize("mesh", list(_SHARDED_LONG))
+def test_sharded_long_route(mesh, route, monkeypatch):
+    """``ShardedTransform2d`` on a rows and a cols mesh with the 35/37-tap
+    biort and 36-tap qshift family, ``ShardedTransform1d`` on a (1, 4)
+    mesh with a 130-tap qshift family: levels 1 and 2 run sharded (their
+    shards hold the long filters' halos), and every leaf and the inverse
+    agree with the unsharded transform within 1e-12 (float64), on the
+    plain path and on the card's route (the long-filter kernel replayed,
+    no launch of any other kernel; the 2-D route with a 66-tap qshift
+    family, past the sharded inverse's ``ifilt2_sum`` bound of 64)."""
+    from dtcwt_tpu_torch.parallel import ShardedTransform1d, \
+        ShardedTransform2d
+    mshape, names, kw, shape, nl = _SHARDED_LONG[mesh]
+    one_d = mesh == "1-D"
+    q = _qshift(130) if one_d else _Q if route == "plain" else _qshift(66)
+    m = make_mesh(mshape, names, ["cpu"] * int(np.prod(mshape)))
+    cls = ShardedTransform1d if one_d else ShardedTransform2d
+    ts = cls(m, biort=_B, qshift=q, **kw)
+    x = _rand(shape, 11)
+    if one_d:
+        assert ts._plan(shape[1], nl)[:2] == [True, True]
+        t = tdt.Transform1d(biort=_B, qshift=q, device="cpu")
+    else:
+        for plan in ts._plan(shape[1], shape[2], nl)[:2 if kw else 1]:
+            assert plan[:2] == [True, True]
+        t = tdt.Transform2d(biort=_B, qshift=q, device="cpu")
+    want = t.forward(x, nl)
+    want_rec = t.inverse(want)
+    if route == "kernel":
+        lib = _Replay()
+        monkeypatch.setattr(_build, "library", lambda: lib)
+        monkeypatch.setattr(_build, "stream_ptr", lambda _d: 0)
+        monkeypatch.setattr(_build, "on_cpu", lambda _x, _n: False)
+    _build.reset_launches()
+    p = ts.forward(x, nl)
+    rec = ts.inverse(p)
+    if route == "kernel":
+        assert not lib.other and all((c == 1).all() for c in lib.writes)
+        assert set(_build.launches) == {"longfir_filter", "longfir_dfilt",
+                                        "longfir_ifilt"}
+    _check(p, want, rec, want_rec)
 
 
 def test_the_c_entry_and_its_ctypes_types_agree():

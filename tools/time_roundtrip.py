@@ -7,6 +7,7 @@ not require grad.
     python tools/time_roundtrip.py          # from the repository's root
     python tools/time_roundtrip.py 100      # repetitions (default 50)
     python tools/time_roundtrip.py summarize PAIRS BASE CHANGE
+    python tools/time_roundtrip.py routes   # the route rule's host cost
 
 Prints the card's name and power limit, then one line per round trip: the
 wall time a caller waits (CUDA events, host work included), the device
@@ -24,6 +25,10 @@ lines after a header ``== pair N SIDE`` (SIDE BASE or CHANGE, the order
 alternating from pair to pair), and prints for each round trip and time
 the medians over the pairs of both sides, the spread between the base's
 quartiles and the number of pairs in which the change was slower.
+
+``routes`` counts, for each round trip, the calls of the wrappers' route
+rule (``_build.within_bound``, where the package has one) and times those
+calls again on the host, alone: what the rule adds to the enqueue.
 """
 
 import importlib.util
@@ -117,9 +122,43 @@ def summarize(path: str, base: str, change: str) -> int:
     return 0
 
 
+def routes() -> int:
+    """The route rule's calls a round trip and their host time."""
+    if not hasattr(_build, "within_bound"):
+        print("package %s has no route rule" % os.path.dirname(dt.__file__))
+        return 0
+    rule = _build.within_bound
+    calls = []
+
+    def counting(name, lengths):
+        calls.append((name, list(lengths)))
+        return rule(name, lengths)
+    _build.within_bound = counting
+    reps = 1000
+    for label, fn in cases(torch.device("cuda")):
+        fn()
+        torch.cuda.synchronize()
+        calls.clear()
+        fn()
+        torch.cuda.synchronize()
+        got = list(calls)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            for name, lengths in got:
+                rule(name, lengths)
+        ms = 1e3 * (time.perf_counter() - t0) / reps
+        print("route rule %s: %d calls a round trip, %.4f ms of host time "
+              "a round trip (%.2f us a call)" % (
+                  label, len(got), ms, 1e3 * ms / max(1, len(got))))
+    _build.within_bound = rule
+    return 0
+
+
 def main() -> int:
     if len(sys.argv) == 5 and sys.argv[1] == "summarize":
         return summarize(*sys.argv[2:])
+    if sys.argv[1:] == ["routes"]:
+        return routes()
     reps = int(sys.argv[1]) if len(sys.argv) > 1 else 50
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)

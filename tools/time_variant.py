@@ -15,6 +15,7 @@ kernels, on one NVIDIA GPU.
         dual kernels --set 'dual._COL_TX={2: 64, 4: 32, 8: 256}'
     python tools/time_variant.py VARIANT.cu dtcwt_dfilt,dtcwt_ifilt dual \
         kernels
+    python tools/time_variant.py VARIANT.cu dtcwt_longfir long
 
 Compiles ``VARIANT.cu`` (an edited copy of a ``csrc/*.cu`` file; its
 includes are searched in its own directory first, then in ``csrc/``, so a
@@ -27,11 +28,12 @@ or several, comma-separated: ``dtcwt_level2``, ``dtcwt_level1``,
 ``dtcwt_inv_level2_pack``, ``dtcwt_filter_hw22``, ``dtcwt_dfilt_hw22``,
 ``dtcwt_filter_sum_hw22``, ``dtcwt_ifilt_sum_hw22``, ``dtcwt_filter2``,
 ``dtcwt_dfilt2``, ``dtcwt_filter2_sum``, ``dtcwt_ifilt2_sum``,
-``dtcwt_dfilt``, ``dtcwt_ifilt``) to it and
+``dtcwt_dfilt``, ``dtcwt_ifilt``, ``dtcwt_longfir``) to it and
 every other entry to the package's
 library, then runs ``tools/time_level1.py`` in the given mode,
 ``tools/time_pack3d.py`` for the mode ``pack3d``, ``tools/time_hw.py`` for
-the mode ``hw`` or ``tools/time_dual.py`` for the mode ``dual`` (a last
+the mode ``hw``, ``tools/time_dual.py`` for the mode ``dual`` or
+``tools/time_long.py`` for the mode ``long`` (a last
 argument ``kernels``
 stops any of them after the kernel lines).  A kernel's design is tuned
 this way without rebuilding every source for each variant.  ``--set
@@ -56,8 +58,9 @@ from dtcwt_tpu_torch.ops import _build  # noqa: E402
 
 def main() -> int:
     modes = ("level1", "ilevel1", "level2", "ilevel2", "pack3d", "hw",
-             "dual")
-    tools = {"pack3d": "time_pack3d", "hw": "time_hw", "dual": "time_dual"}
+             "dual", "long")
+    tools = {"pack3d": "time_pack3d", "hw": "time_hw", "dual": "time_dual",
+             "long": "time_long"}
     sets = []
     while "--set" in sys.argv[:-1]:
         i = sys.argv.index("--set")
