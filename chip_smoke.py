@@ -71,7 +71,14 @@ complex float32, float32 planes, bfloat16 planes):
   zero-padded to 36 taps: the long-filter kernel of ``csrc/longfir.cu``
   in place of every level kernel (``longfir_filter`` / ``dfilt`` /
   ``ifilt`` 6/6/6 a 2-D round trip, 14/14/14 a 3-D one; the 1-D inverse
-  keeps ``ifilt2_sum``, whose kernel takes pairs of 64).
+  keeps ``ifilt2_sum``, whose kernel takes pairs of 64);
+* the examples as a user runs them: ``examples/register_video_torch.py``
+  (the GOP pipeline at its defaults, GOPs of 8 at 5 levels) on a 15 x
+  1080 x 1920 stack, in one process and in two processes on the one card
+  (``torch.distributed``, gloo on localhost), each merged, then resumed:
+  ``fwd_level1`` 1 and ``fwd_level2`` 4 launches a GOP in each rank; and
+  ``examples/dtcwt_3d_directionality_torch.py``'s 28 inverses at 32^3
+  (rows 14-17 and the dual kernels along depth).
 
 Phases, each printing its own lines:
 
@@ -216,6 +223,17 @@ Phases, each printing its own lines:
    long-family round trips against the plain path, a
    trace of the 2-D one, and the 2-D gradient's backward.
 
+6. examples: the GOP pipeline's runs (exit codes and walls), each rank's
+   GOPs and their launches, the resume skip, the two merged files equal
+   within 1e-6 absolute, each GOP's part file against
+   ``estimatereg_batched`` of the GOP in this process (1e-5), the CUDA
+   device in every rank's log, each GOP's seconds and the time a frame
+   pair; the 3-D example's launches (``filter2``, ``fwd_level1_pack``,
+   ``dfilt2``, ``fwd_level2_pack`` 1 each, ``inv_level2_pack``,
+   ``ifilt2_sum``, ``inv_level1_pack``, ``filter2_sum`` 28 each), unit
+   directions, and wavelets against a ``device="cpu"`` run (1e-5); the
+   phase's seconds.
+
 Tolerances, relative to the largest reference value: float32 1e-5 (sums in
 another order), bfloat16 1e-2 (one bfloat16 step of the stored outputs),
 float64 1e-12.  Reconstruction: float32 1e-4, bfloat16 0.04 (2-D, 1-D) and
@@ -231,10 +249,15 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import importlib.util
 import json
+import os
+import re
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -2180,12 +2203,12 @@ def registration_pair(dev, dtype=torch.float32):
     return on(f1), on(f2)
 
 
-def gop_frames(dev):
-    """A GOP of 8 frames of 1920 x 1080: windows of one smooth field that
-    drift by (1, 2) pixels a frame."""
-    big = smooth_field(GOP_H + GOP, GOP_W + 2 * GOP, 9).astype(np.float32)
+def gop_frames(dev, n=GOP):
+    """*n* frames of 1920 x 1080 (a GOP of 8 by default): windows of one
+    smooth field that drift by (1, 2) pixels a frame."""
+    big = smooth_field(GOP_H + n, GOP_W + 2 * n, 9).astype(np.float32)
     frames = np.stack([big[k:k + GOP_H, 2 * k:2 * k + GOP_W]
-                       for k in range(GOP)])
+                       for k in range(n)])
     return torch.from_numpy(frames).to(dev)
 
 
@@ -2430,6 +2453,193 @@ def time_algorithms(dev, smi) -> None:
               REG_N, syncs, N, count_syncs(dense), N, count_syncs(
                   lambda: K.find_keypoints(t.forward(x32, 4).highpasses,
                                            max_points=200))), flush=True)
+
+
+# --- the examples: the GOP pipeline in processes, the 3-D directionality ----
+
+VIDEO_T = 15        # two GOPs of 8 frames (starts 0 and 7), one frame shared
+LAUNCHES_DIR3D = {"filter2": 1, "fwd_level1_pack": 1, "dfilt2": 1,
+                   "fwd_level2_pack": 1, "inv_level2_pack": 28,
+                   "ifilt2_sum": 28, "inv_level1_pack": 28, "filter2_sum": 28}
+DIR_SIZE, DIR_LEVEL = 32, 2
+EXAMPLE_TIMEOUT = 300
+
+
+def _example(name):
+    """The module of ``examples/<name>.py`` of this checkout."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_examples(procs_args, timeout=EXAMPLE_TIMEOUT):
+    """Run ``examples/register_video_torch.py`` once per argument list, all
+    at once; return ``(returncode, log)`` of each and the wall seconds.
+    Every process is waited for, or killed at *timeout*."""
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "examples", "register_video_torch.py")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, script] + a,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for a in procs_args]
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=timeout)
+            outs.append((p.returncode, out))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs, time.perf_counter() - t0
+
+
+def gop_lines(log):
+    """``{gop: (pairs, seconds, launches)}`` of a rank's "GOP g done"
+    lines."""
+    done = {}
+    for m in re.finditer(r"GOP (\d+) done \((\d+) pairs\) in ([0-9.]+) s; "
+                         r"kernel launches (\{[^}]*\})", log):
+        done[int(m.group(1))] = (int(m.group(2)), float(m.group(3)),
+                                 json.loads(m.group(4)))
+    return done
+
+
+def check_examples(dev, smi) -> None:
+    """Phase 6: the port's examples as a user runs them, on the card.
+
+    ``examples/register_video_torch.py`` on a 15 x 1080 x 1920 stack at
+    its defaults (``--gop-size 8 --nlevels 5 --device cuda``): one process,
+    then two processes on the one card (gloo on localhost), each followed
+    by ``--merge``, then a re-run over the two-process parts.  Checked: the
+    ranks' GOPs, each GOP's launches (``fwd_level1`` 1, ``fwd_level2`` 4),
+    the resume skip, the merged files' agreement, each GOP against
+    ``estimatereg_batched`` in this process, and the CUDA device in every
+    log.  Then ``examples/dtcwt_3d_directionality_torch.py``'s
+    ``directions`` at 32^3 on the card: its launches, unit directions and
+    wavelets against a ``device="cpu"`` run."""
+    import dtcwt_tpu_torch as dt
+    from dtcwt_tpu_torch import registration as R
+    from dtcwt_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()    # the earlier phases' cache, for the ranks
+    frames = gop_frames("cpu", VIDEO_T).numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        video = os.path.join(tmp, "video.npz")
+        np.savez(video, frames=frames)
+        one, two = os.path.join(tmp, "one.npz"), os.path.join(tmp, "two.npz")
+        sock = socket.socket()
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+        sock.close()
+        ranks = ["--coordinator", "localhost:%d" % port, "--num-processes",
+                 "2", "--process-id"]
+        runs = [("one process", [[video, one]]),
+                ("one process --merge", [[video, one, "--merge"]]),
+                ("two processes", [[video, two] + ranks + [str(r)]
+                                   for r in range(2)]),
+                ("two processes --merge", [[video, two, "--merge"]]),
+                ("resume", [[video, two]])]
+        logs, walls = {}, {}
+        for what, args in runs:
+            outs, walls[what] = run_examples(args)
+            logs[what] = [out for _, out in outs]
+            ok = all(rc == 0 for rc, _ in outs)
+            check(ok, "examples register_video_torch %s: exit codes %s, %.1f "
+                  "s wall" % (what, [rc for rc, _ in outs], walls[what]))
+            if not ok:
+                for _, out in outs:
+                    print(out[-3000:], flush=True)
+                return
+        single = gop_lines(logs["one process"][0])
+        per_rank = [gop_lines(log) for log in logs["two processes"]]
+        check(sorted(single) == [0, 1] and sorted(per_rank[0]) == [0]
+              and sorted(per_rank[1]) == [1], "examples register_video_torch "
+              "GOPs: one process %s, rank 0 %s, rank 1 %s (want [0, 1], [0], "
+              "[1])" % (sorted(single), sorted(per_rank[0]),
+                        sorted(per_rank[1])))
+        done = [v for d in [single] + per_rank for v in d.values()]
+        check(len(done) == 4 and all(l == LAUNCHES_GOP for _, _, l in done),
+              "examples register_video_torch launches a GOP: %s (want %s "
+              "each)" % ([l for _, _, l in done], LAUNCHES_GOP))
+        res = logs["resume"][0]
+        check(res.count("skipping (resume)") == 2 and "registering" not in
+              res, "examples register_video_torch resume: %d GOPs skipped, "
+              "none registered" % res.count("skipping (resume)"))
+        launched = [log for what in ("one process", "two processes")
+                    for log in logs[what]]
+        check(all("device cuda:0" in log for log in launched),
+              "examples register_video_torch: every rank's log names "
+              "cuda:0 (%d logs)" % len(launched))
+        with np.load(one) as f1, np.load(two) as f2:
+            pairs_ok = np.array_equal(f1["frame_idx_pairs"],
+                                      f2["frame_idx_pairs"]) and (
+                f1["frame_idx_pairs"].tolist()
+                == [[i, i + 1] for i in range(VIDEO_T - 1)])
+            a1, a2 = f1["affine_parameters"], f2["affine_parameters"]
+            parts = [np.load(two + ".gop%04d.npz" % g)["affine_parameters"]
+                     for g in range(2)]
+        e = float(np.abs(a1 - a2).max())
+        check(pairs_ok and len(a1) == VIDEO_T - 1
+              and bool(np.isfinite(a1).all()) and e <= 1e-6,
+              "examples register_video_torch merged: frame_idx_pairs equal "
+              "%s, affine_parameters %s finite, one process against two max "
+              "abs diff %.3g (tol 1e-6)" % (pairs_ok, a1.shape, e))
+
+    t = dt.Transform2d()
+    for g, s in enumerate((0, GOP - 1)):
+        pg = t.forward(torch.from_numpy(frames[s:s + GOP]).to(dev),
+                       GOP_NLEVELS)
+        want = R.estimatereg_batched(take(pg, slice(None, -1)),
+                                     take(pg, slice(1, None)))
+        e = rel_err(torch.from_numpy(parts[g]), want.cpu())
+        check(parts[g].shape == tuple(want.shape) and e <= TOL[
+            torch.float32], "examples register_video_torch GOP %d "
+              "(frames %d-%d) against estimatereg_batched in this process: "
+              "%s, rel err %.3g (tol %g)" % (g, s, s + GOP - 1,
+                                             parts[g].shape, e,
+                                             TOL[torch.float32]))
+    del pg, want
+    secs = [sec for _, sec, _ in done]
+    pairs = sum(n for n, _, _ in done)
+    steady_n, steady_s, _ = single[1]
+    print("time examples register_video_torch on %s, %d x %d x %d at %d "
+          "levels, GOPs of %d: each GOP's register_gop (forward, "
+          "estimatereg_batched and the copy to the host) %s s, one process's "
+          "GOPs 0 and 1 then rank 0's and rank 1's (a process's first GOP "
+          "includes its first calls); %.2f ms a frame pair in the one "
+          "process's second GOP, %.3f s a frame pair over the %d pairs of "
+          "the 4 GOPs; walls (process start to exit): %s" % (
+              smi, VIDEO_T, GOP_H, GOP_W, GOP_NLEVELS, GOP,
+              ["%.3f" % x for x in secs], 1e3 * steady_s / steady_n,
+              sum(secs) / pairs, pairs,
+              ", ".join("%s %.1f s" % kv for kv in walls.items())),
+          flush=True)
+
+    d3 = _example("dtcwt_3d_directionality_torch")
+    _build.reset_launches()
+    dirs, waves = d3.directions(DIR_SIZE, DIR_LEVEL, "cuda")
+    counts = dict(_build.launches)
+    check(counts == LAUNCHES_DIR3D, "examples dtcwt_3d_directionality_torch "
+          "%d^3 level %d: launches %s (want %s)" % (
+              DIR_SIZE, DIR_LEVEL, counts, LAUNCHES_DIR3D))
+    norms = np.linalg.norm(dirs, axis=1)
+    cdirs, cwaves = d3.directions(DIR_SIZE, DIR_LEVEL, "cpu")
+    e = rel_err(torch.from_numpy(waves), torch.from_numpy(cwaves))
+    check(dirs.shape == (28, 3) and float(np.abs(norms - 1).max()) <= 1e-6
+          and e <= TOL[torch.float32], "examples dtcwt_3d_directionality_torch"
+          " %d^3: 28 directions, worst |norm - 1| %.3g (tol 1e-6), the same "
+          "as the CPU's %s; wavelets against device='cpu' rel err %.3g (tol "
+          "%g)" % (DIR_SIZE, float(np.abs(norms - 1).max()),
+                   bool(np.array_equal(dirs, cdirs)), e, TOL[torch.float32]))
+    print("time examples phase on %s: %.1f s" % (
+        smi, time.perf_counter() - t_phase), flush=True)
 
 
 # --- the rest of parallel/: sharded 2-D and 1-D, batch, registration -------
@@ -3720,6 +3930,9 @@ def main() -> int:
     time_parallel(dev, smi)
     time_sharded_grad(dev, smi)
     time_long(dev, report, smi)
+
+    # --- 6. the examples -----------------------------------------------------
+    check_examples(dev, smi)
     for what, counts in launches_par.items():
         print("launches parallel %s (f32 interleaved round trip): %s"
               % (what, counts), flush=True)
