@@ -17,8 +17,9 @@ complex float32, float32 planes, bfloat16 planes):
   the four dual-stream kernels), and the single 4 194 304-sample vector at
   8 levels;
 * 3-D: ``dtcwt_tpu_torch.Transform3d()``, ``forward(v, nlevels=3)`` then
-  ``inverse``, on a 256 x 256 x 256 volume (the four level kernels of
-  ``csrc/pack3d.cu``, each level's depth stage on the dual-stream kernels);
+  ``inverse``, on a 256 x 256 x 256 volume (the four level kernels:
+  analysis ``csrc/fpack.cu``, synthesis ``csrc/pack3d.cu``; each level's
+  depth stage on the dual-stream kernels);
   and the same with ``discard_level_1=True`` (level 1 is three passes of
   the single-stream ``filter`` kernel each way, levels 2-3 as before);
 * the low-level API: ``dtcwt_tpu_torch.ops.colfilter`` / ``rowfilter``
@@ -280,7 +281,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12         # float32 outside the tensor cores
 _ANA_SRC = "dtcwt_tpu_torch/csrc/streamana.cuh"
 _SUM_SRC = "dtcwt_tpu_torch/csrc/streamsum.cuh"
-_PACK_SRC = "dtcwt_tpu_torch/csrc/pack3d.cu"
+_FPACK_SRC = "dtcwt_tpu_torch/csrc/fpack.cuh"
 _IPACK_SRC = "dtcwt_tpu_torch/csrc/ipack.cuh"
 _FILTER_SRC = "dtcwt_tpu_torch/csrc/filter.cu"
 _HWANA_SRC = "dtcwt_tpu_torch/csrc/hwana.cuh"
@@ -298,9 +299,9 @@ KERNELS = {   # name -> (CUDA source, the TPU kernel it replaces)
     "dfilt2": (_ANA_SRC, "dtcwt_tpu/ops/pallas_dual.py:294"),
     "ifilt2_sum": (_SUM_SRC, "dtcwt_tpu/ops/pallas_dual.py:533"),
     "filter2_sum": (_SUM_SRC, "dtcwt_tpu/ops/pallas_dual.py:409"),
-    "fwd_level1_pack": (_PACK_SRC, "dtcwt_tpu/ops/pallas_pack3d.py:607"),
+    "fwd_level1_pack": (_FPACK_SRC, "dtcwt_tpu/ops/pallas_pack3d.py:607"),
     "inv_level1_pack": (_IPACK_SRC, "dtcwt_tpu/ops/pallas_pack3d.py:647"),
-    "fwd_level2_pack": (_PACK_SRC, "dtcwt_tpu/ops/pallas_pack3d.py:503"),
+    "fwd_level2_pack": (_FPACK_SRC, "dtcwt_tpu/ops/pallas_pack3d.py:503"),
     "inv_level2_pack": (_IPACK_SRC, "dtcwt_tpu/ops/pallas_pack3d.py:549"),
     "filter": (_FILTER_SRC, "dtcwt_tpu/ops/pallas_fb.py:492"),
     "dfilt": (_ANA_SRC, "dtcwt_tpu/ops/pallas_fb.py:642"),

@@ -39,42 +39,6 @@
 
 namespace dtcwt {
 
-// Launch kernel (geometry G) over the 32 x 32 output tiles of N slices of
-// Ho x Wo if the host's tile is the instance's: kernel(args..., n_th,
-// n_tw, tp).
-template <typename G, typename K, typename Taps, typename... Args>
-cudaError_t launch_tiles(K kernel, const HwTile& tile, int N, int Ho,
-                         int Wo, cudaStream_t stream, const Taps& tp,
-                         Args... args) {
-  constexpr size_t smem = G::SMEM;
-  if (tile.oh != HS_TILE || tile.ow != HS_TILE || tile.xr != G::X ||
-      tile.xc != G::X || static_cast<size_t>(tile.smem) != smem)
-    return cudaErrorInvalidValue;
-  const int n_th = (Ho + HS_TILE - 1) / HS_TILE;
-  const int n_tw = (Wo + HS_TILE - 1) / HS_TILE;
-  const int64_t blocks = static_cast<int64_t>(N) * n_th * n_tw;
-  if (blocks < 1 || blocks > INT_MAX) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  kernel<<<static_cast<unsigned>(blocks), PACK_THREADS, smem, stream>>>(
-      args..., n_th, n_tw, tp);
-  return cudaGetLastError();
-}
-
-// The plan's taps at the least tap bound of the instance set that holds
-// them, which must be the host's (tile.mt); 0 otherwise.
-template <typename A, int P>
-int hs_fill(HsTaps<A, P>* tp, const double* taps, const int* lens,
-            const int* offs, const HwTile& tile) {
-  int mt = 0;
-  for (int e = 0; e < HS_BOUNDS && !mt; ++e)
-    if (make_hs_taps<A, P>(tp, taps, lens, offs, hs_bound<P>(e)))
-      mt = hs_bound<P>(e);
-  return mt == tile.mt ? mt : 0;
-}
-
 // analysis: the host's tap bound (dfilt's taps by parity), then that
 // instance
 template <typename T, int P>

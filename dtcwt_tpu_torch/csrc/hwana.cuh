@@ -7,7 +7,9 @@
 //   u[j][k] = F_H(h_j) F_W(h_k) x.
 //
 // Replaces _build_hw22 of dtcwt_tpu/ops/pallas_hw.py (two dense operator
-// products a slice on the TPU's matrix unit; here a direct FIR).
+// products a slice on the TPU's matrix unit; here a direct FIR).  The 3-D
+// analysis kernel of the unsharded transform (fpack.cuh) runs its stages,
+// ha_wstage and ha_hcol, on each slice of a depth branch.
 //
 // Bound on the H100: device memory bytes.  Each input sample is read once
 // and four outputs are written (filter: 20 bytes an f32 input sample, 80%
@@ -61,10 +63,11 @@
 //   47 KB for dfilt at 10 in float32) leaves an SM eight and four blocks.
 //   A 16-row dfilt tile (twice the blocks) took 1.09x the time.
 //
-// The host (ops/hw.py _hw22_geometry, _hw22_tap_bound) chooses the tile,
-// the tap bound and the shared memory and passes them in; the C entry
-// refuses any other (hw.cu launch_tiles, hw22_mt).  tests/test_torch_hw_tiling.py
-// replays the tiling on the CPU, block by block.
+// The host (ops/hwtile.py _hw22_geometry, _hw22_tap_bound) chooses the
+// tile, the tap bound and the shared memory and passes them in; the C entry
+// refuses any other (hwtile.cuh launch_tiles, hw.cu hw22_mt).
+// tests/test_torch_hw_tiling.py replays the tiling on the CPU, block by
+// block.
 #pragma once
 
 #include "hwtile.cuh"
@@ -169,6 +172,50 @@ __device__ __forceinline__ void ha_wstage(const A* xs, A* vw,
   }
 }
 
+// The H stage of one W-stage image vk [X][32] at this thread's column col:
+// acc[j][v] = output row 4 rg + v of H branch j (rg = the warp), both
+// branches fed by one window down the column.
+template <typename A, int P, int MT>
+__device__ __forceinline__ void ha_hcol(const A* vk, const HsTaps<A, P>& tp,
+                                        A (&acc)[2][4]) {
+  using G = HaGeo<A, P, MT>;
+  const int rg = threadIdx.x >> 5, col = threadIdx.x & 31;
+  A w[G::NS];
+  const A* s = vk + (4 * P * rg + G::DL) * HS_TILE + col;
+#pragma unroll
+  for (int t = 0; t < G::NS; ++t) w[t] = s[t * HS_TILE];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[j][v] = 0;
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      if constexpr (P == 1) {
+        const A t = tp.t[j][0][m];
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[j][v] += t * w[v + m];
+      } else {
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          const A t = tp.t[j][p][m];
+#pragma unroll
+          for (int gg = 0; gg < 2; ++gg)
+            acc[j][2 * gg + p] += t * w[4 * gg + p + 2 * m];
+        }
+      }
+    }
+    if constexpr (P == 2) {
+      const bool sw = tp.sw[j];
+#pragma unroll
+      for (int gg = 0; gg < 2; ++gg) {
+        const A a0 = acc[j][2 * gg], a1 = acc[j][2 * gg + 1];
+        acc[j][2 * gg] = sw ? a1 : a0;
+        acc[j][2 * gg + 1] = sw ? a0 : a1;
+      }
+    }
+  }
+}
+
 // The H stage and the stores: thread (rg, col) owns output rows 4 rg ..
 // 4 rg + 3 of column col of all four outputs; for each W branch k one
 // window down the column of vw[k] feeds both H branches j.
@@ -182,41 +229,8 @@ __device__ __forceinline__ void ha_hstage(
   const int goc = o0c + col;
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
-    A w[G::NS];
-    const A* s = vw + (k * G::X + 4 * P * rg + G::DL) * HS_TILE + col;
-#pragma unroll
-    for (int t = 0; t < G::NS; ++t) w[t] = s[t * HS_TILE];
     A acc[2][4];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[j][v] = 0;
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        if constexpr (P == 1) {
-          const A t = tp.t[j][0][m];
-#pragma unroll
-          for (int v = 0; v < 4; ++v) acc[j][v] += t * w[v + m];
-        } else {
-#pragma unroll
-          for (int p = 0; p < 2; ++p) {
-            const A t = tp.t[j][p][m];
-#pragma unroll
-            for (int gg = 0; gg < 2; ++gg)
-              acc[j][2 * gg + p] += t * w[4 * gg + p + 2 * m];
-          }
-        }
-      }
-      if constexpr (P == 2) {
-        const bool sw = tp.sw[j];
-#pragma unroll
-        for (int gg = 0; gg < 2; ++gg) {
-          const A a0 = acc[j][2 * gg], a1 = acc[j][2 * gg + 1];
-          acc[j][2 * gg] = sw ? a1 : a0;
-          acc[j][2 * gg + 1] = sw ? a0 : a1;
-        }
-      }
-    }
+    ha_hcol<A, P, MT>(vw + k * G::VN, tp, acc);
     if (goc < Wo) {
 #pragma unroll
       for (int j = 0; j < 2; ++j)

@@ -77,8 +77,7 @@
 // by block.
 #pragma once
 
-#include "hwstage.cuh"
-#include "l1tile.cuh"
+#include "hwtile.cuh"
 
 namespace dtcwt {
 

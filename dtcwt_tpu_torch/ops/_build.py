@@ -111,10 +111,10 @@ for _name in ("filter2_sum", "ifilt2_sum"):
 # m, taps, mt, path, v, vc, rows, seg, tx, dtype, stream
 _SIGNATURES["dtcwt_filter"] = (_P, _P) + (_I,) * 7 + (_P,) + (_I,) * 8 + (
     _P,)
-# the 3-D level kernels of csrc/pack3d.cu: in_a, in_b, bands_a, bands_b,
-# out_a, out_b, out_c, B, Dn, H, W, Ho, Wo, taps, lens, offs, dtype, planes,
-# then the tile (analysis: oh, ow, xr, xc, xn, smem; synthesis: oh, ow, mt,
-# xr, xc, smem, vq), and stream
+# the 3-D level kernels of csrc/fpack.cu (analysis) and csrc/pack3d.cu
+# (synthesis): in_a, in_b, bands_a, bands_b, out_a, out_b, out_c, B, Dn, H,
+# W, Ho, Wo, taps, lens, offs, dtype, planes, then the tile (analysis: oh,
+# ow, mt, xr, xc, smem; synthesis: oh, ow, mt, xr, xc, smem, vq), and stream
 for _name in ("fwd_level1_pack", "inv_level1_pack", "fwd_level2_pack",
               "inv_level2_pack"):
     _SIGNATURES["dtcwt_" + _name] = (_P,) * 7 + (_I,) * 6 + (_P,) * 3 + (
@@ -400,8 +400,8 @@ def pair_filters(name: str, *filters):
          for f in filters]
     lens = [f.size for f in h if f is not None]
     if len(set(lens)) != 1 or lens[0] % 2:
-        raise ValueError("%s takes filters of one even length, got lengths "
-                         "%s" % (name, lens))
+        raise ValueError("%s takes filters of one even length for all of "
+                         "them, got lengths %s" % (name, lens))
     return h
 
 

@@ -51,8 +51,11 @@ from dtcwt_tpu_torch.ops import _build, dual, fb, longfir
 from dtcwt_tpu_torch.ops.ilevel2 import ifilt_streams
 from dtcwt_tpu_torch.ops.level2 import dfilt_streams
 from dtcwt_tpu_torch.ops.dual import _inv_taps, _table
+from dtcwt_tpu_torch.ops.hwtile import (
+    _HW_BOUNDS, _SMEM_MAX, _TILE, _hw22_geometry, _hw22_tap_bound,
+    _least_bound)
 from dtcwt_tpu_torch.ops.pack3d import (
-    _SMEM_MAX, _dfilt2, _filter2, _filter2_sum, _filter_plans, _ifilt2_sum)
+    _dfilt2, _filter2, _filter2_sum, _filter_plans, _ifilt2_sum)
 from dtcwt_tpu_torch.utils import compute_view
 
 __all__ = ["filter_hw22", "dfilt_hw22", "filter_sum_hw22", "ifilt_sum_hw22",
@@ -176,32 +179,16 @@ def _launch(name: str, ins, Ho: int, Wo: int, n_out: int, args):
 
 # ---------------------------------------------------------------------------
 # the kernels' tilings (csrc/hwana.cuh, csrc/hwsum.cuh; their shared pieces
-# csrc/hwtile.cuh)
+# csrc/hwtile.cuh; the analysis kernel's tap bound and tile in hwtile)
 # ---------------------------------------------------------------------------
 
-_TILE = 32                     # csrc/hwtile.cuh HS_TILE
 #: Streams a stage of each entry (csrc/hw.cu)
 _STREAMS = {"filter_hw22": 1, "dfilt_hw22": 2, "filter_sum_hw22": 1,
             "ifilt_sum_hw22": 4}
 #: Tap bounds of the synthesis instances by streams a stage, every dtype
-#: (csrc/hwtile.cuh hs_bound): the largest holds odd filters of 31 taps and
+#: (csrc/taps.cuh hs_bound): the largest holds odd filters of 31 taps and
 #: qshift pairs of 64
-_SUM_BOUNDS = {1: (5, 7, 9, 19, 31), 4: (5, 7, 9, 17, 33)}
-#: Tap bounds of the analysis instances, every dtype (hs_bound): filter the
-#: synthesis's; dfilt a stream's window in half samples, the largest
-#: holding qshift pairs of 32 (two streams of 32 taps at stride 2)
-_HW_BOUNDS = {1: _SUM_BOUNDS[1], 2: (10, 14, 16, 18, 32)}
-
-
-def _least_bound(plans, P: int, bounds, what: str) -> int:
-    """The least of *bounds* that holds the plans (the taps centred on its
-    halo, csrc/taps.cuh make_hs_taps, as :func:`dual._inv_taps`
-    centres them)."""
-    for mt in bounds:
-        if _inv_taps(plans, P, mt) is not None:
-            return mt
-    raise ValueError("the hw %s kernel's largest tap bound, %d, does not "
-                     "hold these filters" % (what, bounds[-1]))
+_SUM_BOUNDS = {1: _HW_BOUNDS[1], 4: (5, 7, 9, 17, 33)}
 
 
 def _sum_tap_bound(plans, P: int) -> int:
@@ -210,70 +197,6 @@ def _sum_tap_bound(plans, P: int) -> int:
     ifilt 5 (qshift_a), 7 (qshift_b), 9 (qshift_c, qshift_d), 17
     (qshift_32) or 33."""
     return _least_bound(plans, P, _SUM_BOUNDS[P], "synthesis")
-
-
-def _hw22_tap_bound(plans, P: int) -> int:
-    """The least tap bound of the analysis instances that holds the plans:
-    filter 5 (legall), 7 (near_sym_a), 9 (antonini), 19 (near_sym_b) or
-    31; dfilt a stream's length, 10 (qshift_06, qshift_a), 14 (qshift_b),
-    16 (qshift_c), 18 (qshift_d) or 32 (qshift_32)."""
-    return _least_bound(plans, P, _HW_BOUNDS[P], "analysis")
-
-
-class Hw22Geometry(NamedTuple):
-    """The tile of an analysis kernel (csrc/hwana.cuh HaGeo): oh x ow
-    output samples of each of the four outputs, 256 threads a block, a
-    block for each tile of each slice; the tap bound mt and its halo ph
-    (window steps); the staged area xr x xc (square) of the one input from
-    so samples before the tile's first input row and column (the halo
-    P ph rounded up to 4, so that it starts 16 bytes aligned and even),
-    its windows starting dl = so - P ph in; xs the staged row stride
-    (dfilt's padded to 4 (mod 8) values); ns the samples a window of 4
-    outputs reads from dl on (filter mt + 3, dfilt 2 mt + 4) and nw the W
-    stage's window in 16-byte vectors; cw the values a staging chunk (f32
-    and bf16 4, f64 2) and smem the dynamic shared memory bytes (the
-    staged image [xr][xs], the W stage's two [xr][ow], the int row and
-    column maps)."""
-    oh: int
-    ow: int
-    mt: int
-    ph: int
-    so: int
-    dl: int
-    xr: int
-    xc: int
-    xs: int
-    ns: int
-    nw: int
-    cw: int
-    smem: int
-
-    def tile(self):
-        """The ints the C entry takes: oh, ow, mt, xr, xc, smem."""
-        return self.oh, self.ow, self.mt, self.xr, self.xc, self.smem
-
-
-@functools.lru_cache(maxsize=None)
-def _hw22_geometry(P: int, mt: int, dtype: torch.dtype) -> Hw22Geometry:
-    """The tile of an analysis kernel with *P* streams a stage (1: filter,
-    2: dfilt) and tap bound *mt* (:func:`_hw22_tap_bound`) in *dtype*: 32 x
-    32 output samples from a staged area of P 32 input samples and so each
-    side.  At the main path's bounds in float32 its shared memory (17 KB
-    for filter at 7, 47 KB for dfilt at 10) leaves an SM eight and four
-    blocks; float64 at the largest bounds fits.  Cached: the sharded
-    transform asks for the same tile at every call."""
-    acc = 8 if dtype == torch.float64 else 4
-    ph = (mt - 1) // 2
-    so = (P * ph + 3) // 4 * 4
-    dl = so - P * ph
-    x = P * _TILE + 2 * so
-    xs = x if P == 1 or x % 8 == 4 else x + 4
-    vv = 16 // acc
-    ns = mt + 3 if P == 1 else 2 * mt + 4
-    nw = -(-(dl + ns) // vv) * vv
-    smem = acc * (x * xs + 2 * x * _TILE) + 4 * 2 * x
-    return Hw22Geometry(_TILE, _TILE, mt, ph, so, dl, x, x, xs, ns, nw, vv,
-                        smem)
 
 
 class SumHw22Geometry(NamedTuple):

@@ -16,13 +16,16 @@ Each level is a separable filter tree over ``[..., D, H, W]`` plus the
 octet <-> complex packing of its 7 highpass octants into 28 subbands, in
 the octant order :data:`_OCTANTS`.  On a CUDA tensor the depth stage runs
 on the dual-stream kernels of :mod:`dual` along axis -3 (first on analysis,
-last on synthesis) and the kernel of ``csrc/pack3d.cu`` does the (H, W)
-stages and the (un)pack per depth-slice pair; what bounds it and what its
-design does about it is in that source (the synthesis kernel's in
-``csrc/ipack.cuh``).  The analysis kernels take their tile from
-:func:`_fwd_pack_geometry`, the synthesis kernels theirs (and their tap
-bound) from :func:`_inv_pack_geometry`, and each refuses any other; the
-CPU tests replay both (``tests/test_torch_pack3d_tiling.py``,
+last on synthesis) and a kernel does the (H, W) stages and the (un)pack
+per depth-slice pair: the analysis kernel of
+``csrc/fpack.cu`` (``csrc/fpack.cuh``), the synthesis kernel of
+``csrc/pack3d.cu`` (``csrc/ipack.cuh``); what bounds each and what its
+design does about it is in those sources.  The analysis kernels take their
+tap bound and tile from :func:`hwtile._hw22_tap_bound` and
+:func:`hwtile._fwd_pack_geometry` (hw22's, :mod:`hw`), the synthesis
+kernels theirs from :func:`_inv_tap_bound` and :func:`_inv_pack_geometry`,
+and each refuses any other; the CPU tests replay both
+(``tests/test_torch_pack3d_tiling.py``,
 ``tests/test_torch_ipack3d_tiling.py``).  The kernels take
 level-1 filters of up to 31 taps and qshift filters of up to 32 (analysis)
 and 34 (synthesis; the longest published family, qshift_32, has 32); past
@@ -53,6 +56,7 @@ import torch
 
 from dtcwt_tpu_torch.ops import _build, dual, fb, longfir
 from dtcwt_tpu_torch.ops.dual import _inv_taps, _table
+from dtcwt_tpu_torch.ops.hwtile import _fwd_pack_geometry, _hw22_tap_bound
 from dtcwt_tpu_torch.ops.ilevel2 import ifilt_streams
 from dtcwt_tpu_torch.ops.level2 import dfilt_streams
 from dtcwt_tpu_torch.ops.packing import (
@@ -78,12 +82,9 @@ _OCTANTS = (
     (1, 1, 1),   # HHH
 )
 
-_THREADS = 256                  # csrc/hwstage.cuh PACK_THREADS
-_TILE = 32                      # PACK_TILE: the largest output tile side
-_SMEM_MAX = 220 * 1024          # PACK_SMEM_MAX
-_RESTAGE = 4 * _THREADS         # csrc/pack3d.cu FWD_RS: [8 warps][16][8]
-#: (P, D, S) of each analysis kernel's stream plan (csrc/hwstage.cuh)
-_FWD_PDS = {"fwd_level1_pack": (1, 1, 1), "fwd_level2_pack": (2, 4, 2)}
+_TILE = 32                      # csrc/ipack.cuh IP_TILE
+#: Output streams of each analysis kernel's stage plans (csrc/fpack.cu)
+_FWD_P = {"fwd_level1_pack": 1, "fwd_level2_pack": 2}
 
 
 # ---------------------------------------------------------------------------
@@ -264,58 +265,11 @@ def _check_bands(lll: torch.Tensor, re, im, name: str):
     return re, None, False
 
 
-class FwdPackGeometry(NamedTuple):
-    """The tile of an analysis kernel (csrc/pack3d.cu FwdTile): oh x ow
-    output samples, the staged slice xr x xc with its halo, the first
-    shared region xn (the slice, or the interleaved restage of every warp
-    where that is larger), the dynamic shared memory in bytes, and the grid
-    (B, Dn / 2, tile rows, tile columns) of one block each."""
-    oh: int
-    ow: int
-    xr: int
-    xc: int
-    xn: int
-    smem: int
-    grid: Tuple[int, int, int, int]
-
-
-@functools.lru_cache(maxsize=None)
-def _fwd_pack_geometry(B: int, Dn: int, Ho: int, Wo: int, P: int, D: int,
-                       span: int, dtype: torch.dtype,
-                       planes: bool) -> FwdPackGeometry:
-    """The tile of an analysis kernel with *P* output streams of input step
-    *D* (level 1: 1, 1; level 2: 2, 4) whose plan reaches *span* input
-    samples, for the output ``[B, Dn, Ho, Wo]`` in *dtype*'s layout: the
-    largest of 32 x 32 output samples, halved (the taller side first, sides
-    powers of two and even) until the shared memory fits under 220 KB.
-    The shared memory holds the staged slice (or the interleaved restage,
-    the larger), the 8 W-stage images of xr x ow and the int row and column
-    maps.  Cached: a transform asks for the same tile at every call."""
-    acc = 8 if dtype == torch.float64 else 4
-    oh = ow = _TILE
-    while True:
-        xr, xc = D * (oh // P - 1) + span, D * (ow // P - 1) + span
-        xn = xr * xc if planes else max(xr * xc, _RESTAGE)
-        smem = acc * (xn + 8 * xr * ow) + 4 * (xr + xc)
-        if smem <= _SMEM_MAX:
-            break
-        if oh >= ow and oh > 2:
-            oh //= 2
-        elif ow > 2:
-            ow //= 2
-        else:
-            raise ValueError("the 3-D analysis kernel's filters reach %d "
-                             "samples, too far for its shared memory"
-                             % span)
-    return FwdPackGeometry(oh, ow, xr, xc, xn, smem,
-                           (B, Dn // 2, -(-Ho // oh), -(-Wo // ow)))
-
-
 #: Tap bounds of the synthesis kernel's instances by streams a stage (1:
 #: level 1, 4: level 2), float32 / bfloat16 and float64 (csrc/ipack.cuh
 #: ip_bound)
 _INV_BOUNDS = {1: ((9, 21, 33), (33,)), 4: ((5, 7, 9, 17), (17,))}
-#: Output streams of each synthesis kernel's stage plans (csrc/hwstage.cuh)
+#: Output streams of each synthesis kernel's stage plans (csrc/pack3d.cu)
 _INV_P = {"inv_level1_pack": 1, "inv_level2_pack": 4}
 
 
@@ -386,13 +340,6 @@ def _inv_pack_geometry(B: int, Dn: int, Ho: int, Wo: int, P: int, mt: int,
                            not planes and band_ptr % 16 == 0)
 
 
-def _span(plans, S: int) -> int:
-    """Input samples the plans' streams reach, first to last."""
-    first = min(o for _, offs in plans for o in offs)
-    last = max(o + S * (t.shape[1] - 1) for t, offs in plans for o in offs)
-    return last - first + 1
-
-
 def _fwd_outputs(B, Dn, Ho, Wo, dtype, planes, dev):
     """The analysis kernel's outputs: (lll [B, Dn, Ho, Wo], re, im) planes
     [B, 28, Dn/2, Ho/2, Wo/2] of *dtype*, or (lll, the complex band-minor
@@ -437,10 +384,9 @@ def _launch(name, x, bands, plans, out_dtype, planes, Ho, Wo, fwd):
         torch.view_as_real(t) if t.is_complex() else t).data_ptr()
     taps, lens, offs = _table(plans)
     if fwd:
-        P, D, S = _FWD_PDS[name]
-        geo = _fwd_pack_geometry(B, Dn, Ho, Wo, P, D, _span(plans, S),
-                                 out_dtype, bool(planes))
-        tile = (geo.oh, geo.ow, geo.xr, geo.xc, geo.xn, geo.smem)
+        P = _FWD_P[name]
+        tile = _fwd_pack_geometry(P, _hw22_tap_bound(plans, P), out_dtype,
+                                  bool(planes)).tile()
     else:
         P = _INV_P[name]
         geo = _inv_pack_geometry(

@@ -644,6 +644,45 @@ def test_cuda_transform3d_backward_launches(cuda, monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("fams", [("near_sym_a", "qshift_a"),
+                                  ("near_sym_b", "qshift_d")])
+def test_cuda_transform3d_round_trip_and_grads_on_the_analysis_kernels(
+        cuda, monkeypatch, fams, dtype):
+    """The 3-D round trip and its gradients on the card, every plain
+    version patched to raise, against the CPU at float64: the forward runs
+    fwd_level1_pack once and fwd_level2_pack twice, the inverse's backward
+    fwd_level2_pack twice more; a [40, 48, 72] volume (partial 32 x 32
+    tiles at levels 1 and 2), float32 within 2e-5 and float64 within 1e-12
+    of the largest value."""
+    from dtcwt_tpu_torch.ops import pack3d
+    x = np.random.RandomState(27).rand(40, 48, 72)
+    t, tc = dt.Transform3d(*fams), dt.Transform3d(*fams, device="cpu")
+    tol = {torch.float32: 2e-5, torch.float64: 1e-12}[dtype]
+    want = _round_trip_grads(tc, torch.from_numpy(x), "interleaved", 28)
+    _no_plain(monkeypatch, *_DUAL, (pack3d, "fwd_level1_pack"),
+              (pack3d, "fwd_level2_pack"), (pack3d, "inv_level1_pack"),
+              (pack3d, "inv_level2_pack"))
+    xg = torch.from_numpy(x).to(cuda, dtype)
+    _build.reset_launches()
+    rec = t.inverse(t.forward(xg, 3))
+    torch.cuda.synchronize()
+    assert _build.launches["fwd_level1_pack"] == 1
+    assert _build.launches["fwd_level2_pack"] == 2
+    assert float((rec.double().cpu() - torch.from_numpy(x)).abs().max()) \
+        < (1e-4 if dtype == torch.float32 else 1e-12)
+    _build.reset_launches()
+    got = _round_trip_grads(t, xg, "interleaved", 28)
+    torch.cuda.synchronize()
+    assert _build.launches["fwd_level1_pack"] == 1
+    assert _build.launches["fwd_level2_pack"] == 4
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.shape == w.shape
+        assert _kerr(g.cpu(), w.to(g.dtype)) < tol
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,layout", _GRAD_CASES)
 def test_cuda_transform1d_grads_match_plain(cuda, monkeypatch, dtype,
                                             layout):
@@ -1121,9 +1160,15 @@ def test_cuda_dual_refuses_non_contiguous_input(cuda):
 
 # --- the 3-D level kernels (csrc/pack3d.cu) --------------------------------
 
-_PACK_FAMS = {"fwd_level1_pack": ("near_sym_a", "near_sym_b", "antonini"),
+# the analysis kernels at each tap bound of their instance sets (level 1:
+# legall 5, near_sym_a 7, antonini 9, near_sym_b 19, a random pair of 31
+# taps; level 2: qshift_a 10, qshift_b 14, qshift_c 16, qshift_d 18,
+# qshift_32 32)
+_PACK_FAMS = {"fwd_level1_pack": ("legall", "near_sym_a", "antonini",
+                                  "near_sym_b", "long"),
               "inv_level1_pack": ("near_sym_a", "near_sym_b", "antonini"),
-              "fwd_level2_pack": ("qshift_a", "qshift_d", "qshift_32"),
+              "fwd_level2_pack": ("qshift_a", "qshift_b", "qshift_c",
+                                  "qshift_d", "qshift_32"),
               "inv_level2_pack": ("qshift_a", "qshift_d", "qshift_32")}
 # the volume each level reads: H or W not a multiple of 32, above 512, or
 # shorter than the filter (JAX's Pallas envelope refuses all of them);
@@ -1146,7 +1191,9 @@ def _pack_calls(kind, fam):
     (inputs, planes)."""
     from dtcwt_tpu_torch.ops import pack3d
     if kind.endswith("level1_pack"):
-        b = biort(fam)
+        # "long": four random filters of 31 taps, the longest level 1 takes
+        b = (np.random.RandomState(31).randn(4, 31) if fam == "long"
+             else biort(fam))
         f = (b[0], b[2]) if kind.startswith("fwd") else (b[1], b[3])
     else:
         q = qshift(fam)
@@ -1197,9 +1244,7 @@ def test_cuda_pack3d_matches_plain(cuda, kind, dtype, planes):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,planes", [(torch.float32, False),
-                                          (torch.float64, False),
-                                          (torch.float32, True)])
+@pytest.mark.parametrize("dtype,planes", _CASES)
 @pytest.mark.parametrize("kind", ["fwd_level1_pack", "fwd_level2_pack"])
 def test_cuda_fwd_pack_writes_its_outputs_whole(cuda, monkeypatch, kind,
                                                 dtype, planes):
@@ -1243,6 +1288,42 @@ def test_cuda_fwd_pack_writes_its_outputs_whole(cuda, monkeypatch, kind,
                 v = torch.view_as_real(buf) if buf.is_complex() else buf
                 assert not torch.isnan(v[:n]).any(), (fam, shape)
                 assert torch.isnan(v[n:]).all(), (fam, shape)
+
+
+@pytest.mark.cuda
+def test_cuda_fwd_pack_refuses_a_tile_not_the_hosts(cuda, monkeypatch):
+    """The analysis C entries take the tap bound and tile of
+    _fwd_pack_geometry and refuse any other with a CUDA error, launching
+    nothing; the host's own launch then runs."""
+    from dtcwt_tpu_torch.ops import pack3d
+    geometry = pack3d._fwd_pack_geometry
+
+    def hw(**bad):
+        return lambda g: g._replace(hw=g.hw._replace(**bad))
+    for kind, planes, bad in (
+            ("fwd_level1_pack", False, hw(mt=9)),
+            ("fwd_level1_pack", False, hw(oh=16)),
+            ("fwd_level1_pack", True, lambda g: g._replace(smem=g.smem + 4)),
+            ("fwd_level1_pack", True, lambda g: g._replace(
+                smem=g.smem + 8192)),
+            ("fwd_level2_pack", False, hw(mt=14)),
+            ("fwd_level2_pack", False, hw(xr=76, xc=76)),
+            ("fwd_level2_pack", True, hw(mt=32))):
+        fam = "near_sym_a" if kind == "fwd_level1_pack" else "qshift_a"
+        kern, plain = _pack_calls(kind, fam)
+        x = _pack_inputs(kind, (4, 36, 44), torch.float32, planes, cuda)
+        monkeypatch.setattr(pack3d, "_fwd_pack_geometry",
+                            lambda *a, **k: bad(geometry(*a, **k)))
+        _build.reset_launches()
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            kern(x, planes)
+        assert not _build.launches.get(kind)
+        monkeypatch.setattr(pack3d, "_fwd_pack_geometry", geometry)
+        got, want = kern(x, planes), plain(x, planes)
+        torch.cuda.synchronize()
+        if planes:
+            got, want = (got[0], *got[1]), (want[0], *want[1])
+        assert _kerr(got, want) < _KTOL[torch.float32], (kind, planes)
 
 
 def _inv_stage(kind, fam, x, planes):

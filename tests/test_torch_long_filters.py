@@ -36,8 +36,8 @@ import dtcwt_tpu as jdt
 from dtcwt_tpu.ops import engine
 import dtcwt_tpu_torch as tdt
 from dtcwt_tpu_torch.ops import (
-    _build, dual, fb, hw, ilevel1, ilevel2, level1, level2, longfir, pack3d,
-    single)
+    _build, dual, fb, hw, hwtile, ilevel1, ilevel2, level1, level2, longfir,
+    pack3d, single)
 from dtcwt_tpu_torch.parallel import (
     ShardedTransform3d, halo_exchange, make_mesh)
 
@@ -189,17 +189,17 @@ def _r(m, seed=0):
     return _taps(m, seed)
 
 
-def _pack_plans(plans, P, D=None, S=None):
+def _pack_plans(plans, P, fwd=False):
     """The 3-D level kernels' host planning of *plans* in float32 and
-    float64: the tap table, then the analysis tile (*D*, *S* given) or the
-    synthesis tap bound."""
+    float64: the tap table, then the analysis tap bound and tile (*fwd*)
+    or the synthesis tap bound."""
     pack3d._table(plans)
     for dtype in (torch.float32, torch.float64):
-        if D is None:
-            pack3d._inv_tap_bound(plans, P, dtype)
+        if fwd:
+            hwtile._fwd_pack_geometry(P, hwtile._hw22_tap_bound(plans, P),
+                                      dtype, True)
         else:
-            pack3d._fwd_pack_geometry(1, 8, 32, 32, P, D,
-                                      pack3d._span(plans, S), dtype, True)
+            pack3d._inv_tap_bound(plans, P, dtype)
 
 
 # wrapper -> its own kernel's host planning of filters of m taps, which
@@ -232,10 +232,10 @@ _FUSED = {
     "ifilt_sum_hw22": lambda m: hw._plan("ifilt_sum_hw22",
                                          [_r(m, i) for i in range(4)]),
     "fwd_level1_pack": lambda m: _pack_plans(
-        [fb.filter_streams(_r(m)), fb.filter_streams(_r(m, 1))], 1, 1, 1),
+        [fb.filter_streams(_r(m)), fb.filter_streams(_r(m, 1))], 1, True),
     "fwd_level2_pack": lambda m: _pack_plans(
         [fb.dfilt_streams(_r(m, 2 * p), _r(m, 2 * p + 1)) for p in (0, 1)],
-        2, 4, 2),
+        2, True),
     "inv_level1_pack": lambda m: _pack_plans(
         [fb.filter_streams(_r(m)), fb.filter_streams(_r(m, 1))], 1),
     "inv_level2_pack": lambda m: _pack_plans(

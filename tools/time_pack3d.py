@@ -1,19 +1,23 @@
-"""Time the four 3-D level kernels of ``csrc/pack3d.cu`` on one NVIDIA GPU
-at the main path's volumes, beside their byte bound and plain versions.
+"""Time the four 3-D level kernels (``csrc/fpack.cu``, ``csrc/pack3d.cu``) on
+one NVIDIA GPU at the main path's volumes, beside their byte bound and plain
+versions.
 
     python tools/time_pack3d.py            # from the repository's root
     python tools/time_pack3d.py kernels    # stop after the kernel lines
 
 Prints the card (``nvidia-smi`` name and power limit), the kernels' build
 time and what ``nvcc -Xptxas -v`` reports for each instance of the
-synthesis kernel ``inv_pack_kernel`` (registers, shared memory, spills),
-then one line per kernel, layout (f32 interleaved, f32 planes, bf16
+analysis kernel ``fwd_pack_kernel`` (``csrc/fpack.cu``) and of the
+synthesis kernel ``inv_pack_kernel`` (``csrc/pack3d.cu``): registers,
+shared memory, spills, and for the analysis instances the blocks an SM
+that the registers and the host's dynamic shared memory leave.  Then one
+line per kernel, layout (f32 interleaved, f32 planes, bf16
 planes) and volume of the 256^3 3-level round trip: the kernel stage's
 device time (stream held; the depth stage already run), the bound, the
 kernel's share of it, the plain version's time and the error against it,
 and the sum over the round trip's launches.  The inverse kernels
-``inv_level1_pack`` and ``inv_level2_pack`` come first; the forward ones
-are the controls.  Then,
+``inv_level1_pack`` and ``inv_level2_pack`` come first, then the forward
+ones.  Then,
 unless ``kernels`` is given: the 3-D round trip in each layout, the traces
 of its f32 interleaved and f32 planes forms (device time by kernel, idle
 share, host enqueue), the two-sided hw kernels of the sharded path (f32,
@@ -51,29 +55,66 @@ CONTROL_HW = ("filter_hw22", "dfilt_hw22", "filter_sum_hw22",
 
 
 def ptxas_start(work):
-    """Start ``nvcc -Xptxas -v`` on ``pack3d.cu`` (an object in *work*)."""
-    src = os.path.join(_build.CSRC, "pack3d.cu")
-    return subprocess.Popen(
+    """Start ``nvcc -Xptxas -v`` on ``fpack.cu`` and ``pack3d.cu`` (objects
+    in *work*)."""
+    return [subprocess.Popen(
         [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
-         _build.CSRC, "-c", "-o", os.path.join(work, "pack3d.o"), src],
+         _build.CSRC, "-c", "-o", os.path.join(work, src + ".o"),
+         os.path.join(_build.CSRC, src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src in ("fpack.cu", "pack3d.cu")]
 
 
-def ptxas_print(proc) -> None:
+# the analysis instance fwd_pack_kernel<T, PLANES, P, MT> in a mangled name
+_FWD_NAME = re.compile(r"fwd_pack_kernelI(f|d|13__nv_bfloat16)Lb([01])E"
+                       r"Li(\d+)ELi(\d+)E")
+_DTYPES = {"f": torch.float32, "d": torch.float64,
+           "13__nv_bfloat16": torch.bfloat16}
+
+
+def _blocks_an_sm(regs: int, smem: int) -> int:
+    """Blocks of 256 threads an H100 SM holds: 2048 threads, 65536
+    registers allocated a warp at a time in units of 256, 228 KB of
+    shared memory (1 KB of it a block's)."""
+    warp_regs = -(-regs * 32 // 256) * 256
+    return min(2048 // 256, 65536 // warp_regs // 8, 233472 // (smem + 1024))
+
+
+def ptxas_print(procs) -> None:
     """Print the resource lines of ptxas's report for each instance of the
-    synthesis kernel."""
-    out, _ = proc.communicate()
-    name = None
-    for line in out.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            name = m.group(1) if "inv_pack_kernel" in m.group(1) else None
-            continue
-        if name and ("Used" in line or "spill" in line):
-            print("ptxas %s: %s" % (name, line.split(" : ")[-1].strip()),
-                  flush=True)
-    if proc.returncode:
-        print("ptxas report failed (exit %d):\n%s" % (proc.returncode, out))
+    two kernels, and the analysis instances' blocks an SM."""
+    from dtcwt_tpu_torch.ops import hwtile
+    for proc in procs:
+        out, _ = proc.communicate()
+        name = label = None
+        for line in out.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                name = label = None
+                f = _FWD_NAME.search(m.group(1))
+                if f:
+                    label = (_DTYPES[f.group(1)], f.group(2) == "1",
+                             int(f.group(3)), int(f.group(4)))
+                    name = "fwd_pack_kernel<%s, %s, P=%d, MT=%d>" % (
+                        str(label[0]).split(".")[-1],
+                        "planes" if label[1] else "interleaved", *label[2:])
+                elif "inv_pack_kernel" in m.group(1):
+                    name = m.group(1)
+                continue
+            if name and ("Used" in line or "spill" in line):
+                print("ptxas %s: %s" % (name, line.split(" : ")[-1].strip()),
+                      flush=True)
+                r = re.search(r"Used (\d+) registers", line)
+                if label and r:
+                    dtype, planes, P, mt = label
+                    smem = hwtile._fwd_pack_geometry(P, mt, dtype,
+                                                     planes).smem
+                    print("ptxas %s: dynamic shared memory %d bytes, %d "
+                          "blocks an SM" % (name, smem, _blocks_an_sm(
+                              int(r.group(1)), smem)), flush=True)
+        if proc.returncode:
+            print("ptxas report failed (exit %d):\n%s" % (proc.returncode,
+                                                          out))
 
 
 def time_kernels(dev) -> int:
@@ -154,11 +195,11 @@ def main() -> int:
     print("nvidia-smi: " + smi, flush=True)
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as work:
-        proc = ptxas_start(work)
+        procs = ptxas_start(work)
         t0 = time.perf_counter()
         _build.library()
         print("build: %.1f s" % (time.perf_counter() - t0), flush=True)
-        ptxas_print(proc)
+        ptxas_print(procs)
     bad = time_kernels(dev)
     if sys.argv[1:] != ["kernels"]:
         time_controls(dev)
